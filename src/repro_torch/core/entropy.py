@@ -1,0 +1,125 @@
+"""GDS — Gradient Data Sampler (paper §IV-B), on torch tensors.
+
+Port of ``repro/core/entropy.py``. Entropy is estimated from a two-level
+down-sample: GSR beta (fraction of entries per measured iteration) and ISR
+alpha (fraction of iterations measured; the gate lives in the controller).
+
+  * ``gaussian_entropy`` — Lemma 2, H = log(sigma) + 0.5*log(2*pi*e); what
+    CQM's Theorem 3 consumes.
+  * ``histogram_entropy`` — plug-in estimator -sum p log(p / w) in plain
+    torch (the reference's Pallas histogram kernel is ROADMAP Queue 2).
+
+The measurement stays on the device: ``grads_entropy`` returns a 0-d tensor
+and the trainer reads it at its next flush.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+
+__all__ = ["GDSConfig", "strided_sample", "gaussian_entropy",
+           "histogram_entropy", "sample_moments", "entropy_from_moments",
+           "grads_entropy"]
+
+# log(2*pi*e), rounded through float32 as the reference computes it
+_LOG_2PI_E = float(np.log(np.float32(2.0 * np.pi)) + np.float32(1.0))
+
+
+def strided_sample(x: torch.Tensor, beta: float) -> torch.Tensor:
+    """Deterministic strided sub-sample of a flattened tensor.
+
+    Strided (not random) so every data-parallel replica samples the same
+    positions without sharing a generator.
+    """
+    flat = x.reshape(-1)
+    if beta >= 1.0:
+        return flat
+    n = flat.shape[0]
+    k = max(1, int(n * beta))
+    stride = max(1, n // k)
+    return flat[: stride * k: stride]
+
+
+def gaussian_entropy(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Lemma 2: H(N(mu, sigma^2)) = log sigma + 1/2 log(2 pi e)  [nats]."""
+    sigma = torch.std(x.float(), unbiased=False)
+    return torch.log(sigma + eps) + 0.5 * _LOG_2PI_E
+
+
+def histogram_entropy(x: torch.Tensor, num_bins: int = 256,
+                      range_sigmas: float = 8.0,
+                      eps: float = 1e-12) -> torch.Tensor:
+    """Plug-in differential entropy from a fixed-width histogram [nats].
+
+    Bins span ``mu ± range_sigmas * sigma``; H = -sum p log p + log(w).
+    """
+    x = x.float().reshape(-1)
+    mu = torch.mean(x)
+    sigma = torch.std(x, unbiased=False) + eps
+    lo = mu - range_sigmas * sigma
+    width = (2.0 * range_sigmas * sigma) / num_bins
+    idx = torch.clamp(((x - lo) / width).to(torch.int32), 0, num_bins - 1)
+    counts = torch.bincount(idx.long(), minlength=num_bins).float()
+    p = counts / x.shape[0]
+    plogp = torch.where(p > 0, p * torch.log(p + eps), torch.zeros_like(p))
+    return -torch.sum(plogp) + torch.log(width + eps)
+
+
+@dataclasses.dataclass(frozen=True)
+class GDSConfig:
+    """Sampling configuration (paper defaults: beta=0.25, alpha=0.1)."""
+
+    beta: float = 0.25          # GSR: fraction of entries per measured iter
+    alpha: float = 0.1          # ISR: fraction of iters measured per window
+    estimator: str = "gaussian"  # "gaussian" | "histogram"
+    num_bins: int = 256
+
+    def measure_every(self) -> int:
+        """GDS measures gradient entropy once every 1/alpha iterations."""
+        return max(1, round(1.0 / self.alpha))
+
+    def should_measure(self, step_in_window: int) -> bool:
+        return step_in_window % self.measure_every() == 0
+
+
+def _sampled_leaves(grads, cfg: GDSConfig) -> list[torch.Tensor]:
+    return [strided_sample(l, cfg.beta).float()
+            for l in tree.leaves(grads) if l.numel() > 16]
+
+
+def sample_moments(grads, cfg: GDSConfig = GDSConfig()):
+    """(count, sum, sum-of-squares) of the pooled beta-sample of a tree.
+
+    Sufficient statistics for the Gaussian estimator, and additive across
+    partial trees.
+    """
+    samples = _sampled_leaves(grads, cfg)
+    if not samples:
+        z = torch.zeros(())
+        return z, z, z
+    n = torch.tensor(float(sum(s.shape[0] for s in samples)),
+                     device=samples[0].device)
+    s1 = sum(torch.sum(s) for s in samples)
+    s2 = sum(torch.sum(s * s) for s in samples)
+    return n, s1, s2
+
+
+def entropy_from_moments(n, s1, s2, eps: float = 1e-12) -> torch.Tensor:
+    """Lemma 2 from pooled sufficient statistics: H = log sigma + c."""
+    n = torch.clamp(n, min=1.0)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    return torch.log(torch.sqrt(var) + eps) + 0.5 * _LOG_2PI_E
+
+
+@torch.no_grad()
+def grads_entropy(grads, cfg: GDSConfig = GDSConfig()) -> torch.Tensor:
+    """Entropy of the pooled beta-sample over all leaves of a gradient tree."""
+    if cfg.estimator == "histogram":
+        return histogram_entropy(torch.cat(_sampled_leaves(grads, cfg)),
+                                 cfg.num_bins)
+    return entropy_from_moments(*sample_moments(grads, cfg))

@@ -1,0 +1,64 @@
+"""Deterministic synthetic LM stream (port of ``SyntheticLM`` in
+``repro/data/pipeline.py``).
+
+Pure numpy, copied as it is, so both packages draw bit-identical batches
+from one seed: a Zipf-weighted order-2 Markov token stream with real
+sequential structure, deterministic and infinitely long. Batches are numpy
+``int32`` arrays; the trainer moves them to its device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
+__all__ = ["SyntheticLM"]
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    """Order-2 Markov chain with Zipf marginals, deterministic by seed."""
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    zipf_a: float = 1.3
+
+    def __post_init__(self) -> None:
+        rng = np.random.default_rng(self.seed)
+        V = self.vocab_size
+        # Zipf-ish marginal
+        ranks = np.arange(1, V + 1, dtype=np.float64)
+        base = 1.0 / ranks ** self.zipf_a
+        base /= base.sum()
+        # each (prev-token bucket) induces a different permutation of the
+        # marginal — cheap stand-in for bigram structure
+        self._n_buckets = 64
+        self._perms = np.stack(
+            [rng.permutation(V) for _ in range(self._n_buckets)])
+        self._base = base
+        self._rng = np.random.default_rng(self.seed + 1)
+
+    def _sample_batch(self) -> np.ndarray:
+        """Batch-vectorized sequential draw (loop over T, vector over B)."""
+        B, T, V = self.batch_size, self.seq_len + 1, self.vocab_size
+        cdf = np.cumsum(self._base)
+        draws = self._rng.random((B, T))
+        out = np.empty((B, T), np.int64)
+        prev = np.zeros(B, np.int64)
+        for t in range(T):
+            buckets = (prev * 2654435761) % self._n_buckets
+            idx = np.minimum(np.searchsorted(cdf, draws[:, t]), V - 1)
+            prev = self._perms[buckets, idx]
+            out[:, t] = prev
+        return out
+
+    def batches(self) -> Iterator[dict]:
+        while True:
+            seqs = self._sample_batch()
+            yield {
+                "tokens": seqs[:, :-1].astype(np.int32),
+                "labels": seqs[:, 1:].astype(np.int32),
+            }

@@ -1,0 +1,42 @@
+"""Data-parallel gradient-sync collectives on ``torch.distributed``.
+
+Port of ``make_dp_pmean`` from ``repro/dist/collectives.py``. Each process
+is one data-parallel worker; the mean over workers is an all-reduce (SUM)
+divided by the world size. Without an initialised process group (or at
+world size 1) it is the identity, the reference's single-worker case.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree
+
+__all__ = ["dp_world_size", "dp_rank", "make_dp_pmean"]
+
+
+def dp_world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def dp_rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def make_dp_pmean() -> Callable[[Any], Any]:
+    """Mean over the data-parallel workers of a tensor or a tree of them.
+
+    The input is never written: each collective reduces a copy.
+    """
+    world = dp_world_size()
+    if world == 1:
+        return lambda x: x
+
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        out = t.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out.div_(world)
+
+    return lambda x: tree.tree_map(mean, x)

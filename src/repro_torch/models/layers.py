@@ -1,0 +1,211 @@
+"""Shared layers on torch (port of the dense half of ``repro/models/layers.py``).
+
+Conventions follow the reference: weights are stored ``(in, out)``, stacked
+layer leaves carry a leading layer dim, products come back in fp32, and
+results are cast to the activation dtype where the reference casts.
+
+One difference in bf16: the reference keeps the fp32 accumulator of a
+bf16 product (``preferred_element_type``); here the projection products
+run in the working dtype and are rounded to it before the fp32 cast. The
+attention scores and the softmax-weighted values are computed in fp32
+outright. In fp32 (what the parity tests run) the two agree.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+# --------------------------------------------------------------------------- init
+# Initialisers draw on the CPU from the generator ``gen``; the model's
+# ``init`` moves the finished tree to its device.
+def dense_init(gen, shape, dtype, scale: float | None = None):
+    """Normal(0, 1/sqrt(d_in)) weights of ``shape`` (..., d_in, d_out)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    w = torch.randn(tuple(shape), generator=gen, dtype=F32)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen, vocab: int, d: int, dtype):
+    w = torch.randn((vocab, d), generator=gen, dtype=F32)
+    return (w * 0.02).to(dtype)
+
+
+def _mm(eq: str, x, w):
+    """Product in the operands' dtype, returned in fp32."""
+    return torch.einsum(eq, x, w).to(F32)
+
+
+# --------------------------------------------------------------------------- norms
+def rms_norm(x, weight, eps: float = 1e-5):
+    x32 = x.to(F32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * weight.to(F32)).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    x32 = x.to(F32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * weight.to(F32) + bias.to(F32)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- rope
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (B, T, H, Dh); positions: (B, T)."""
+    dh = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=F32, device=x.device) / dh))
+    ang = positions[..., :, None].to(F32) * inv
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- mlp
+def mlp_init(gen, n: int, d_model: int, d_ff: int, dtype, gated: bool = True,
+             bias: bool = False):
+    p = {"up": dense_init(gen, (n, d_model, d_ff), dtype),
+         "down": dense_init(gen, (n, d_ff, d_model), dtype)}
+    if gated:
+        p["gate"] = dense_init(gen, (n, d_model, d_ff), dtype)
+    if bias:
+        p["up_bias"] = torch.zeros((n, d_ff), dtype=dtype)
+        p["down_bias"] = torch.zeros((n, d_model), dtype=dtype)
+    return p
+
+
+def mlp_apply(p, x, act: str = "silu"):
+    up = _mm("btd,df->btf", x, p["up"])
+    if "up_bias" in p:
+        up = up + p["up_bias"].to(F32)
+    if "gate" in p:
+        gate = _mm("btd,df->btf", x, p["gate"])
+        h = (F.silu(gate) if act == "silu"
+             else F.gelu(gate, approximate="tanh")) * up
+    else:
+        h = F.gelu(up, approximate="tanh") if act == "gelu" else F.silu(up)
+    h = h.to(x.dtype)
+    out = _mm("btf,fd->btd", h, p["down"])
+    if "down_bias" in p:
+        out = out + p["down_bias"].to(F32)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- attention
+def attn_init(gen, n: int, d_model: int, num_heads: int, num_kv_heads: int,
+              head_dim: int, dtype, qkv_bias: bool = False,
+              qk_norm: bool = False):
+    p = {
+        "wq": dense_init(gen, (n, d_model, num_heads * head_dim), dtype),
+        "wk": dense_init(gen, (n, d_model, num_kv_heads * head_dim), dtype),
+        "wv": dense_init(gen, (n, d_model, num_kv_heads * head_dim), dtype),
+        "wo": dense_init(gen, (n, num_heads * head_dim, d_model), dtype),
+    }
+    z = lambda *s: torch.zeros((n,) + s, dtype=dtype)
+    if qkv_bias:
+        p["q_bias"] = z(num_heads * head_dim)
+        p["k_bias"] = z(num_kv_heads * head_dim)
+        p["v_bias"] = z(num_kv_heads * head_dim)
+    if qk_norm:
+        p["q_norm_scale"] = torch.ones((n, head_dim), dtype=dtype)
+        p["k_norm_scale"] = torch.ones((n, head_dim), dtype=dtype)
+    return p
+
+
+def _project_qkv(p, x, num_heads, num_kv_heads, head_dim, positions,
+                 rope_theta, use_rope, norm_eps):
+    B, T, _ = x.shape
+    q = _mm("btd,de->bte", x, p["wq"])
+    k = _mm("btd,de->bte", x, p["wk"])
+    v = _mm("btd,de->bte", x, p["wv"])
+    if "q_bias" in p:
+        q = q + p["q_bias"].to(F32)
+        k = k + p["k_bias"].to(F32)
+        v = v + p["v_bias"].to(F32)
+    q = q.reshape(B, T, num_heads, head_dim)
+    k = k.reshape(B, T, num_kv_heads, head_dim)
+    v = v.reshape(B, T, num_kv_heads, head_dim).to(x.dtype)
+    if "q_norm_scale" in p:
+        q = rms_norm(q, p["q_norm_scale"], norm_eps)
+        k = rms_norm(k, p["k_norm_scale"], norm_eps)
+    if use_rope:
+        q = apply_rope(q.to(x.dtype), positions, rope_theta)
+        k = apply_rope(k.to(x.dtype), positions, rope_theta)
+    return q.to(x.dtype), k.to(x.dtype), v
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
+                        block_q: int = 512):
+    """Causal GQA attention, one query block at a time.
+
+    q: (B, Tq, H, Dh); k, v: (B, Tk, Hkv, Dh), H a multiple of Hkv. Masked
+    scores are -1e30; softmax in fp32; never more than (block_q x Tk)
+    scores live at once. (The reference pads Tq to a multiple of block_q;
+    rows are independent, so the short last block here gives the same
+    values.)
+    """
+    B, Tq, H, Dh = q.shape
+    _, Tk, Hkv, _ = k.shape
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(Dh)
+    k32, v32 = k.to(F32), v.to(F32)
+    k_pos = torch.arange(Tk, device=q.device)
+    outs = []
+    for start in range(0, Tq, block_q):
+        qi = q[:, start:start + block_q]
+        bq = qi.shape[1]
+        q_pos = start + torch.arange(bq, device=q.device)
+        qh = qi.reshape(B, bq, Hkv, rep, Dh).to(F32)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qh, k32) * scale
+        mask = torch.ones((bq, Tk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = s.masked_fill(~mask, -1e30)
+        p = torch.softmax(s, dim=-1).to(v.dtype).to(F32)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, v32)
+        outs.append(o.reshape(B, bq, H, Dh).to(v.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attn_apply(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
+               causal: bool = True, positions=None, rope_theta: float = 1e4,
+               use_rope: bool = True, window: int = 0, norm_eps: float = 1e-5,
+               block_q: int = 512):
+    """Full-sequence (training) GQA attention."""
+    B, T, _ = x.shape
+    if positions is None:
+        positions = torch.arange(T, device=x.device).expand(B, T)
+    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
+                           positions, rope_theta, use_rope, norm_eps)
+    o = blockwise_attention(q, k, v, causal=causal, window=window,
+                            block_q=block_q)
+    o = o.reshape(B, T, num_heads * head_dim)
+    return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- head
+def lm_logits(x, embed_or_head, tie: bool):
+    """Final projection to vocab (fp32); tied uses the embedding transposed."""
+    if tie:
+        return _mm("btd,vd->btv", x, embed_or_head)
+    return _mm("btd,dv->btv", x, embed_or_head)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE in nats; logits (B,T,V) fp32, labels (B,T) int64."""
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

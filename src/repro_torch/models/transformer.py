@@ -1,0 +1,148 @@
+"""Dense decoder-only transformer family (port of ``repro/models/transformer.py``).
+
+Covers the GPT-2 family of the paper (LayerNorm, plain GeLU, learned
+positions, tied embeddings, MHA) and the qwen2-style options (RMSNorm,
+RoPE, GQA, QKV bias, gated SiLU). Block parameters are stacked per virtual
+pipeline stage under ``['stages'][s]['blocks']``, every leaf with a leading
+layer dim, exactly as in the reference; the forward loops over the stack
+where the reference scans it. ``cfg.remat`` checkpoints each block with
+``torch.utils.checkpoint``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree
+from . import layers as L
+from .model import Model, ModelConfig
+
+F32 = torch.float32
+
+
+# ----------------------------------------------------------------------- init
+def _stack_init(gen, cfg: ModelConfig, n: int) -> dict[str, Any]:
+    """n stacked blocks: every leaf has a leading layer dim."""
+    dt = cfg.torch_dtype
+    ones = lambda: torch.ones((n, cfg.d_model), dtype=dt)
+    p: dict[str, Any] = {
+        "attn_norm_scale": ones(),
+        "attn": L.attn_init(gen, n, cfg.d_model, cfg.num_heads,
+                            cfg.num_kv_heads, cfg.hd, dt, cfg.qkv_bias,
+                            cfg.qk_norm),
+        "mlp_norm_scale": ones(),
+        "mlp": L.mlp_init(gen, n, cfg.d_model, cfg.d_ff, dt,
+                          gated=cfg.act in ("silu", "gelu"),
+                          bias=cfg.norm == "layernorm"),
+    }
+    if cfg.norm == "layernorm":
+        p["attn_norm_bias"] = torch.zeros((n, cfg.d_model), dtype=dt)
+        p["mlp_norm_bias"] = torch.zeros((n, cfg.d_model), dtype=dt)
+    return p
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, seed: int, device) -> dict[str, Any]:
+    """Random parameters on ``device``, drawn from a CPU generator seeded
+    with ``seed``: one seed gives the same weights on every device, as
+    ``jax.random`` does in the reference."""
+    return tree.tree_map(lambda t: t.to(device), _init_cpu(cfg, seed))
+
+
+def _init_cpu(cfg: ModelConfig, seed: int) -> dict[str, Any]:
+    gen = torch.Generator().manual_seed(seed)
+    dt = cfg.torch_dtype
+    params: dict[str, Any] = {
+        "embed": {"tok": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)},
+        "stages": [{"blocks": _stack_init(gen, cfg, sz)}
+                   for sz in cfg.stage_sizes()],
+        "final_norm_scale": torch.ones((cfg.d_model,), dtype=dt),
+    }
+    if cfg.norm == "layernorm":
+        params["final_norm_bias"] = torch.zeros((cfg.d_model,), dtype=dt)
+    if cfg.pos == "learned":
+        pos = torch.randn((cfg.max_position, cfg.d_model), generator=gen,
+                          dtype=F32)
+        params["pos_embed"] = (pos * 0.01).to(dt)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
+    return params
+
+
+# -------------------------------------------------------------------- forward
+def _norm(x, p, prefix, cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return L.layer_norm(x, p[f"{prefix}_scale"], p[f"{prefix}_bias"],
+                            cfg.norm_eps)
+    return L.rms_norm(x, p[f"{prefix}_scale"], cfg.norm_eps)
+
+
+def _block_apply(bp, x, cfg: ModelConfig, positions, window: int):
+    h = _norm(x, bp, "attn_norm", cfg)
+    h = L.attn_apply(
+        bp["attn"], h, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.hd, causal=True, positions=positions,
+        rope_theta=cfg.rope_theta, use_rope=(cfg.pos == "rope"),
+        window=window, norm_eps=cfg.norm_eps, block_q=cfg.block_q,
+    )
+    x = x + h
+    h = _norm(x, bp, "mlp_norm", cfg)
+    h = L.mlp_apply(bp["mlp"], h, act="gelu" if "gelu" in cfg.act else "silu")
+    return x + h
+
+
+def apply_block_stack(blocks, x, cfg: ModelConfig, positions, window: int):
+    """Run one stacked set of decoder blocks (one pipeline stage's worth)."""
+    for i in range(tree.leaves(blocks)[0].shape[0]):
+        bp = tree.tree_map(lambda t, i=i: t[i], blocks)
+        if cfg.remat:
+            x = checkpoint(_block_apply, bp, x, cfg, positions, window,
+                           use_reentrant=False)
+        else:
+            x = _block_apply(bp, x, cfg, positions, window)
+    return x
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig):
+    x = params["embed"]["tok"][tokens]
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][: tokens.shape[-1]]
+    return x
+
+
+def final_logits(params, x, cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        x = L.layer_norm(x, params["final_norm_scale"], params["final_norm_bias"],
+                         cfg.norm_eps)
+    else:
+        x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    w = params["embed"]["tok"] if cfg.tie_embeddings else params["lm_head"]
+    return L.lm_logits(x, w, tie=cfg.tie_embeddings)
+
+
+def forward(params, batch, cfg: ModelConfig):
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    x = embed_tokens(params, tokens, cfg)
+    for stage in params["stages"]:
+        x = apply_block_stack(stage["blocks"], x, cfg, positions,
+                              cfg.sliding_window)
+    return final_logits(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    logits = forward(params, batch, cfg)
+    loss = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+def build(cfg: ModelConfig) -> Model:
+    return Model(
+        config=cfg,
+        init=lambda seed, device: init(cfg, seed, device),
+        loss_fn=lambda p, b: loss_fn(p, b, cfg),
+        forward=lambda p, b: forward(p, b, cfg),
+    )

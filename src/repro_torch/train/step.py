@@ -1,0 +1,118 @@
+"""Flat data-parallel train step (port of the flat branch of ``repro/train/step.py``).
+
+One step: loss and gradients on this worker's batch shard, the DP sync
+through the :class:`SyncExecutor` (compressed factor means for planned
+leaves, plain means for the rest), the GDS entropy of the synced
+gradients when the alpha gate asks for it, and an AdamW update. The
+pipelined branch is ROADMAP Queue 1 item 8; the fault channel
+(``guard_nonfinite``/``_inject``) waits with it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree
+from repro_torch.core import powersgd
+from repro_torch.core.compressor import CompressionPlan
+from repro_torch.core.config import SYNC_FIELDS, alias_property, resolve_embedded
+from repro_torch.core.entropy import GDSConfig, grads_entropy
+from repro_torch.core.sync_executor import SyncExecutor
+from repro_torch.dist.collectives import make_dp_pmean
+from repro_torch.models.model import Model
+from repro_torch.optim import adam
+from repro_torch.pipeline.config import PIPELINE_FIELDS
+
+__all__ = ["TrainStepConfig", "make_train_step"]
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class TrainStepConfig:
+    """Config of ``make_train_step``; ``pipeline``/``sync`` are the embedded configs."""
+
+    mode: str = "dp_tp"
+    policy_plan: CompressionPlan = CompressionPlan(ranks=())
+    gds: GDSConfig = GDSConfig()
+    measure_entropy: bool = True
+    remat: bool = True             # checkpoint the whole loss function
+    pipeline: object = None
+    sync: object = None
+    adam: adam.AdamConfig = dataclasses.field(default_factory=adam.AdamConfig)
+
+    def __init__(self, mode: str = "dp_tp",
+                 policy_plan: CompressionPlan = CompressionPlan(ranks=()),
+                 gds: GDSConfig | None = None, measure_entropy: bool = True,
+                 remat: bool = True, pipeline=None, sync=None, adam=None,
+                 **legacy) -> None:
+        pipeline, sync = resolve_embedded(pipeline, sync, legacy,
+                                          where="TrainStepConfig")
+        if adam is None:
+            from repro_torch.optim.adam import AdamConfig
+            adam = AdamConfig()
+        set_ = lambda k, v: object.__setattr__(self, k, v)
+        set_("mode", mode)
+        set_("policy_plan", policy_plan)
+        set_("gds", gds if gds is not None else GDSConfig())
+        set_("measure_entropy", measure_entropy)
+        set_("remat", remat)
+        set_("pipeline", pipeline)
+        set_("sync", sync)
+        set_("adam", adam)
+
+
+for _name in PIPELINE_FIELDS:
+    setattr(TrainStepConfig, _name, alias_property("pipeline", _name))
+for _name in SYNC_FIELDS:
+    setattr(TrainStepConfig, _name, alias_property("sync", _name))
+del _name
+
+
+def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
+    """Returns ``step(state, batch) -> (state, metrics)``.
+
+    state = {params, opt_m, opt_v, opt_step, comp}; metrics = {loss,
+    entropy, ef_norm, lr, grad_norm}, all 0-d tensors left on the device.
+    ``psum_mean`` defaults to the mean over the ``torch.distributed`` world.
+    """
+    if cfg.num_stages > 1:
+        raise NotImplementedError("the pipelined train step is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
+    if cfg.mode != "dp_tp":
+        raise NotImplementedError(f"mode={cfg.mode!r}: only the flat dp_tp "
+                                  "step is ported")
+    pmean = psum_mean or make_dp_pmean()
+    sync_exec = SyncExecutor(cfg.sync, mode="flat", plan=cfg.policy_plan)
+    loss_fn = model.loss_fn
+
+    def step(state, batch):
+        params = tree.tree_map(lambda p: p.detach().requires_grad_(True),
+                               state["params"])
+        with torch.enable_grad():
+            if cfg.remat:
+                loss, mets = checkpoint(loss_fn, params, batch,
+                                        use_reentrant=False)
+            else:
+                loss, mets = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, tree.leaves(params))
+        grads = tree.unflatten(params, grads)
+        loss = pmean(loss.detach())
+        synced, comp = sync_exec.sync(grads, state["comp"], pmean)
+        entropy = (grads_entropy(synced, cfg.gds) if cfg.measure_entropy
+                   else torch.zeros((), device=loss.device))
+        opt_state = adam.AdamState(state["opt_step"], state["opt_m"],
+                                   state["opt_v"])
+        new_params, opt_state, opt_mets = adam.update(
+            state["params"], synced, opt_state, cfg.adam)
+        ef_norm = torch.sqrt(pmean(powersgd.ef_norm_sq(comp).to(loss.device)))
+        new_state = {"params": new_params, "opt_m": opt_state.m,
+                     "opt_v": opt_state.v, "opt_step": opt_state.step,
+                     "comp": comp}
+        metrics = {"loss": loss, "entropy": entropy, "ef_norm": ef_norm,
+                   **opt_mets,
+                   **{k: pmean(v.detach()) for k, v in mets.items()
+                      if k != "loss"}}
+        return new_state, metrics
+
+    return step

@@ -1,0 +1,230 @@
+"""The port's PowerSGD kernels: plain versions against the reference's
+oracles (``repro.kernels.ref``) and Pallas kernels (interpret mode), at
+``tests/test_kernels.py``'s tolerances. The CUDA kernels are held against
+their plain versions on the card in ``test_torch_kernels_cuda.py``."""
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import lowrank as ref_lr
+from repro.kernels import ref as ref_oracle
+
+from repro_torch.kernels import lowrank as lr
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+
+STACKS = [(1, 128, 256), (2, 256, 128), (3, 128, 384)]
+DTYPES = ["float32", "bfloat16"]
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+@pytest.fixture(autouse=True)
+def _small_torch_thread_pool():
+    """The suite runs in several worker processes at once: a small intra-op
+    pool per worker keeps them from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
+def _np(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=10 * tol)
+
+
+@pytest.mark.parametrize("shape", STACKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rank", [4, 16])
+def test_p_plain_matches_reference(shape, dtype, rank):
+    e, m, n = shape
+    gj, gt = _pair(_np(shape, 0), dtype)
+    ej, et = _pair(_np(shape, 1), dtype)
+    qj, qt = _pair(_np((e, n, rank), 2), "float32")
+    got = lr.ef_lowrank_p(gt, et, qt)
+    assert got.dtype == torch.float32 and got.shape == (e, m, rank)
+    _close(got, ref_lr.ef_lowrank_p_batched(gj, ej, qj, interpret=True), TOL[dtype])
+    for i in range(e):
+        _close(got[i], ref_oracle.ef_lowrank_p(gj[i], ej[i], qj[i]), TOL[dtype])
+    _close(ops.lowrank_p(gt[0], et[0], qt[0]),
+           ref_lr.ef_lowrank_p(gj[0], ej[0], qj[0], interpret=True), TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", STACKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_q_plain_matches_reference(shape, dtype):
+    e, m, n = shape
+    gj, gt = _pair(_np(shape, 3), dtype)
+    ej, et = _pair(_np(shape, 4), dtype)
+    pj, pt = _pair(_np((e, m, 16), 5), "float32")
+    got = lr.ef_lowrank_q(gt, et, pt)
+    assert got.shape == (e, n, 16)
+    _close(got, ref_lr.ef_lowrank_q_batched(gj, ej, pj, interpret=True), TOL[dtype])
+    for i in range(e):
+        _close(got[i], ref_oracle.ef_lowrank_q(gj[i], ej[i], pj[i]), TOL[dtype])
+    _close(ops.lowrank_q(gt[0], et[0], pt[0]),
+           ref_lr.ef_lowrank_q(gj[0], ej[0], pj[0], interpret=True), TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", STACKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decompress_plain_matches_reference(shape, dtype):
+    e, m, n = shape
+    tol = 1e-4 if dtype == "float32" else 1e-1
+    gj, gt = _pair(_np(shape, 6), dtype)
+    ej, et = _pair(_np(shape, 7), dtype)
+    pj, pt = _pair(_np((e, m, 8), 8), "float32")
+    qj, qt = _pair(_np((e, n, 8), 9), "float32")
+    gh, ne = lr.decompress_residual(pt, qt, gt, et)
+    assert gh.dtype == ne.dtype == gt.dtype
+    ghr, ner = ref_lr.decompress_residual_batched(pj, qj, gj, ej, interpret=True)
+    _close(gh, ghr, tol)
+    _close(ne, ner, tol)
+    for i in range(e):
+        gho, neo = ref_oracle.decompress_residual(pj[i], qj[i], gj[i], ej[i])
+        _close(gh[i], gho, tol)
+        _close(ne[i], neo, tol)
+    gh2, ne2 = ops.decompress_residual(pt[0], qt[0], gt[0], et[0])
+    _close(gh2, gh[0], 0)
+    _close(ne2, ne[0], 0)
+
+
+def _assert_orthonormal_span(got: np.ndarray, want: np.ndarray):
+    r = got.shape[-1]
+    np.testing.assert_allclose(got.T @ got, np.eye(r), atol=2e-4)
+    np.testing.assert_allclose(np.abs(got.T @ want), np.eye(r), atol=2e-3)
+
+
+@pytest.mark.parametrize("e,m", [(1, 64), (2, 256), (3, 1024)])
+@pytest.mark.parametrize("r", [4, 16, 64])
+def test_gram_schmidt_plain_matches_reference(e, m, r):
+    pj, pt = _pair(_np((e, m, r), 10), "float32")
+    got = lr.gram_schmidt_panel(pt).numpy()
+    pallas = np.asarray(ref_lr.gram_schmidt_panel_batched(pj, interpret=True))
+    for i in range(e):
+        _assert_orthonormal_span(got[i], np.asarray(ref_oracle.gram_schmidt(pj[i])))
+        _assert_orthonormal_span(got[i], pallas[i])
+        # the port's own modified-GS oracle spans the same columns too
+        _assert_orthonormal_span(ref.gram_schmidt(pt[i]).numpy(), got[i])
+
+
+def test_orthonormalize_routes_like_reference():
+    """Gram-Schmidt panels under 4 MiB with m % 8 == 0, QR otherwise."""
+    assert not ops._use_qr(7680, 64) and not ops._use_qr(1920, 64)
+    assert ops._use_qr(100, 8)                  # m % 8
+    assert ops._use_qr(20000, 64)               # 5 MB panel
+    p = torch.from_numpy(_np((2, 100, 8), 11))
+    q = ops.orthonormalize3(p)
+    np.testing.assert_allclose(q.numpy(), torch.linalg.qr(p)[0].numpy())
+
+
+def test_plain_path_counts_no_launches():
+    before = [k.launches for k in lr.KERNELS]
+    g = torch.from_numpy(_np((2, 64, 64), 12))
+    q = torch.from_numpy(_np((2, 64, 8), 13))
+    p = lr.ef_lowrank_p(g, g, q)
+    lr.ef_lowrank_q(g, g, lr.gram_schmidt_panel(p))
+    lr.decompress_residual(p, q, g, g)
+    assert [k.launches for k in lr.KERNELS] == before
+
+
+# ------------------------------------------- the launch layer, without a card
+class _FakeEntryPoint:
+    """Stands in for one C entry point: checks each call against the
+    ``argtypes`` the wrapper module declared, records it, returns ``rc``."""
+
+    def __init__(self, name, calls, rc):
+        self.name, self.calls, self.rc = name, calls, rc
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        assert len(args) == len(self.argtypes), (self.name, len(args))
+        for a, t in zip(args, self.argtypes):
+            want = {ctypes.c_void_p: ctypes.c_void_p, ctypes.c_int: int,
+                    ctypes.c_float: float}[t]
+            assert isinstance(a, want), (self.name, a, t)
+        self.calls.append((self.name, args))
+        return self.rc
+
+
+class _FakeLib:
+    def __init__(self, rc=0):
+        self.calls, self.rc = [], rc
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        fn = _FakeEntryPoint(name, self.calls, self.rc)
+        if name == "repro_cuda_error_string":
+            fn = lambda code: b"fake error"
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' CUDA branch on CPU tensors, with a recording library."""
+    import contextlib
+    import types
+    lib = _FakeLib()
+    monkeypatch.setattr(lr.build, "load", lambda name: lib)
+    monkeypatch.setattr(lr, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=1234))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=132))
+    return lib
+
+
+def test_launches_match_the_declared_c_signatures(fake_card):
+    g = torch.from_numpy(_np((1, 64, 7680), 21))
+    q = torch.from_numpy(_np((1, 7680, 8), 22))
+    before = [k.launches for k in lr.KERNELS]
+    p = lr.ef_lowrank_p(g, g.to(torch.bfloat16).float(), q)
+    lr.ef_lowrank_q(g.to(torch.bfloat16), g.to(torch.bfloat16), p)
+    lr.decompress_residual(p, q, g, g)
+    lr.gram_schmidt_panel(p)
+    assert [k.launches - b for k, b in zip(lr.KERNELS, before)] == [1, 1, 1, 1]
+    names = [name for name, _ in fake_card.calls]
+    assert names == ["repro_lowrank_p", "repro_lowrank_q",
+                     "repro_decompress_residual", "repro_gram_schmidt"]
+    (_, p_args), (_, q_args), (_, d_args), (_, gs_args) = fake_card.calls
+    # (E, m, n, r, splits, dtype); one block of 64 rows splits n 16 ways
+    assert p_args[5:11] == (1, 64, 7680, 8, 16, 0)
+    assert p_args[0].value == g.data_ptr() and p_args[3].value == p.data_ptr()
+    assert p_args[4].value != p_args[3].value     # split partials
+    assert q_args[5:11] == (1, 64, 7680, 8, 1, 1)  # bf16; m too short to split
+    assert q_args[4].value == q_args[3].value
+    assert d_args[6:11] == (1, 64, 7680, 8, 0)
+    assert gs_args[3:7] == (1, 64, 8, 1e-8)
+    assert all(args[-1].value == 1234 for _, args in fake_card.calls)
+
+
+def test_refused_launch_raises_and_counts_nothing(fake_card):
+    fake_card.rc = 1
+    g = torch.from_numpy(_np((2, 64, 64), 23))
+    before = lr.gram_schmidt_panel.launches
+    with pytest.raises(RuntimeError, match="fake error"):
+        lr.gram_schmidt_panel(g[..., :8])
+    assert lr.gram_schmidt_panel.launches == before
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        lr.ef_lowrank_p(g.double(), g.double(), g[..., :8].transpose(1, 2))

@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA Hopper card and ``nvcc`` and skips without
+a CUDA device. The file imports neither JAX nor the reference package, so
+it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import lowrank as lr
+from repro_torch.kernels import ref
+
+DTYPES = ["float32", "bfloat16"]
+
+
+def _np(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=10 * tol)
+
+
+def _assert_orthonormal_span(got: np.ndarray, want: np.ndarray):
+    r = got.shape[-1]
+    np.testing.assert_allclose(got.T @ got, np.eye(r), atol=2e-4)
+    np.testing.assert_allclose(np.abs(got.T @ want), np.eye(r), atol=2e-3)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (Hopper) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+CUDA_STACKS = [(4, 192, 320, 64), (3, 100, 77, 5), (2, 130, 1030, 70),
+               (1, 1920, 7680, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,n,r", CUDA_STACKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernels_match_plain(cuda_device, e, m, n, r, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.from_numpy(_np((e, m, n), 14)).to(cuda_device, dt)
+    err = torch.from_numpy(_np((e, m, n), 15)).to(cuda_device, dt)
+    q = torch.from_numpy(_np((e, n, r), 16)).to(cuda_device)
+    # fp32 sums of n (or m) terms in another order than cuBLAS
+    p = lr.ef_lowrank_p(g, err, q)
+    _close(p, ref.ef_lowrank_p(g, err, q), 1e-4 * max(1.0, (n / 128) ** 0.5))
+    p_hat = torch.from_numpy(_np((e, m, r), 17)).to(cuda_device)
+    qn = lr.ef_lowrank_q(g, err, p_hat)
+    _close(qn, ref.ef_lowrank_q(g, err, p_hat), 1e-4 * max(1.0, (m / 128) ** 0.5))
+    gh, ne = lr.decompress_residual(p_hat, q, g, err)
+    ghr, ner = ref.decompress_residual(p_hat, q, g, err)
+    tol = 1e-4 if dtype == "float32" else 1e-1
+    _close(gh, ghr.to(dt), tol)
+    _close(ne, ner.to(dt), tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,r", [(1, 64, 4), (8, 7680, 64), (3, 1000, 24)])
+def test_cuda_gram_schmidt_matches_plain(cuda_device, e, m, r):
+    p = torch.from_numpy(_np((e, m, r), 18)).to(cuda_device)
+    got = lr.gram_schmidt_panel(p).cpu().numpy()
+    want = lr.plain_gram_schmidt(p).cpu().numpy()
+    for i in range(e):
+        _assert_orthonormal_span(got[i], want[i])
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_count_launches(cuda_device):
+    before = [k.launches for k in lr.KERNELS]
+    g = torch.from_numpy(_np((2, 64, 64), 19)).to(cuda_device)
+    q = torch.from_numpy(_np((2, 64, 8), 20)).to(cuda_device)
+    p = lr.gram_schmidt_panel(lr.ef_lowrank_p(g, g, q))
+    lr.decompress_residual(p, lr.ef_lowrank_q(g, g, p), g, g)
+    assert [k.launches - b for k, b in zip(lr.KERNELS, before)] == [1, 1, 1, 1]
