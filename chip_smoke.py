@@ -9,18 +9,28 @@ Phases, in order; any failure raises, so the exit code is not 0:
   (a) build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
   (b) kernels  each PowerSGD kernel against its plain PyTorch version on
                the main path's shape groups (and a ragged shape, and bf16),
-               with kernel, plain, library-call and bound times
+               with kernel, plain, library-call and bound times; the
+               pack/unpack kernels bit-exact against theirs at 4 and 8
+               bits (the tied wte payload, a ragged n, under 512 words)
   (c) main     ``Trainer.run`` for 4 steps on gpt2-2.5b at its published
                widths (depth cut to 8 layers, 2 per stage), policy fixed,
                rank 64, kernels on, bucketed, batch 8 x seq 1024, bf16
   (d) control  policy edgc, 12 steps, window 4, depth 4: the DAC window
                re-plan and the stacked-state resize, kernels on
+  (f) wire     (c) again with ``wire="quant8"``: every sync payload coded
+               through the pack kernels, losses held to (c)'s; then
+               ``wire="entropy"`` on (d)'s run, bit width per window; then
+               the pack kernels timed at 8 bits over one step's payloads
+               of (c), beside the byte cast that computes the same words
   (e) check    a small fp32 model trained 3 steps on the card through the
-               kernels agrees with the same run on the CPU (plain versions)
+               kernels agrees with the same run on the CPU (plain
+               versions), raw and quant8
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
-kernel, its numbers summed over the main path's three shape groups (one
-step's work for that kernel). The last line is
+kernel, its numbers summed over one main-path step's work for that kernel
+(the three shape groups; the quant8 payloads for the pack kernels), its
+launches counted on the run that drives it: (c) for the PowerSGD kernels,
+(f) quant8 for the pack kernels. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 2 and
 prints no result.
 """
@@ -50,6 +60,12 @@ REPLACES = {
     "gram_schmidt": "src/repro/kernels/lowrank.py:288",
 }
 SOURCE = "src/repro_torch/kernels/csrc/lowrank.cu"
+PACK_SOURCE = "src/repro_torch/kernels/csrc/pack.cu"
+PACK_REPLACES = {"pack_words": "src/repro/kernels/pack.py:42",
+                 "unpack_words": "src/repro/kernels/pack.py:61"}
+# Pack correctness sizes: the tied wte member of gpt2-2.5b, a ragged n,
+# under 512 words at either width, a few codes.
+PACK_SIZES = [50257 * 1920, 512 * 8 + 3, 2047, 7]
 # Kernel against plain version, as max|kernel - plain| / max|plain|. fp32
 # products sum in another order than cuBLAS (about 1e-7 relative); bf16
 # outputs of decompress round once (2**-8 relative).
@@ -69,7 +85,9 @@ def _import_port():
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after one warm-up."""
+    """Mean time of ``fn`` over ``iters`` calls on the device's clock (CUDA
+    events), after one warm-up. Where ``fn`` launches kernels faster than
+    the host can issue them, this is the host's issue time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -80,6 +98,39 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(calls, iters: int) -> float:
+    """Device time of one pass over ``calls``: each call is timed on its
+    own, with CUDA events around ``iters`` runs queued behind a device-side
+    sleep of about 25 ms, so that the device runs them back to back. Unlike
+    ``time_ms`` this leaves out the gaps in which the device waits for the
+    host to launch, which dominate a run of small launches."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 50_000_000
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    total = 0.0
+    for call in calls:
+        call()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            call()
+        end.record()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if not queued_ms < 0.5 * sleep_ms:
+            raise AssertionError(f"queueing {iters} calls took {queued_ms:.1f} "
+                                 f"ms, not well inside a {sleep_ms:.1f} ms sleep")
+        total += start.elapsed_time(end) / iters
+    return total
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -198,10 +249,44 @@ def phase_kernels(report: dict, dev) -> None:
         del cases
         torch.cuda.empty_cache()
     report["kernel_rows"] = rows
+    report["pack_checks"] = check_pack(dev)
+
+
+def check_pack(dev) -> list[dict]:
+    """pack_words / unpack_words bit-exact against their plain versions on
+    random codes over the full range [0, 2**bits), top code included."""
+    from repro_torch.kernels import pack, ref
+    out = []
+    for bits in (4, 8):
+        for n in PACK_SIZES:
+            gen = torch.Generator(device=dev).manual_seed(n + bits)
+            codes = torch.randint(0, 1 << bits, (n,), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            codes[0] = (1 << bits) - 1
+            words = pack.pack_words(codes, bits)
+            back = pack.unpack_words(words, bits, n)
+            plain_words = ref.pack_bits(codes, bits)
+            plain_back = ref.unpack_bits(words, bits, n)
+            torch.cuda.synchronize()
+            as_u32 = lambda w: w.view(torch.int32).long() & 0xFFFFFFFF
+            pack_err = (as_u32(words) - as_u32(plain_words)).abs().max().item()
+            unpack_err = (back - plain_back).abs().max().item()
+            ok = pack_err == 0 and unpack_err == 0 and torch.equal(back, codes)
+            log(f"(b) pack/unpack bits {bits} n {n} ({words.numel()} words): "
+                f"{'bit-exact' if ok else 'MISMATCH'} against the plain versions"
+                f" (max abs err {pack_err}, {unpack_err})")
+            if not ok:
+                raise AssertionError(f"pack/unpack bits={bits} n={n} differ "
+                                     "from their plain versions")
+            out.append({"bits": bits, "n": n, "words": words.numel(),
+                        "pack_words": pack_err, "unpack_words": unpack_err})
+            del codes, words, back, plain_words, plain_back
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ trainers
-def _trainer(model_cfg, policy, rank, steps, window, dev):
+def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw"):
     """A Trainer with the PowerSGD kernels on, AdamW at lr 1e-3."""
     from repro_torch.core import EDGCConfig, GDSConfig
     from repro_torch.core.dac import DACConfig
@@ -211,8 +296,10 @@ def _trainer(model_cfg, policy, rank, steps, window, dev):
     edgc = EDGCConfig(policy=policy, fixed_rank=rank, total_iterations=steps,
                       gds=GDSConfig(alpha=0.5, beta=0.25),
                       dac=DACConfig(window=window, adjust_limit=4),
-                      num_stages=model_cfg.num_stages, use_kernels=True)
+                      num_stages=model_cfg.num_stages, use_kernels=True,
+                      wire=wire)
     tcfg = TrainerConfig(total_steps=steps, log_every=1, use_kernels=True,
+                         wire=wire,
                          adam=AdamConfig(lr=1e-3, warmup_steps=1,
                                          total_steps=steps))
     return Trainer(build_model(model_cfg), edgc, tcfg, seed=0, device=dev)
@@ -231,21 +318,28 @@ def _timed_steps(trainer, batches, steps: int) -> list[float]:
 
 
 def phase_check(report: dict, dev) -> None:
-    """Small fp32 model: the kernel path on the card against the CPU."""
+    """Small fp32 model: the kernel path on the card against the CPU, with
+    the raw wire and with quant8 (the pack kernels against their plain
+    versions inside a training run)."""
     from repro_torch.configs.gpt2 import GPT2_FIDELITY
     from repro_torch.data.pipeline import SyntheticLM
-    losses = {}
-    for where in ("cpu", dev):
-        tr = _trainer(GPT2_FIDELITY, "fixed", 8, 3, 50, where)
-        hist = tr.run(SyntheticLM(GPT2_FIDELITY.vocab_size, 64, 4, seed=1).batches())
-        losses[str(where)] = [h["loss"] for h in hist]
-    cpu, gpu = losses["cpu"], losses[str(dev)]
-    gap = max(abs(a - b) for a, b in zip(cpu, gpu))
-    report["check"] = {"cpu_loss": cpu, "gpu_loss": gpu, "max_gap": gap}
-    log(f"(e) check gpt2-fidelity fp32, 3 steps: card {gpu} cpu {cpu} "
-        f"max gap {gap:.2e} (tol 5e-3)")
-    if not gap < 5e-3 or not all(math.isfinite(x) for x in gpu):
-        raise AssertionError("the card's kernel path disagrees with the CPU")
+    report["check"] = {}
+    for wire in ("raw", "quant8"):
+        losses = {}
+        for where in ("cpu", dev):
+            tr = _trainer(GPT2_FIDELITY, "fixed", 8, 3, 50, where, wire=wire)
+            hist = tr.run(SyntheticLM(GPT2_FIDELITY.vocab_size, 64, 4,
+                                      seed=1).batches())
+            losses[str(where)] = [h["loss"] for h in hist]
+        cpu, gpu = losses["cpu"], losses[str(dev)]
+        gap = max(abs(a - b) for a, b in zip(cpu, gpu))
+        report["check"][wire] = {"cpu_loss": cpu, "gpu_loss": gpu,
+                                 "max_gap": gap}
+        log(f"(e) check gpt2-fidelity fp32 wire={wire}, 3 steps: card {gpu} "
+            f"cpu {cpu} max gap {gap:.2e} (tol 5e-3)")
+        if not gap < 5e-3 or not all(math.isfinite(x) for x in gpu):
+            raise AssertionError(f"wire={wire}: the card's kernel path "
+                                 "disagrees with the CPU")
 
 
 def phase_main(report: dict, dev, profile: bool) -> dict:
@@ -271,7 +365,7 @@ def phase_main(report: dict, dev, profile: bool) -> dict:
     losses = [h["loss"] for h in tr.history]
     report["main"] = {"loss": losses, "step_ms": step_ms, "peak_bytes": peak,
                       "launches": launches, "groups": groups,
-                      "n_params": tr.n_params}
+                      "n_params": tr.n_params, "payloads": _payloads(tr)}
     for h, ms in zip(tr.history, step_ms):
         log(f"    step {h['step']} loss {h['loss']:.4f} {ms:.1f} ms "
             f"bytes synced {h['bytes_synced']}")
@@ -283,6 +377,17 @@ def phase_main(report: dict, dev, profile: bool) -> dict:
     if profile:
         report["profile"] = profile_step(tr, batches, sorted(step_ms[1:])[1])
     return launches
+
+
+def _payloads(trainer) -> list[int]:
+    """Elements of each coded payload of one step: the P and Q factors of
+    every shape group, then every flat-bucket member."""
+    out = []
+    for g in trainer._layout.groups:
+        out += [g.stack_size * g.m * g.rank, g.stack_size * g.n * g.rank]
+    for b in trainer._layout.buckets:
+        out += [math.prod(shape) for _, shape in b.members]
+    return out
 
 
 def profile_step(trainer, batches, step_ms: float, top: int = 25) -> dict:
@@ -332,8 +437,141 @@ def phase_control(report: dict, dev) -> None:
         raise AssertionError("the DAC never left warm-up in 12 steps")
 
 
+def phase_wire(report: dict, dev, profile: bool) -> dict:
+    """(c) with every payload coded (quant8), then entropy mode on (d)."""
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import lowrank as lr, pack
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    tr = _trainer(cfg, "fixed", 64, 5, 50, dev, wire="quant8")
+    batches = SyntheticLM(cfg.vocab_size, 1024, 8, seed=0).batches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in lr.KERNELS + pack.KERNELS:
+        k.launches = 0
+    step_ms = _timed_steps(tr, batches, 4)
+    launches = {k.__name__: k.launches for k in lr.KERNELS + pack.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    raw = report["main"]["loss"]
+    losses = [h["loss"] for h in tr.history]
+    gaps = [abs(a - b) / max(1.0, b) for a, b in zip(losses, raw)]
+    out = {"loss": losses, "raw_loss": raw, "rel_gap": gaps,
+           "step_ms": step_ms, "peak_bytes": peak, "launches": launches,
+           "bytes_synced": tr.bytes_synced, "bytes_wire_raw": tr.bytes_wire_raw,
+           "codec": [tr._codec.bits, tr._codec.group]}
+    log(f"(f) wire quant8: {cfg.name} depth {cfg.num_layers}, fixed r64, "
+        f"batch 8 x 1024, kernels on")
+    for h, ms, g in zip(tr.history, step_ms, gaps):
+        log(f"    step {h['step']} loss {h['loss']:.4f} (raw {raw[h['step']]:.4f},"
+            f" gap {g:.2e} of max(1, loss)) {ms:.1f} ms bytes synced "
+            f"{h['bytes_synced']} raw payload {h['bytes_wire_raw']}")
+    log(f"    peak memory {peak / 2**30:.2f} GiB; bytes_synced/bytes_wire_raw "
+        f"{tr.bytes_synced}/{tr.bytes_wire_raw} = "
+        f"{tr.bytes_synced / tr.bytes_wire_raw:.4f}; launches {launches}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != 4:
+        raise AssertionError(f"quant8 losses {losses}")
+    if not max(gaps) <= 0.05:
+        raise AssertionError(f"quant8 strays from the raw run: {gaps}")
+    if not all(launches[k.__name__] > 0 for k in pack.KERNELS):
+        raise AssertionError(f"a pack kernel never launched: {launches}")
+    if profile:
+        out["profile"] = profile_step(tr, batches, sorted(step_ms[1:])[1])
+    del tr
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(GPT2_2_5B, num_layers=4)
+    tr = _trainer(small, "edgc", 64, 12, 4, dev, wire="entropy")
+    batches = SyntheticLM(small.vocab_size, 1024, 8, seed=0).batches()
+    windows = []
+    for _ in range(3):
+        tr.run(batches, num_steps=4)
+        windows.append(tr._codec.bits)
+    torch.cuda.synchronize()
+    hist = tr.history
+    out["entropy"] = {"bits_per_window": windows,
+                      "entropy": [h["entropy"] for h in hist],
+                      "loss": [h["loss"] for h in hist],
+                      "ranks": [h["ranks"] for h in hist],
+                      "bytes_synced": tr.bytes_synced,
+                      "bytes_wire_raw": tr.bytes_wire_raw}
+    log(f"(f) wire entropy: edgc 12 steps window 4 depth 4; bit width after "
+        f"each window {windows}; entropy "
+        f"{[round(h['entropy'], 4) for h in hist]}; coded/raw "
+        f"{tr.bytes_synced}/{tr.bytes_wire_raw}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("entropy-mode run gave a non-finite loss")
+    del tr
+    torch.cuda.empty_cache()
+    out["timing"] = time_pack(report["main"]["payloads"], dev)
+    report["wire"] = out
+    return {k.__name__: launches[k.__name__] for k in pack.KERNELS}
+
+
+def _byte_cast_pack(codes: torch.Tensor) -> torch.Tensor:
+    """8-bit packing as one PyTorch call: each code in [0, 256) becomes a
+    byte and four bytes one little-endian word (n % 4 == 0)."""
+    return codes.to(torch.uint8).view(torch.uint32)
+
+
+def _byte_cast_unpack(words: torch.Tensor) -> torch.Tensor:
+    return words.view(torch.uint8).to(torch.int32)
+
+
+def time_pack(payloads: list[int], dev) -> dict:
+    """Kernel, plain and library times of pack/unpack at 8 bits over one
+    main-path step's payloads (each coded on its own), as device time.
+
+    The library call is the byte cast, which computes the same words at 8
+    bits (``_byte_cast_pack``); it is held bit-exact against the kernel
+    here and used nowhere in the port.
+    """
+    from repro_torch.kernels import pack, ref
+    bits = 8
+    if any(n % 4 for n in payloads):
+        raise AssertionError("the byte cast needs n % 4 == 0 on every payload")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes = [torch.randint(0, 1 << bits, (n,), generator=gen, device=dev,
+                           dtype=torch.int32) for n in payloads]
+    words = [pack.pack_words(c, bits) for c in codes]
+    for c, w in zip(codes, words):
+        if not (torch.equal(_byte_cast_pack(c).view(torch.int32),
+                            w.view(torch.int32))
+                and torch.equal(_byte_cast_unpack(w), c)):
+            raise AssertionError("the byte cast differs from the pack kernels")
+    pairs = list(zip(codes, words))
+    calls = {
+        "pack_words": (
+            [lambda c=c: pack.pack_words(c, bits) for c in codes],
+            [lambda c=c: ref.pack_bits(c, bits) for c in codes],
+            [lambda c=c: _byte_cast_pack(c) for c in codes]),
+        "unpack_words": (
+            [lambda c=c, w=w: pack.unpack_words(w, bits, c.numel())
+             for c, w in pairs],
+            [lambda c=c, w=w: ref.unpack_bits(w, bits, c.numel())
+             for c, w in pairs],
+            [lambda w=w: _byte_cast_unpack(w) for w in words]),
+    }
+    nbytes = sum(4 * c.numel() + 4 * w.numel() for c, w in pairs)
+    bound, bound_by = bound_ms(nbytes, 0)
+    log(f"(f) pack timing over one main-path step's payloads, bits {bits}:")
+    rows = {}
+    for name, (kernel, plain, library) in calls.items():
+        rows[name] = r = dict(
+            ms=device_ms(kernel, 10), plain_ms=device_ms(plain, 3),
+            library_ms=device_ms(library, 10), bound_ms=bound,
+            bound_by=bound_by, nbytes=nbytes, payloads=len(codes),
+            codes=sum(c.numel() for c in codes))
+        log(f"    {name:12s} {len(codes)} payloads, {r['codes']} codes | "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} byte cast "
+            f"{r['library_ms']:.4f} bound {bound:.4f} ms ({bound_by}), "
+            "device time")
+    del codes, words, pairs, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ----------------------------------------------------------------- the lines
-def kernels_line(report: dict, launches: dict) -> dict:
+def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -350,6 +588,15 @@ def kernels_line(report: dict, launches: dict) -> dict:
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"), "bound_by": bound_by,
                     "library_ms": total("library_ms")})
+    for name, row in report["wire"]["timing"].items():
+        out.append({"name": name, "route": "cuda", "source": PACK_SOURCE,
+                    "replaces": PACK_REPLACES[name],
+                    "launches": pack_launches[name],
+                    "max_abs_err": float(max(c[name] for c in
+                                             report["pack_checks"])),
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]})
     return {"kernels": out}
 
 
@@ -358,7 +605,8 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more main-path step (torch.profiler)")
+                    help="profile one more main-path step, raw and quant8 "
+                         "(torch.profiler)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: the port's kernels need an NVIDIA "
@@ -379,9 +627,10 @@ def main() -> int:
     phase_kernels(report, dev)
     launches = phase_main(report, dev, args.profile)
     phase_control(report, dev)
+    pack_launches = phase_wire(report, dev, args.profile)
     phase_check(report, dev)
     report["seconds"] = time.perf_counter() - t0
-    line = kernels_line(report, launches)
+    line = kernels_line(report, launches, pack_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

@@ -1,6 +1,6 @@
 """Bucketed DP gradient sync: shape-grouped stacked compression + flat buckets.
 
-Port of ``repro/core/bucketing.py`` (raw wire format). The per-leaf loop
+Port of ``repro/core/bucketing.py``. The per-leaf loop
 issues one collective per uncompressed leaf and two per compressed leaf;
 this schedule issues two per shape group and one per flat bucket:
 
@@ -13,6 +13,11 @@ this schedule issues two per shape group and one per flat bucket:
 The :class:`BucketLayout` is a pure function of (leaf shapes, plan, cap),
 so the host derives the same layout at init, at each step and at DAC
 re-plans. Stacked compressor state lives in fp32 under ``group:MxN:r`` keys.
+
+With a wire codec (``core/wire.py``) every collective payload is coded:
+the factor collectives through ``wire.coded_psum`` (the error lands in
+the PowerSGD residual), and each flat-bucket member on its own, with an
+fp32 error-feedback residual under ``ef:<path>`` in the compressor state.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, Callable, Iterable
 import torch
 
 from repro_torch import tree
+from . import wire as _wire
 from .config import DEFAULT_BUCKET_BYTES
 from .powersgd import (LowRankState, compress_leaf, fold_in, init_leaf_state,
                        resize_rank)
@@ -30,13 +36,14 @@ from .powersgd import (LowRankState, compress_leaf, fold_in, init_leaf_state,
 __all__ = [
     "DEFAULT_BUCKET_BYTES", "ShapeGroup", "FlatBucket", "BucketLayout",
     "SyncChunk", "make_bucket_layout", "layout_for_tree", "sync_chunks",
-    "is_stacked_state", "stack_state", "unstack_state",
+    "is_stacked_state", "init_flat_ef", "stack_state", "unstack_state",
     "resize_stacked_state", "bucketed_sync_grads",
 ]
 
 PsumFn = Callable[[torch.Tensor], torch.Tensor]
 
 GROUP_PREFIX = "group:"             # stacked-state dict keys start with this
+EF_PREFIX = "ef:"                   # flat-bucket wire-EF state keys
 F32 = torch.float32
 
 Member = tuple[str, tuple[int, ...]]    # (leaf path, original leaf shape)
@@ -45,6 +52,10 @@ Member = tuple[str, tuple[int, ...]]    # (leaf path, original leaf shape)
 def _batch_of(shape: tuple[int, ...]) -> int:
     """Number of (m, n) slices a leaf contributes to its group's stack."""
     return math.prod(shape[:-2]) if len(shape) > 2 else 1
+
+
+def _numel(shape: tuple[int, ...]) -> int:
+    return math.prod(shape) if shape else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +78,11 @@ class ShapeGroup:
 
 @dataclasses.dataclass(frozen=True)
 class FlatBucket:
-    """Uncompressed leaves packed into one flat all-reduce."""
+    """Uncompressed leaves packed into one flat all-reduce.
+
+    ``itemsizes`` parallels ``members`` (4 when derived from shapes alone);
+    the bucket moves in the widest member dtype.
+    """
 
     members: tuple[Member, ...]
     itemsizes: tuple[int, ...] = ()
@@ -99,6 +114,28 @@ class SyncChunk:
     def num_collectives(self) -> int:
         return 2 if self.kind == "group" else 1
 
+    def wire_bytes(self, bytes_per_elem: int | None = None,
+                   codec: _wire.ChunkCodec | None = None) -> int:
+        """Collective payload bytes (factor collectives / packed bucket).
+
+        Raw: group chunks move fp32 factors; bucket chunks move the widest
+        member dtype (``bytes_per_elem`` overrides both). With ``codec``,
+        the coded size, per member for buckets (scale groups never span
+        members).
+        """
+        if self.kind == "group":
+            g = self.group
+            n_elems = (g.m + g.n) * g.rank * g.stack_size
+            if codec is not None:
+                return _wire.coded_bytes(n_elems, codec)
+            return n_elems * (4 if bytes_per_elem is None else bytes_per_elem)
+        if codec is not None:
+            return sum(_wire.coded_bytes(_numel(shape), codec)
+                       for _, shape in self.members)
+        if bytes_per_elem is None:
+            bytes_per_elem = max(self.itemsizes) if self.itemsizes else 4
+        return sum(_numel(shape) for _, shape in self.members) * bytes_per_elem
+
 
 def sync_chunks(layout: BucketLayout) -> tuple[SyncChunk, ...]:
     """Split a layout into launchable chunks (groups first, tree order).
@@ -118,7 +155,7 @@ def sync_chunks(layout: BucketLayout) -> tuple[SyncChunk, ...]:
         run_sizes: list[int] = []
         run_elems = 0
         for (path, shape), isz in zip(bucket.members, sizes):
-            nelem = math.prod(shape) if shape else 1
+            nelem = _numel(shape)
             if run and run_elems + nelem > cap_elems:
                 chunks.append(SyncChunk(kind="bucket", members=tuple(run),
                                         itemsizes=tuple(run_sizes)))
@@ -168,7 +205,7 @@ def make_bucket_layout(leaves: Iterable[Any], plan,
             m, n = shape[-2:]
             grouped.setdefault((m, n, rank_by_path[path]), []).append((path, shape))
         else:
-            nelem = math.prod(shape) if shape else 1
+            nelem = _numel(shape)
             if pending and pending_elems + nelem > cap_elems:
                 buckets.append(_flush(pending))
                 pending, pending_elems = [], 0
@@ -193,8 +230,17 @@ def layout_for_tree(grads: Any, plan, bucket_bytes: int = DEFAULT_BUCKET_BYTES,
 
 
 def is_stacked_state(state: dict) -> bool:
-    """True iff ``state`` is keyed by shape groups rather than leaf paths."""
-    return any(k.startswith(GROUP_PREFIX) for k in state)
+    """True iff ``state`` is keyed by shape groups rather than leaf paths
+    (``ef:`` entries exist only in the bucketed format, so they count)."""
+    return any(k.startswith((GROUP_PREFIX, EF_PREFIX)) for k in state)
+
+
+def init_flat_ef(layout: BucketLayout, device="cpu") -> dict[str, torch.Tensor]:
+    """Zero fp32 error-feedback residuals (``ef:<path>``) for every
+    flat-bucket member: the coded ``_sync_flat`` adds each back into the
+    next step's payload before quantizing."""
+    return {EF_PREFIX + path: torch.zeros(shape, dtype=F32, device=device)
+            for bucket in layout.buckets for path, shape in bucket.members}
 
 
 # ------------------------------------------------------------ state plumbing
@@ -238,7 +284,9 @@ def resize_stacked_state(stacked: dict[str, LowRankState],
 
     Previously-compressed leaves keep their warm-start Q (leading columns on
     shrink, fresh random tail columns on grow) and their EF residual; leaves
-    entering compression get a fresh ``init_leaf_state``.
+    entering compression get a fresh ``init_leaf_state``. If the old state
+    carries ``ef:`` entries, the new one gets one per new-layout bucket
+    member: kept where the member stayed flat, zeros where it left a group.
     """
     per_leaf = unstack_state(stacked, old_layout)
     new_per_leaf: dict[str, LowRankState] = {}
@@ -252,17 +300,27 @@ def resize_stacked_state(stacked: dict[str, LowRankState],
             else:
                 new_per_leaf[path] = init_leaf_state(shape, group.rank, sub,
                                                      F32, device)
-    return stack_state(new_per_leaf, new_layout)
+    new_state: dict[str, Any] = stack_state(new_per_leaf, new_layout)
+    if any(k.startswith(EF_PREFIX) for k in stacked):
+        for k, zeros in init_flat_ef(new_layout, device).items():
+            new_state[k] = stacked.get(k, zeros)
+    return new_state
 
 
 # ------------------------------------------------------------- sync executor
 def _sync_group(by_path: dict[str, torch.Tensor], group: ShapeGroup,
                 state: LowRankState, psum_mean: PsumFn,
-                use_kernels: bool = False):
-    """One shape group: concat -> stacked PowerSGD (2 psums) -> slice back."""
+                use_kernels: bool = False,
+                codec: _wire.ChunkCodec | None = None):
+    """One shape group: concat -> stacked PowerSGD (2 psums) -> slice back.
+
+    With a codec the factor collectives ship coded P/Q; the error lands in
+    the PowerSGD residual.
+    """
     stack = torch.cat([by_path[path].to(F32).reshape(-1, group.m, group.n)
                        for path, _ in group.members], dim=0)
-    g_hat, st = compress_leaf(stack, state, psum_mean, use_kernels=use_kernels)
+    g_hat, st = compress_leaf(stack, state, _wire.coded_psum(psum_mean, codec),
+                              use_kernels=use_kernels)
     out: dict[str, torch.Tensor] = {}
     offset = 0
     for path, shape in group.members:
@@ -274,40 +332,63 @@ def _sync_group(by_path: dict[str, torch.Tensor], group: ShapeGroup,
 
 
 def _sync_flat(by_path: dict[str, torch.Tensor], members: tuple[Member, ...],
-               psum_mean: PsumFn) -> dict[str, torch.Tensor]:
-    """One flat member run: pack -> psum-mean -> slice back.
+               psum_mean: PsumFn, codec: _wire.ChunkCodec | None = None,
+               comp_state: dict | None = None):
+    """One flat member run: [code ->] pack -> psum-mean -> slice back.
 
-    The run moves in the widest member dtype.
+    The run moves in the widest member dtype. With a codec each member goes
+    through the wire round trip on its own, its residual ``ef:<path>``
+    (when ``comp_state`` has one) added before coding and replaced by
+    what coding lost. Returns (synced leaves, EF-state updates).
     """
     wire_dtype = by_path[members[0][0]].dtype
     for path, _ in members[1:]:
         wire_dtype = torch.promote_types(wire_dtype, by_path[path].dtype)
-    packed = psum_mean(torch.cat([by_path[path].to(wire_dtype).reshape(-1)
-                                  for path, _ in members]))
+    parts: list[torch.Tensor] = []
+    ef_out: dict[str, torch.Tensor] = {}
+    for path, _ in members:
+        g = by_path[path]
+        if codec is None:
+            parts.append(g.to(wire_dtype).reshape(-1))
+            continue
+        v = g.to(F32).reshape(-1)
+        ef = (comp_state or {}).get(EF_PREFIX + path)
+        if ef is not None:
+            v = v + ef.to(F32).reshape(-1)
+        sent = _wire.roundtrip(v, codec).to(wire_dtype)
+        if ef is not None:
+            ef_out[EF_PREFIX + path] = (v - sent.to(F32)).reshape(g.shape)
+        parts.append(sent)
+    packed = psum_mean(torch.cat(parts))
     out: dict[str, torch.Tensor] = {}
     offset = 0
     for path, shape in members:
-        nelem = math.prod(shape) if shape else 1
+        nelem = _numel(shape)
         out[path] = (packed[offset:offset + nelem].reshape(shape)
                      .to(by_path[path].dtype))
         offset += nelem
-    return out
+    return out, ef_out
 
 
 @torch.no_grad()
 def bucketed_sync_grads(grads: Any, comp_state: dict[str, LowRankState],
                         layout: BucketLayout, psum_mean: PsumFn,
-                        use_kernels: bool = False):
-    """Execute the bucketed schedule: 2 psums per group, 1 per flat bucket."""
+                        use_kernels: bool = False,
+                        codec: _wire.ChunkCodec | None = None):
+    """Execute the bucketed schedule: 2 psums per group, 1 per flat bucket,
+    every payload coded when ``codec`` is given."""
     flat = tree.flatten_with_path(grads)
     by_path = dict(flat)
     out: dict[str, torch.Tensor] = {}
     new_state = dict(comp_state)
     for group in layout.groups:
         upd, st = _sync_group(by_path, group, comp_state[group.key], psum_mean,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, codec=codec)
         out.update(upd)
         new_state[group.key] = st
     for bucket in layout.buckets:
-        out.update(_sync_flat(by_path, bucket.members, psum_mean))
+        upd, ef_upd = _sync_flat(by_path, bucket.members, psum_mean,
+                                 codec=codec, comp_state=comp_state)
+        out.update(upd)
+        new_state.update(ef_upd)
     return tree.unflatten(grads, [out[path] for path, _ in flat]), new_state

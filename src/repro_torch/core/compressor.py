@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import tree
 from . import bucketing
+from . import wire as _wire
 from .bucketing import BucketLayout
 from .config import DEFAULT_BUCKET_BYTES
 from .powersgd import (LowRankState, compress_leaf, compressed_bytes, fold_in,
@@ -34,7 +35,7 @@ from .powersgd import (LowRankState, compress_leaf, compressed_bytes, fold_in,
 
 __all__ = ["LeafInfo", "CompressionPlan", "NO_COMPRESSION", "classify_leaves",
            "make_plan", "init_compressor_state", "sync_grads",
-           "plan_wire_bytes", "resize_compressor_state"]
+           "plan_wire_bytes", "leaf_wire_bytes", "resize_compressor_state"]
 
 PsumFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -177,13 +178,14 @@ def make_plan(policy: str, leaves: list[LeafInfo],
 
 
 def init_compressor_state(params: Any, plan: CompressionPlan, seed: int, *,
-                          layout: BucketLayout | None = None
-                          ) -> dict[str, LowRankState]:
+                          layout: BucketLayout | None = None,
+                          wire_ef: bool = False) -> dict[str, LowRankState]:
     """Compressor state for a plan.
 
     One LowRankState per compressed leaf keyed by path (per-leaf executor),
     or, with a ``layout``, the same warm starts stacked into one fp32 state
-    per shape group (bucketed executor).
+    per shape group (bucketed executor). ``wire_ef`` (coded wire modes)
+    adds a zero fp32 residual per flat-bucket member (``ef:<path>``).
     """
     by_path = dict(tree.flatten_with_path(params))
     state: dict[str, LowRankState] = {}
@@ -193,7 +195,11 @@ def init_compressor_state(params: Any, plan: CompressionPlan, seed: int, *,
                                       leaf.dtype, leaf.device)
     if layout is None:
         return state
-    return bucketing.stack_state(state, layout)
+    state = bucketing.stack_state(state, layout)
+    if wire_ef:
+        device = next(iter(by_path.values())).device
+        state.update(bucketing.init_flat_ef(layout, device))
+    return state
 
 
 def resize_compressor_state(state: dict[str, LowRankState],
@@ -220,20 +226,26 @@ def resize_compressor_state(state: dict[str, LowRankState],
 def sync_grads(grads: Any, comp_state: dict[str, LowRankState],
                plan: CompressionPlan, psum_mean: PsumFn,
                use_kernels: bool = False, bucketed: bool | None = None,
-               bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+               bucket_bytes: int = DEFAULT_BUCKET_BYTES, codec=None):
     """Data-parallel gradient synchronization under a compression plan.
 
     ``bucketed=False`` runs the per-leaf loop (parity oracle: two factor
     psums per compressed leaf, one psum per other leaf); ``bucketed=True``
     the shape-grouped schedule of ``bucketing``; ``None`` infers it from
-    the state format. Returns (synced grads, new compressor state).
+    the state format. ``codec`` (``wire.ChunkCodec``) codes every
+    collective payload, bucketed executor only. Returns (synced grads, new
+    compressor state).
     """
     if bucketed is None:
         bucketed = bucketing.is_stacked_state(comp_state)
+    if codec is not None and not bucketed:
+        raise ValueError("wire coding (codec) requires the bucketed executor; "
+                         "the per-leaf path is the raw parity oracle")
     if bucketed:
         layout = bucketing.layout_for_tree(grads, plan, bucket_bytes)
         return bucketing.bucketed_sync_grads(grads, comp_state, layout,
-                                             psum_mean, use_kernels=use_kernels)
+                                             psum_mean, use_kernels=use_kernels,
+                                             codec=codec)
     rank_by_path = plan.as_dict()
     flat = tree.flatten_with_path(grads)
     out_leaves = []
@@ -250,19 +262,37 @@ def sync_grads(grads: Any, comp_state: dict[str, LowRankState],
 
 
 def plan_wire_bytes(leaves: list[LeafInfo], plan: CompressionPlan,
-                    bytes_per_elem: int = 2) -> tuple[int, int]:
-    """(compressed_bytes, full_bytes) moved per step by the DP sync."""
+                    bytes_per_elem: int = 2, codec=None) -> tuple[int, int]:
+    """(compressed_bytes, full_bytes) moved per step by the DP sync.
+
+    With a ``codec`` the compressed bytes are the coded payloads (packed
+    words + scales of the factor elements and of each uncompressed leaf);
+    ``full_bytes`` stays the raw uncoded baseline either way.
+    """
+    comp, full = 0, 0
+    for c, f in leaf_wire_bytes(leaves, plan, bytes_per_elem, codec):
+        comp += c
+        full += f
+    return comp, full
+
+
+def leaf_wire_bytes(leaves: list[LeafInfo], plan: CompressionPlan,
+                    bytes_per_elem: int = 2, codec=None):
+    """Yields (compressed, full) DP-sync bytes of each leaf, in order."""
     rank_by_path = plan.as_dict()
-    comp = 0
-    full = 0
     for info in leaves:
         nelem = 1
         for d in info.shape:
             nelem *= d
-        full += nelem * bytes_per_elem
         if info.path in rank_by_path:
-            comp += compressed_bytes(info.shape, rank_by_path[info.path],
-                                     bytes_per_elem)
+            rank = rank_by_path[info.path]
+            if codec is not None:
+                comp = _wire.coded_bytes(compressed_bytes(info.shape, rank, 1),
+                                         codec)
+            else:
+                comp = compressed_bytes(info.shape, rank, bytes_per_elem)
+        elif codec is not None:
+            comp = _wire.coded_bytes(nelem, codec)
         else:
-            comp += nelem * bytes_per_elem
-    return comp, full
+            comp = nelem * bytes_per_elem
+        yield comp, nelem * bytes_per_elem

@@ -3,8 +3,6 @@
 Port of ``repro/core/config.py``. ``resolve_embedded`` folds the old flat
 keyword arguments (``num_stages``, ``use_kernels``, ...) into the embedded
 ``PipelineConfig`` / ``SyncConfig``; ``alias_property`` keeps them readable.
-Only the raw wire format is ported: the quantized codecs are ROADMAP
-Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -15,8 +13,7 @@ __all__ = ["SyncConfig", "SYNC_FIELDS", "COMM_MODES", "WIRE_MODES",
 
 #: Communication modes of the SyncExecutor facade (only "flat" is ported).
 COMM_MODES = ("flat", "per-stage", "per-stage-overlapped")
-#: Wire formats of the reference; the port runs "raw" only.
-WIRE_MODES = ("raw", "quant8", "quant4", "entropy")
+from .wire import WIRE_MODES
 DEFAULT_BUCKET_BYTES = 32 << 20     # 32 MiB of fp32 per flat bucket
 
 
@@ -33,16 +30,14 @@ class SyncConfig:
     bucketed: bool | None = None
     use_kernels: bool = False
     bucket_bytes: int = DEFAULT_BUCKET_BYTES
+    #: Wire format under the collectives (``core/wire.py`` WIRE_MODES):
+    #: raw | quant8 | quant4 | entropy. Anything but raw needs the bucketed
+    #: executor (the per-leaf path stays the uncoded parity oracle).
     wire: str = "raw"
-
-    def __post_init__(self) -> None:
-        if self.wire not in WIRE_MODES:
-            raise ValueError(f"unknown wire mode {self.wire!r} "
-                             f"(want one of {WIRE_MODES})")
-        if self.wire != "raw":
-            raise NotImplementedError(
-                f"wire={self.wire!r}: the wire codec is not ported yet "
-                "(ROADMAP Queue 1 item 7); use wire='raw'")
+    #: The resolved static quantizer (``wire.ChunkCodec``), filled in by the
+    #: trainer from ``wire`` and the controller's entropy reading; it keys
+    #: the step cache. None = resolve it from ``wire``.
+    codec: object | None = None
 
 
 SYNC_FIELDS = tuple(f.name for f in dataclasses.fields(SyncConfig))

@@ -13,9 +13,9 @@ The trainer drives it every iteration:
 
 All controller state is host-side Python; the only device work it requests
 is the alpha-gated scalar entropy. Port of ``repro/core/controller.py``
-without the recovery fallback, the checkpoint state and the pipeline
-overlap feedback (later slices, ROADMAP); the analytic comm model reads
-``EDGCConfig.hw`` (H100 SXM by default).
+without the recovery fallback and the pipeline overlap feedback (later
+slices, ROADMAP); the analytic comm model reads ``EDGCConfig.hw`` (H100
+SXM by default).
 """
 from __future__ import annotations
 
@@ -205,6 +205,58 @@ class EDGCController:
             num_stages=self.cfg.num_stages,
         )
         return self._plan != old_plan
+
+    # --------------------------------------------------------- checkpointing
+    def state_dict(self) -> dict[str, Any]:
+        """JSON-serializable control-plane state, in the reference's format.
+
+        Everything the window loop mutates: the DAC warm-up flag, stage-1
+        rank, window index and applied ranks, the CQM anchor, the entropy
+        and rank histories, the partial window and the current plan.
+        """
+        return {
+            "policy": self.cfg.policy,
+            "dac": {
+                "warmed_up": bool(self.dac.warmed_up),
+                "r_stage1": int(self.dac.r_stage1),
+                "window_index": int(self.dac.window_index),
+                "applied_ranks": (None if self.dac.applied_ranks is None
+                                  else [int(r) for r in
+                                        self.dac.applied_ranks]),
+            },
+            "cqm": {"h_anchor": self.cqm._h_anchor,
+                    "g_anchor": self.cqm._g_anchor},
+            "window_h": [float(h) for h in self._window_h],
+            "entropy_history": [[int(s), float(h)] for s, h in self._history],
+            "rank_history": [[int(s), [int(r) for r in rs]]
+                             for s, rs in self._rank_history],
+            "plan": [[p, int(r)] for p, r in self._plan.ranks],
+            "fallback": False,
+        }
+
+    def load_state_dict(self, sd: dict[str, Any]) -> None:
+        if sd.get("policy") != self.cfg.policy:
+            raise ValueError(
+                f"checkpoint controller policy {sd.get('policy')!r} != "
+                f"configured {self.cfg.policy!r}")
+        if sd.get("fallback", False):
+            raise NotImplementedError(
+                "the checkpoint pinned the uncompressed recovery fallback, "
+                "which the port does not have yet (ROADMAP Queue 1 item 5b)")
+        self.dac.warmed_up = bool(sd["dac"]["warmed_up"])
+        self.dac.r_stage1 = int(sd["dac"]["r_stage1"])
+        self.dac.window_index = int(sd["dac"]["window_index"])
+        ar = sd["dac"].get("applied_ranks")
+        self.dac.applied_ranks = None if ar is None else [int(r) for r in ar]
+        h, g = sd["cqm"]["h_anchor"], sd["cqm"]["g_anchor"]
+        self.cqm._h_anchor = None if h is None else float(h)
+        self.cqm._g_anchor = None if g is None else float(g)
+        self._window_h = [float(x) for x in sd["window_h"]]
+        self._history = [(int(s), float(x)) for s, x in sd["entropy_history"]]
+        self._rank_history = [(int(s), [int(r) for r in rs])
+                              for s, rs in sd["rank_history"]]
+        self._plan = CompressionPlan(
+            ranks=tuple((p, int(r)) for p, r in sd["plan"]))
 
     # ------------------------------------------------------------- reporting
     @property

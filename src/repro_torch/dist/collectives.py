@@ -14,7 +14,8 @@ import torch.distributed as dist
 
 from repro_torch import tree
 
-__all__ = ["dp_world_size", "dp_rank", "make_dp_pmean"]
+__all__ = ["dp_world_size", "dp_rank", "make_dp_pmean", "dp_all_gather",
+           "dp_barrier"]
 
 
 def dp_world_size() -> int:
@@ -40,3 +41,19 @@ def make_dp_pmean() -> Callable[[Any], Any]:
         return out.div_(world)
 
     return lambda x: tree.tree_map(mean, x)
+
+
+def dp_all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every worker's ``t`` stacked on a new leading dim, in rank order."""
+    world = dp_world_size()
+    if world == 1:
+        return t[None]
+    parts = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(parts, t.contiguous())
+    return torch.stack(parts)
+
+
+def dp_barrier() -> None:
+    """Wait for every data-parallel worker (nothing to wait for alone)."""
+    if dp_world_size() > 1:
+        dist.barrier()

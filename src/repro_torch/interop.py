@@ -7,6 +7,8 @@ state ``comp``) and returns the port's state dict with the same trees; the
 entries given are converted, so ``{"params": ...}`` alone carries weights.
 The reference gives every compressor leaf a leading per-worker replica
 dim; the port keeps one worker's state per process, so replica 0 is taken.
+Compressor entries are ``LowRankState`` pairs (q, err), or, under a coded
+wire, raw ``ef:<path>`` residuals, which come across as fp32 tensors.
 Only numpy is read here: nothing of JAX is imported.
 """
 from __future__ import annotations
@@ -41,8 +43,14 @@ def from_reference(state_np: dict[str, Any], device="cpu") -> dict[str, Any]:
         out["opt_step"] = to_tensor(np.asarray(state_np["opt_step"], np.int32),
                                     device)
     if "comp" in state_np:
-        out["comp"] = {
-            key: LowRankState(q=to_tensor(np.asarray(q)[0], device),
-                              err=to_tensor(np.asarray(err)[0], device))
-            for key, (q, err) in state_np["comp"].items()}
+        out["comp"] = {key: _comp_entry(st, device)
+                       for key, st in state_np["comp"].items()}
     return out
+
+
+def _comp_entry(st, device):
+    if isinstance(st, tuple):
+        q, err = st
+        return LowRankState(q=to_tensor(np.asarray(q)[0], device),
+                            err=to_tensor(np.asarray(err)[0], device))
+    return to_tensor(np.asarray(st, np.float32)[0], device)

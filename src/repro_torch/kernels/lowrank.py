@@ -41,6 +41,9 @@ import ctypes
 import torch
 
 from . import build, ref
+from .launch import launch
+from .launch import on_cpu as _on_cpu
+from .launch import ptr as _ptr
 
 __all__ = ["ef_lowrank_p", "ef_lowrank_q", "decompress_residual",
            "gram_schmidt_panel", "KERNELS", "plain_gram_schmidt"]
@@ -69,41 +72,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for CPU inputs (plain version); CUDA inputs must be on sm_90."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError(f"{torch.cuda.get_device_name(dev)} is not sm_90: "
-                           "the kernels are built for Hopper (sm_90a)")
-    return False
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _launch(wrapper, name: str, device: torch.device, *args) -> None:
-    """Launch C entry point ``name`` on ``device``'s current stream.
-
-    ``device`` is made current for the launch, so tensors on another card
-    than the current one run there. Raises on a refused launch; counts
-    the launch on ``wrapper`` otherwise.
-    """
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
-    wrapper.launches += 1
+    """Launch entry point ``name`` of ``csrc/lowrank.cu`` (see ``launch.py``)."""
+    launch(_lib(), wrapper, name, device, *args)
 
 
 def _gradient_pair(grad, err):

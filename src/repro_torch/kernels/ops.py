@@ -1,10 +1,14 @@
-"""Dispatch for the PowerSGD kernels (port of ``repro/kernels/ops.py:23-110``).
+"""Kernel dispatch (port of ``repro/kernels/ops.py:23-149``).
 
 The 2-D per-leaf forms run the batched kernels with E = 1. Unlike the
 TPU's ``_tileable`` rule, the Hopper kernels mask ragged edges, so every
 shape runs the kernel. The one routing rule kept is the reference's choice
 of algorithm for orthonormalization: Gram-Schmidt panels up to 4 MiB with
-m % 8 == 0, Householder QR (``torch.linalg.qr``) otherwise.
+m % 8 == 0, Householder QR (``torch.linalg.qr``) otherwise. The wire
+codec's ``pack_bits``/``unpack_bits`` (``ops.py:113-149``) are
+``pack.pack_words``/``unpack_words`` themselves, which run their kernels
+at every size: the reference sent payloads under 512 words to its oracle
+only because TPU padding would dominate them (``ops.py:124,142``).
 """
 from __future__ import annotations
 
@@ -49,3 +53,4 @@ def orthonormalize3(p):
     if _use_qr(m, r):
         return torch.linalg.qr(p.to(F32))[0]
     return _lr.gram_schmidt_panel(p)
+

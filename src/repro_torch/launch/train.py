@@ -6,6 +6,9 @@ Runs on CUDA unless ``--device`` names another device:
       --variant reduced --policy fixed --rank 32 --steps 200 --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --variant reduced --policy edgc --steps 300 --window 50 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 \\
+      --variant reduced --policy fixed --steps 12 --wire quant8 \\
+      --ckpt-every 6 --ckpt-path ckpt/run --device cpu
 
 The flags are the reference launcher's flat ones, plus ``--device``.
 """
@@ -38,6 +41,16 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--stages", type=int, default=0, help="0 = config default")
     ap.add_argument("--use-kernels", action="store_true",
                     help="run the PowerSGD products through the Hopper kernels")
+    ap.add_argument("--wire", default="raw",
+                    choices=["raw", "quant8", "quant4", "entropy"],
+                    help="wire coding of the DP sync payloads: scaled int8/"
+                         "int4 quantization + bit packing with error "
+                         "feedback; 'entropy' picks the bit width per window "
+                         "from the controller's entropy reading (quant8 "
+                         "until the first one)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint cadence in steps (0 = none)")
+    ap.add_argument("--ckpt-path", default="ckpt/state")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
@@ -47,7 +60,7 @@ def main(argv=None) -> list[dict]:
     num_stages = args.stages or cfg.num_stages
     model = build_model(cfg)
     pipe_cfg = PipelineConfig(num_stages=num_stages)
-    sync_cfg = SyncConfig(use_kernels=args.use_kernels)
+    sync_cfg = SyncConfig(use_kernels=args.use_kernels, wire=args.wire)
     edgc = EDGCConfig(
         policy=args.policy, fixed_rank=args.rank, total_iterations=args.steps,
         gds=GDSConfig(alpha=0.5, beta=0.25),
@@ -56,6 +69,7 @@ def main(argv=None) -> list[dict]:
     )
     tcfg = TrainerConfig(
         total_steps=args.steps, log_every=max(1, args.steps // 20),
+        ckpt_every=args.ckpt_every, ckpt_path=args.ckpt_path,
         pipeline=pipe_cfg, sync=sync_cfg,
         adam=AdamConfig(lr=args.lr, warmup_steps=max(10, args.steps // 10),
                         total_steps=args.steps),
@@ -71,6 +85,10 @@ def main(argv=None) -> list[dict]:
               f"ranks {h['ranks']} comm-saved "
               f"{1 - h['bytes_synced']/max(1, h['bytes_full']):.1%}")
     print(f"final comm savings vs no-compression: {trainer.comm_savings():.2%}")
+    if args.wire != "raw" and trainer.bytes_wire_raw:
+        print(f"wire coding ({args.wire}): {trainer.bytes_synced}/"
+              f"{trainer.bytes_wire_raw} coded/raw payload bytes "
+              f"({trainer.bytes_synced / trainer.bytes_wire_raw:.2%})")
     return hist
 
 

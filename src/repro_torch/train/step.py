@@ -74,6 +74,10 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
 
     state = {params, opt_m, opt_v, opt_step, comp}; metrics = {loss,
     entropy, ef_norm, lr, grad_norm}, all 0-d tensors left on the device.
+    ``comp`` holds one LowRankState per shape group and, under a coded
+    wire, a raw fp32 ``ef:<path>`` residual per flat-bucket member; the
+    sync returns both, and ``ef_norm`` counts the PowerSGD residuals only,
+    as the reference does.
     ``psum_mean`` defaults to the mean over the ``torch.distributed`` world.
     """
     if cfg.num_stages > 1:

@@ -4,13 +4,16 @@ Port of the flat path of ``repro/train/trainer.py``:
   * builds model/optimizer/compressor state on an explicit device,
   * drives the EDGCController: alpha-gated entropy readings, window
     boundaries, plan changes (stacked compressor state re-laid out),
-  * accounts the exact DP-sync wire bytes per step.
+  * resolves the wire codec (``SyncConfig.wire``) and, in entropy mode,
+    re-picks its bit width at window ends,
+  * accounts the exact DP-sync wire bytes per step, coded and raw,
+  * saves and restores checkpoints.
 
 Data parallelism is one process per worker under ``torch.distributed``
 (initialised by the caller): each worker takes its contiguous slice of the
 global batch, as the reference's ``data`` mesh axis shards it. The
-pipelined executor, checkpoints, faults/recovery and telemetry are later
-slices (ROADMAP Queue 1).
+pipelined executor, faults/recovery and telemetry are later slices
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -20,17 +23,21 @@ from typing import Any, Iterator
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core import (EDGCConfig, EDGCController, classify_leaves,
                               init_compressor_state, plan_wire_bytes,
-                              resize_compressor_state)
+                              resize_compressor_state, wire)
 from repro_torch.core.bucketing import make_bucket_layout
 from repro_torch.core.config import SYNC_FIELDS, alias_property, resolve_embedded
+from repro_torch.core.sync_executor import SyncExecutor
 from repro_torch.core.powersgd import fold_in, resize_rank
-from repro_torch.dist.collectives import dp_rank, dp_world_size
+from repro_torch.dist.collectives import (dp_all_gather, dp_barrier, dp_rank,
+                                          dp_world_size)
 from repro_torch.models.model import Model, param_count
 from repro_torch.optim import adam
 from repro_torch.pipeline.config import PIPELINE_FIELDS
 from repro_torch.pipeline.sync import stage_wire_bytes
+from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.step import TrainStepConfig, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer", "resolve_device"]
@@ -60,6 +67,8 @@ class TrainerConfig:
 
     total_steps: int = 1000
     log_every: int = 50
+    ckpt_every: int = 0             # 0 = no checkpoints
+    ckpt_path: str = "ckpt/state"
     min_compress_dim: int = 64
     measure_entropy: bool = True
     remat: bool = False
@@ -68,6 +77,7 @@ class TrainerConfig:
     adam: adam.AdamConfig = dataclasses.field(default_factory=adam.AdamConfig)
 
     def __init__(self, total_steps: int = 1000, log_every: int = 50,
+                 ckpt_every: int = 0, ckpt_path: str = "ckpt/state",
                  min_compress_dim: int = 64, measure_entropy: bool = True,
                  remat: bool = False, pipeline=None, sync=None, adam=None,
                  **legacy) -> None:
@@ -75,6 +85,8 @@ class TrainerConfig:
                                           where="TrainerConfig")
         self.total_steps = total_steps
         self.log_every = log_every
+        self.ckpt_every = ckpt_every
+        self.ckpt_path = ckpt_path
         self.min_compress_dim = min_compress_dim
         self.measure_entropy = measure_entropy
         self.remat = remat
@@ -123,19 +135,27 @@ class Trainer:
         self._bucketed = tcfg.sync.bucketed is not False
         self.sync_cfg = dataclasses.replace(tcfg.sync, bucketed=self._bucketed)
 
+        # Entropy mode re-picks the codec at window ends against the run's
+        # first reading; until a reading exists it codes at quant8.
+        self._wire_ref_entropy: float | None = None
+        self._codec = SyncExecutor.resolve_codec(self.sync_cfg)
+        self.sync_cfg = dataclasses.replace(self.sync_cfg, codec=self._codec)
+
         self._comp_seed = fold_in(seed, 123)
         ost = adam.init(params, tcfg.adam)
         self._layout = (make_bucket_layout(self.leaves, self.controller.plan,
                                            self.sync_cfg.bucket_bytes)
                         if self._bucketed else None)
         comp = init_compressor_state(params, self.controller.plan,
-                                     fold_in(seed, 99), layout=self._layout)
+                                     fold_in(seed, 99), layout=self._layout,
+                                     wire_ef=self._codec is not None)
         self.state = {"params": params, "opt_m": ost.m, "opt_v": ost.v,
                       "opt_step": ost.step, "comp": comp}
 
         self._step_cache: dict[Any, Any] = {}
         self.history: list[dict] = []
-        self.bytes_synced = 0           # exact DP wire bytes so far
+        self.bytes_synced = 0           # exact DP wire bytes so far (coded)
+        self.bytes_wire_raw = 0         # the same payloads priced uncoded
         self.bytes_full = 0             # what no-compression would have moved
         self._last_entropy = 0.0        # most recent alpha-gated reading
         self._global_step = 0
@@ -169,6 +189,35 @@ class Trainer:
             out[k] = v.to(self.device)
         return out
 
+    def _refresh_codec(self) -> bool:
+        """Entropy-mode wire coding: re-pick the bit width from the latest
+        pooled entropy reading against the run's first one. Returns True
+        when the codec changed (the ledger must re-price). Called at window
+        ends only, so a new step variant comes with the plan cadence."""
+        if self.sync_cfg.wire != "entropy":
+            return False
+        hist = self.controller.entropy_history
+        if not hist:
+            return False
+        if self._wire_ref_entropy is None:
+            self._wire_ref_entropy = float(hist[0][1])
+        new = wire.resolve_codec("entropy", entropy_nats=self._last_entropy,
+                                 ref_nats=self._wire_ref_entropy)
+        if new == self._codec:
+            return False
+        self._codec = new
+        self.sync_cfg = dataclasses.replace(self.sync_cfg, codec=new)
+        return True
+
+    def _price_plan(self) -> tuple[int, int, int]:
+        """(coded, raw-payload, no-compression) bytes per step under the
+        current plan; coded == raw when wire coding is off."""
+        plan = self.controller.plan
+        comp, full = plan_wire_bytes(self.leaves, plan, codec=self._codec)
+        raw = (plan_wire_bytes(self.leaves, plan)[0]
+               if self._codec is not None else comp)
+        return comp, raw, full
+
     def _apply_plan_change(self) -> None:
         """Resize/extend compressor state to the new plan."""
         plan = self.controller.plan
@@ -199,7 +248,7 @@ class Trainer:
         ends, run end), never inside the step loop.
         """
         tcfg, ctrl = self.tcfg, self.controller
-        comp_bytes, full_bytes = plan_wire_bytes(self.leaves, ctrl.plan)
+        comp_bytes, raw_bytes, full_bytes = self._price_plan()
         stage_b = self.stage_bytes()
         window = self.edgc_cfg.dac.window
         t0 = time.time()
@@ -212,21 +261,31 @@ class Trainer:
             measure = tcfg.measure_entropy and ctrl.wants_entropy(step_idx)
             self.state, mets = self._get_step(measure)(self.state, batch)
             self.bytes_synced += comp_bytes
+            self.bytes_wire_raw += raw_bytes
             self.bytes_full += full_bytes
             pending.append((step_idx, measure, mets, self.bytes_synced,
-                            self.bytes_full, stage_b,
+                            self.bytes_wire_raw, self.bytes_full, stage_b,
                             ctrl.dac.current_ranks() if not ctrl.in_warmup else [],
                             time.time() - t0))
             at_window = (step_idx + 1) % window == 0
             logged = (step_idx % tcfg.log_every == 0
                       or step_idx == tcfg.total_steps - 1)
-            if at_window or logged:
+            at_ckpt = bool(tcfg.ckpt_every
+                           and (step_idx + 1) % tcfg.ckpt_every == 0)
+            if at_window or logged or at_ckpt:
                 # every gated reading of the window reaches the DAC first
                 self._flush_pending(pending)
-            if at_window and ctrl.on_window_end(step_idx):
-                self._apply_plan_change()
-                comp_bytes, full_bytes = plan_wire_bytes(self.leaves, ctrl.plan)
-                stage_b = self.stage_bytes()
+            if at_window:
+                changed = ctrl.on_window_end(step_idx)
+                if changed:
+                    self._apply_plan_change()
+                # entropy-mode coding re-picks its width on the same cadence
+                if self._refresh_codec() or changed:
+                    comp_bytes, raw_bytes, full_bytes = self._price_plan()
+                    stage_b = self.stage_bytes()
+            if at_ckpt:
+                self.save_checkpoint(f"{tcfg.ckpt_path}_{step_idx + 1}",
+                                     step=step_idx + 1)
         self._flush_pending(pending)
         self._global_step = end
         return self.history
@@ -239,27 +298,86 @@ class Trainer:
         host = torch.stack([torch.stack([m[k].detach().float().reshape(())
                                          for k in _METRIC_KEYS])
                             for _, _, m, *_ in pending]).cpu().tolist()
-        for (s_i, meas, _, b_syn, b_full, st_b, ranks, wall), vals in zip(
+        for (s_i, meas, _, b_syn, b_raw, b_full, st_b, ranks, wall), vals in zip(
                 pending, host):
             vals = dict(zip(_METRIC_KEYS, vals))
             if meas:
                 self._last_entropy = vals["entropy"]
                 self.controller.on_entropy(s_i, self._last_entropy)
             if s_i % self.tcfg.log_every == 0 or s_i == self.tcfg.total_steps - 1:
-                self.history.append({
+                rec = {
                     "step": s_i, "loss": vals["loss"],
                     "entropy": self._last_entropy,   # zero-order hold
                     "grad_norm": vals["grad_norm"], "lr": vals["lr"],
                     "bytes_synced": b_syn, "bytes_full": b_full,
                     "stage_bytes": st_b, "ranks": ranks, "wall_s": wall,
-                })
+                }
+                if b_raw != b_syn:      # wire coding is on
+                    rec["bytes_wire_raw"] = b_raw
+                self.history.append(rec)
         pending.clear()
+
+    # --------------------------------------------------------- checkpointing
+    def _checkpoint_like(self, gather: bool) -> dict:
+        """The state as the reference lays it out: each compressor leaf with
+        a leading per-worker dim. ``gather`` collects every worker's leaves
+        (a collective); otherwise the leaves are shape-only stand-ins."""
+        lead = (dp_all_gather if gather else
+                (lambda t: t[None].expand((self.world,) + tuple(t.shape))))
+        return dict(self.state, comp=tree.tree_map(lead, self.state["comp"]))
+
+    def save_checkpoint(self, path: str, step: int | None = None) -> None:
+        """The device tree + the host control plane (controller/DAC/CQM).
+
+        Every worker calls it (the compressor state is gathered); worker 0
+        writes the pair. ``extra`` carries what the window loop mutates, so
+        a resumed run continues mid-window instead of restarting warm-up.
+        """
+        state = self._checkpoint_like(gather=True)
+        extra = {
+            "step": int(step if step is not None else self._global_step),
+            "bytes_synced": int(self.bytes_synced),
+            "bytes_wire_raw": int(self.bytes_wire_raw),
+            "bytes_full": int(self.bytes_full),
+            "controller": self.controller.state_dict(),
+        }
+        if self.rank == 0:
+            ckpt_mod.save(path, state, extra=extra)
+        dp_barrier()
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Restore the device tree + control plane; returns the global step.
+
+        The controller state (and with it the plan) comes FIRST, the
+        compressor state is re-shaped to that plan, and only then are the
+        arrays loaded into it, onto this trainer's device. Entropy-mode
+        coding re-derives its reference and bit width from the restored
+        entropy history.
+        """
+        extra = ckpt_mod.read_extra(path)
+        if "controller" in extra:
+            self.controller.load_state_dict(extra["controller"])
+            self._apply_plan_change()     # reshape comp state to the plan
+        self.bytes_synced = int(extra.get("bytes_synced", 0))
+        self.bytes_wire_raw = int(extra.get("bytes_wire_raw", 0))
+        self.bytes_full = int(extra.get("bytes_full", 0))
+        self._global_step = int(extra.get("step", 0))
+        hist = self.controller.entropy_history
+        self._last_entropy = float(hist[-1][1]) if hist else 0.0
+        self._wire_ref_entropy = None
+        self._refresh_codec()
+        restored, _ = ckpt_mod.restore(path, self._checkpoint_like(gather=False))
+        restored["comp"] = tree.tree_map(lambda t: t[self.rank].contiguous(),
+                                         restored["comp"])
+        self.state = restored
+        return self._global_step
 
     # --------------------------------------------------------------- summary
     def stage_bytes(self) -> list[tuple[int, int]]:
         """Per-stage (compressed, full) DP-sync bytes under the current plan."""
         return stage_wire_bytes(self.leaves, self.controller.plan,
-                                max(1, self.edgc_cfg.num_stages))
+                                max(1, self.edgc_cfg.num_stages),
+                                codec=self._codec)
 
     def comm_savings(self) -> float:
         """Fraction of DP-sync bytes saved vs no compression (Table III)."""

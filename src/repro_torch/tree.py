@@ -4,9 +4,9 @@ Parameter, gradient and optimizer trees are plain nested dicts and lists
 of tensors that mirror the reference's layout exactly. Traversal follows
 ``jax.tree_util``: dict keys sorted, lists and tuples in order. Paths are
 rendered as ``jax.tree_util.keystr`` renders them
-(``"['stages'][0]['blocks']['attn']['wq']"``), so the path regexes of
-``classify_leaves`` and the bucket layouts come out identical on both
-sides.
+(``"['stages'][0]['blocks']['attn']['wq']"``, and ``.q`` for a named tuple
+field), so the path regexes of ``classify_leaves``, the bucket layouts and
+the checkpoint leaf names come out identical on both sides.
 """
 from __future__ import annotations
 
@@ -15,9 +15,15 @@ from typing import Any, Callable, Iterator
 __all__ = ["flatten_with_path", "leaves", "tree_map", "unflatten"]
 
 
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _children(node: Any) -> Iterator[tuple[str, Any]] | None:
     if isinstance(node, dict):
         return ((f"[{k!r}]", node[k]) for k in sorted(node))
+    if _is_namedtuple(node):
+        return ((f".{f}", v) for f, v in zip(node._fields, node))
     if isinstance(node, (list, tuple)):
         return ((f"[{i}]", v) for i, v in enumerate(node))
     return None
@@ -45,6 +51,8 @@ def unflatten(like: Any, new_leaves) -> Any:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(build(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
         return next(it)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import lowrank as lr
+from repro_torch.kernels import pack as pk
 from repro_torch.kernels import ref
 
 DTYPES = ["float32", "bfloat16"]
@@ -85,3 +86,32 @@ def test_cuda_wrappers_count_launches(cuda_device):
     p = lr.gram_schmidt_panel(lr.ef_lowrank_p(g, g, q))
     lr.decompress_residual(p, lr.ef_lowrank_q(g, g, p), g, g)
     assert [k.launches - b for k, b in zip(lr.KERNELS, before)] == [1, 1, 1, 1]
+
+
+# Sizes of the wire codec's payloads: the tied wte member of gpt2-2.5b
+# (50257 x 1920), a ragged n, under 512 words, and a single code.
+PACK_SIZES = [50257 * 1920, 512 * 8 + 3, 2047, 7, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n", PACK_SIZES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_pack_unpack_match_plain(cuda_device, bits, n, offset):
+    """Bit-exact against the plain versions, codes spanning the full range;
+    offset 1 makes the code array unaligned (the kernels' scalar path)."""
+    rng = np.random.default_rng(n + bits)
+    full = torch.from_numpy(rng.integers(0, 1 << bits, n + offset)
+                            .astype(np.int32)).to(cuda_device)
+    full[offset] = (1 << bits) - 1
+    codes = full[offset:]
+    before = [k.launches for k in pk.KERNELS]
+    words = pk.pack_words(codes, bits)
+    back = pk.unpack_words(words, bits, n)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(pk.KERNELS, before)] == [1, 1]
+    assert words.dtype == torch.uint32 and words.shape == (-(-n // (32 // bits)),)
+    assert torch.equal(words.view(torch.int32),
+                       ref.pack_bits(codes, bits).view(torch.int32))
+    assert torch.equal(back, codes)
+    assert torch.equal(back, ref.unpack_bits(words, bits, n))
