@@ -25,14 +25,33 @@ Phases, in order; any failure raises, so the exit code is not 0:
   (e) check    a small fp32 model trained 3 steps on the card through the
                kernels agrees with the same run on the CPU (plain
                versions), raw and quant8
+  (g) attention  the flash kernels through the kernel API
+               (``flash_attention``, then ``flash_attention_train`` forward
+               and backward under autograd) at the attention widths of
+               gpt2-2.5b (20 heads of 96) and qwen2-0.5b (14 query heads,
+               2 kv heads, of 64), bf16, causal, batch 8 x seq 1024; o, lse,
+               dq, dk and dv against the plain versions; the same in fp32
+               non-causal with Tq != Tk and at a ragged T = 1000; then each
+               kernel, its plain version and ``scaled_dot_product_attention``
+               timed at both widths
+  (h) histogram  ``hist_counts`` on the beta = 0.25 GDS sample of (c)'s
+               gradient tree (about 113 M values), bit-equal to the plain
+               version, and on a ragged, unaligned n and on outliers;
+               ``ops.sampled_entropy_hist`` against the plain
+               ``histogram_entropy``; the entropy probe on the card; the
+               kernel timed against its bound
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
-kernel, its numbers summed over one main-path step's work for that kernel
-(the three shape groups; the quant8 payloads for the pack kernels), its
-launches counted on the run that drives it: (c) for the PowerSGD kernels,
-(f) quant8 for the pack kernels. The last line is
-``{"ok": true, "device": {...}}``. Without CUDA the script exits 2 and
-prints no result.
+kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
+work for that kernel (the three shape groups; the quant8 payloads), their
+launches counted on the run that drives them: (c) for the PowerSGD
+kernels, (f) quant8 for the pack kernels. The flash entries give one call
+at gpt2-2.5b widths (one layer's attention) and ``hist_counts`` one pooled
+sample; their launches are counted in (g) and (h), the drives of their
+entry points (the training step does not call them: the model keeps its
+plain-torch ``blockwise_attention``, as the reference's does). The last
+line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits 2
+and prints no result.
 """
 from __future__ import annotations
 
@@ -66,10 +85,27 @@ PACK_REPLACES = {"pack_words": "src/repro/kernels/pack.py:42",
 # Pack correctness sizes: the tied wte member of gpt2-2.5b, a ragged n,
 # under 512 words at either width, a few codes.
 PACK_SIZES = [50257 * 1920, 512 * 8 + 3, 2047, 7]
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
+HIST_SOURCE = "src/repro_torch/kernels/csrc/entropy_hist.cu"
+NEW_REPLACES = {
+    "flash_fwd": "src/repro/kernels/flash_attention.py:75, "
+                 "src/repro/kernels/flash_attention_bwd.py:153",
+    "flash_dq": "src/repro/kernels/flash_attention_bwd.py:186",
+    "flash_dkv": "src/repro/kernels/flash_attention_bwd.py:186",
+    "hist_counts": "src/repro/kernels/entropy_hist.py:37",
+}
+BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+# (g) also checks in fp32 (B, Tq, Tk, H, Hkv, Dh, causal): the reference's
+# cross-attention case (non-causal, Tq != Tk) and a ragged T at Dh 96.
+ATTN_FP32 = [(2, 128, 384, 4, 1, 32, False), (2, 1000, 1000, 4, 2, 96, True)]
 # Kernel against plain version, as max|kernel - plain| / max|plain|. fp32
 # products sum in another order than cuBLAS (about 1e-7 relative); bf16
-# outputs of decompress round once (2**-8 relative).
+# outputs of decompress round once (2**-8 relative), as do the flash
+# kernels' bf16 outputs.
 TOL = {"float32": 1e-5, "bfloat16": 1e-2, "gram_schmidt": 1e-4}
+# (h): sampled_entropy_hist against the plain histogram_entropy, in nats
+# (the kernel bins by * (1 / width), the plain version by / width).
+ENTROPY_TOL = 1e-4
 
 
 def log(*args) -> None:
@@ -133,8 +169,9 @@ def device_ms(calls, iters: int) -> float:
     return total
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -376,7 +413,27 @@ def phase_main(report: dict, dev, profile: bool) -> dict:
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
     if profile:
         report["profile"] = profile_step(tr, batches, sorted(step_ms[1:])[1])
-    return launches
+    return launches, pooled_grad_sample(tr, batches)
+
+
+def pooled_grad_sample(trainer, batches, beta: float = 0.25) -> torch.Tensor:
+    """The GDS sample of the main path's gradient tree: one more batch's
+    gradients at the trained weights, the strided beta-sample of every leaf
+    (as ``core.entropy`` takes it), pooled in fp32. It waits in host memory
+    for (h), so that (d), (f) and (e) run with the device memory they had."""
+    from repro_torch import tree
+    from repro_torch.core.entropy import strided_sample
+    params = tree.tree_map(lambda t: t.detach().requires_grad_(True),
+                           trainer.state["params"])
+    batch = trainer._device_batch(next(batches))
+    with torch.enable_grad():
+        loss, _ = trainer.model.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+    sample = torch.cat([strided_sample(g, beta).float() for g in grads
+                        if g.numel() > 16]).cpu()
+    del params, grads
+    torch.cuda.empty_cache()
+    return sample
 
 
 def _payloads(trainer) -> list[int]:
@@ -570,6 +627,274 @@ def time_pack(payloads: list[int], dev) -> dict:
     return rows
 
 
+# -------------------------------------------------------------- (g) attention
+def _attn_work(B, Tq, Tk, H, Hkv, Dh, causal, dtype) -> dict:
+    """Least bytes and operations of the flash kernels at one shape: each
+    input read once, each output written once, products counted over the
+    (query, key) pairs the mask keeps (4 Dh FLOP per pair per product pair:
+    the forward's QK^T and PV; dQ's QK^T, dO V^T and dS K; dK/dV's QK^T,
+    dO V^T, P^T dO and dS^T Q)."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    if causal:
+        pairs = sum(min(i + 1, Tk) for i in range(Tq))
+    else:
+        pairs = Tq * Tk
+    pairs *= B * H
+    q_el, kv_el, rows = B * Tq * H * Dh, B * Tk * Hkv * Dh, B * H * Tq
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return {
+        "flash_fwd": bound_ms(isz * (2 * q_el + 2 * kv_el), 4 * Dh * pairs, peak),
+        "flash_dq": bound_ms(isz * (3 * q_el + 2 * kv_el) + 8 * rows,
+                             6 * Dh * pairs, peak),
+        "flash_dkv": bound_ms(isz * (2 * q_el + 4 * kv_el) + 8 * rows,
+                              8 * Dh * pairs, peak),
+        "backward_pair": bound_ms(isz * (3 * q_el + 4 * kv_el) + 8 * rows,
+                                  10 * Dh * pairs, peak),
+    }
+
+
+def _attn_inputs(shape, dtype, dev):
+    B, Tq, Tk, H, Hkv, Dh = shape
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + Tq + Tk + H + Dh)
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+    return (rand(B, Tq, H, Dh), rand(B, Tk, Hkv, Dh), rand(B, Tk, Hkv, Dh),
+            rand(B, Tq, H, Dh))
+
+
+def _drive_attention(q, k, v, do, causal):
+    """The kernel API as a user calls it: flash_attention, then
+    flash_attention_train forward and backward under autograd."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_train
+    o_inf = flash_attention(q, k, v, causal=causal)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention_train(*leaves, causal)
+    o.backward(do)
+    return o_inf, o.detach(), [t.grad for t in leaves]
+
+
+def check_attention(name, shape, causal, dtype, dev) -> dict:
+    """Forward, LSE, dQ, dK and dV through the kernel API against the plain
+    versions on the same inputs, as max|kernel - plain| / max|plain|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention_bwd import _fwd_with_stats
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    kernels = fa.KERNELS + fb.KERNELS
+    q, k, v, do = _attn_inputs(shape, dtype, dev)
+    for w in kernels:
+        w.launches = 0
+    o_inf, o, grads = _drive_attention(q, k, v, do, causal)
+    launches = {w.__name__: w.launches for w in kernels}
+    _, lse = _fwd_with_stats(q, k, v, causal=causal)
+    p_o, p_lse = ref.flash_fwd(q, k, v, causal)
+    plain = {"attention": ref.flash_reference(q, k, v, causal), "o": p_o,
+             "lse": p_lse}
+    plain.update(zip(("dq", "dk", "dv"), ref.flash_bwd(q, k, v, o, lse, do,
+                                                       causal)))
+    got = {"attention": o_inf, "o": o, "lse": lse, "dq": grads[0],
+           "dk": grads[1], "dv": grads[2]}
+    torch.cuda.synchronize()
+    tol = TOL[str(dtype)[6:]]
+    errs = {key: rel_err(got[key], plain[key]) for key in got}
+    log(f"(g) {name:10s} {list(shape)} causal={causal} {str(dtype)[6:]}: "
+        + ", ".join(f"{key} {r:.2e}" for key, (_, r) in errs.items())
+        + f" relative (tol {tol:.0e})")
+    bad = {key: r for key, (_, r) in errs.items() if not r <= tol}
+    if bad:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions at {name} {shape}: {bad}")
+    return {"shape": list(shape), "causal": causal, "dtype": str(dtype)[6:],
+            "launches": launches,
+            "rel_err": {key: r for key, (_, r) in errs.items()},
+            "max_abs_err": {key: a for key, (a, _) in errs.items()}}
+
+
+def time_attention(shape, dtype, dev) -> dict:
+    """Device time per call of each flash kernel, its plain version and
+    the library call (``scaled_dot_product_attention``, causal, GQA, on
+    (B, H, T, Dh) views), with the bounds of ``_attn_work``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    q, k, v, do = _attn_inputs(shape, dtype, dev)
+    o, lse = fb._fwd_with_stats(q, k, v, causal=True)
+    delta = ref.flash_delta(o, do)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True, enable_gqa=True)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    out = sdpa(*leaves)
+    dot = do.transpose(1, 2)
+    with torch.no_grad():
+        fwd_lib = lambda: sdpa(qt, kt, vt)
+        rows = {
+            "flash_fwd": dict(
+                ms=device_ms([lambda: fa.flash_attention(q, k, v)], 10),
+                plain_ms=device_ms([lambda: ref.flash_reference(q, k, v)], 3),
+                library_ms=device_ms([fwd_lib], 10),
+                fwd_lse_ms=device_ms([lambda: fb._fwd_with_stats(q, k, v)], 10)),
+            "flash_dq": dict(
+                ms=device_ms([lambda: fb.flash_dq(q, k, v, do, lse, delta)], 10),
+                plain_ms=device_ms([lambda: ref.flash_dq(q, k, v, do, lse,
+                                                         delta)], 3),
+                library_ms=None),
+            "flash_dkv": dict(
+                ms=device_ms([lambda: fb.flash_dkv(q, k, v, do, lse, delta)], 10),
+                plain_ms=device_ms([lambda: ref.flash_dkv(q, k, v, do, lse,
+                                                          delta)], 3),
+                library_ms=None),
+        }
+    # one library call computes dQ, dK and dV together: SDPA's backward.
+    # Calls through autograd cost up to about 1.5 ms of host time each, so
+    # few of them are queued, well inside device_ms's 25 ms sleep.
+    pair_lib = device_ms([lambda: torch.autograd.grad(
+        out, leaves, dot, retain_graph=True)], 5)
+    fwd_bwd_lib = device_ms([lambda: torch.autograd.grad(
+        sdpa(*leaves), leaves, dot)], 3)
+    train_leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    fwd_bwd = device_ms([lambda: torch.autograd.grad(
+        fb.flash_attention_train(*train_leaves), train_leaves, do)], 3)
+    work = _attn_work(*shape, True, dtype)
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = work[name]
+    extra = {"fwd_bwd_ms": fwd_bwd, "fwd_bwd_library_ms": fwd_bwd_lib,
+             "backward_library_ms": pair_lib,
+             "backward_ms": rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
+             "backward_bound_ms": work["backward_pair"][0]}
+    del q, k, v, do, o, lse, delta, leaves, out, train_leaves
+    torch.cuda.empty_cache()
+    return {"rows": rows, **extra}
+
+
+def _attn_shapes() -> list[tuple]:
+    """(name, (B, Tq, Tk, H, Hkv, Dh)) at batch 8 x seq 1024 for the
+    attention widths of gpt2-2.5b and qwen2-0.5b."""
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.configs.qwen2_0_5b import FULL as QWEN2_0_5B
+    return [(c.name, (8, 1024, 1024, c.num_heads, c.num_kv_heads, c.hd))
+            for c in (GPT2_2_5B, QWEN2_0_5B)]
+
+
+def phase_attention(report: dict, dev) -> dict:
+    """The flash kernels through the kernel API at the attention widths of
+    gpt2-2.5b and qwen2-0.5b (bf16, causal), and two fp32 cases; then
+    each kernel timed at both widths. Returns the launches of the drives
+    (each case's counted from 0 around its drive, without the calls made
+    to compare or time)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    kernels = fa.KERNELS + fb.KERNELS
+    full = _attn_shapes()
+    shapes = [(*c, True, torch.bfloat16) for c in full]
+    shapes += [(f"fp32-{i}", c[:6], c[6], torch.float32)
+               for i, c in enumerate(ATTN_FP32)]
+    checks = [check_attention(name, shape, causal, dtype, dev)
+              for name, shape, causal, dtype in shapes]
+    launches = {k.__name__: sum(c["launches"][k.__name__] for c in checks)
+                for k in kernels}
+    log(f"(g) launches {launches}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a flash kernel never launched: {launches}")
+    timing = {}
+    for name, shape, _, dtype in shapes[:len(full)]:
+        timing[name] = t = time_attention(shape, dtype, dev)
+        for kname, row in t["rows"].items():
+            lib = row["library_ms"]
+            log(f"(g) {name:10s} {kname:9s} kernel {row['ms']:.4f} ms plain "
+                f"{row['plain_ms']:.4f} library "
+                f"{'none' if lib is None else f'{lib:.4f}'} bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), device time")
+        log(f"(g) {name:10s} backward pair {t['backward_ms']:.4f} ms (SDPA "
+            f"backward {t['backward_library_ms']:.4f}, bound "
+            f"{t['backward_bound_ms']:.4f}); forward with LSE "
+            f"{t['rows']['flash_fwd']['fwd_lse_ms']:.4f}; forward+backward "
+            f"{t['fwd_bwd_ms']:.4f} ms (SDPA {t['fwd_bwd_library_ms']:.4f})")
+    report["attention"] = {"checks": checks, "timing": timing,
+                           "launches": launches}
+    return launches
+
+
+# ------------------------------------------------------------ (h) histogram
+def phase_histogram(report: dict, dev, sample: torch.Tensor) -> dict:
+    """hist_counts on the main path's pooled gradient sample, bit-equal to
+    the plain version; sampled_entropy_hist against the plain
+    histogram_entropy; a ragged, unaligned n and outliers; the entropy
+    probe on the card; then the kernel timed against its bound."""
+    from repro_torch.core.entropy import histogram_entropy
+    from repro_torch.kernels import entropy_hist as eh
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import entropy_probe
+    sample = sample.to(dev)
+    n = sample.numel()
+    mu, sigma = sample.mean(), sample.std(unbiased=False) + 1e-12
+    lo, inv_w = mu - 8.0 * sigma, 1.0 / ((16.0 * sigma) / 256)
+    ragged = sample[1:n - 4]                   # odd length, off 16 bytes
+    gen = torch.Generator(device=dev).manual_seed(13)
+    wild = sample[:1 << 20].clone()
+    spots = torch.randperm(wild.numel(), generator=gen, device=dev)[:64]
+    wild[spots[:32]], wild[spots[32:]] = 1e30, -1e30
+    eh.hist_counts.launches = 0
+    counts = {"pooled": eh.hist_counts(sample, lo, inv_w),
+              "ragged": eh.hist_counts(ragged, lo, inv_w),
+              "outliers": eh.hist_counts(wild, lo, inv_w)}
+    entropy = ops.sampled_entropy_hist(sample)
+    probe = entropy_probe.probe(dev)
+    launches = {"hist_counts": eh.hist_counts.launches}
+    # the plain counts in int64: exact, summing to n; the fp32 counts of
+    # both versions round a bin above 2**24 to the nearest float
+    samples = {"pooled": sample, "ragged": ragged, "outliers": wild}
+    exact = {key: torch.bincount(ref.hist_bins(x, lo, inv_w), minlength=256)
+             for key, x in samples.items()}
+    want_h = histogram_entropy(sample)
+    torch.cuda.synchronize()
+    out = {"n": n, "launches": launches, "probe": probe}
+    for key, c in counts.items():
+        plain, size = exact[key].to(torch.float32), samples[key].numel()
+        total = int(exact[key].sum().item())
+        equal = torch.equal(c, plain) and total == size
+        err = (c - plain).abs().max().item()
+        big = int((exact[key] > 1 << 24).sum().item())
+        log(f"(h) hist_counts {key:8s} n {size}: "
+            f"{'bit-equal' if equal else 'MISMATCH'} to the plain version "
+            f"(max abs err {err}); plain int64 counts sum to {total}, "
+            f"{big} bins above 2**24")
+        if not equal:
+            raise AssertionError(f"hist_counts {key} differs from its plain "
+                                 "version, or the plain counts lose elements")
+        out[key] = {"n": size, "max_abs_err": err, "bins_over_2_24": big}
+    outer = counts["outliers"][[0, -1]].tolist()
+    if not outer[0] >= 32 or not outer[1] >= 32:
+        raise AssertionError(f"outliers missed the end bins: {outer}")
+    gap = abs(entropy.item() - want_h.item())
+    log(f"(h) sampled_entropy_hist {entropy.item():.6f} nats, plain "
+        f"histogram_entropy {want_h.item():.6f}: gap {gap:.2e} (tol "
+        f"{ENTROPY_TOL:.0e}); probe on the card:")
+    for line in probe:
+        log(f"      {line}")
+    if not gap <= ENTROPY_TOL or not math.isfinite(entropy.item()):
+        raise AssertionError(f"sampled_entropy_hist strays {gap:.2e} nats")
+    out["entropy"] = {"kernel": entropy.item(), "plain": want_h.item(),
+                      "gap": gap}
+    nbytes = sample.element_size() * n + 4 * 256
+    bound, bound_by = bound_ms(nbytes, 3 * n)
+    # the plain version's bincount waits for the device (it sizes its output
+    # from the largest bin), so it is timed with its host round trips
+    out["timing"] = row = dict(
+        ms=device_ms([lambda: eh.hist_counts(sample, lo, inv_w)], 10),
+        plain_ms=time_ms(lambda: ref.hist_counts(sample, lo, inv_w), 3),
+        library_ms=None, bound_ms=bound, bound_by=bound_by)
+    log(f"(h) hist_counts n {n}: kernel {row['ms']:.4f} ms (device time) "
+        f"plain {row['plain_ms']:.4f} (with host round trips) library none (torch.histc drops out-of-range "
+        f"values and bins by (x - min) * bins / (max - min)) bound "
+        f"{bound:.4f} ms ({bound_by}); launches {launches}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"hist_counts never launched: {launches}")
+    report["histogram"] = out
+    return launches
+
+
 # ----------------------------------------------------------------- the lines
 def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
@@ -597,6 +922,35 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
                     "ms": row["ms"], "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"]})
+    # the flash kernels: per call at gpt2-2.5b widths (one layer's
+    # attention), errors over every (g) case; the histogram: one pooled sample
+    attn = report["attention"]
+    outputs = {"flash_fwd": ("attention", "o", "lse"), "flash_dq": ("dq",),
+               "flash_dkv": ("dk", "dv")}
+    gpt2 = next(iter(attn["timing"].values()))
+    for name, keys in outputs.items():
+        row = gpt2["rows"][name]
+        entry = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                 "replaces": NEW_REPLACES[name],
+                 "launches": attn["launches"][name],
+                 "max_abs_err": max(c["max_abs_err"][key]
+                                    for c in attn["checks"] for key in keys),
+                 **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}}
+        if name != "flash_fwd":
+            # no library call computes dQ or dK/dV alone; SDPA's backward
+            # computes both, beside the pair's sum
+            entry.update(pair_ms=gpt2["backward_ms"],
+                         pair_library_ms=gpt2["backward_library_ms"])
+        out.append(entry)
+    hist = report["histogram"]
+    out.append({"name": "hist_counts", "route": "cuda", "source": HIST_SOURCE,
+                "replaces": NEW_REPLACES["hist_counts"],
+                "launches": hist["launches"]["hist_counts"],
+                "max_abs_err": max(hist[k]["max_abs_err"]
+                                   for k in ("pooled", "ragged", "outliers")),
+                **{key: hist["timing"][key] for key in
+                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     return {"kernels": out}
 
 
@@ -625,10 +979,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build(report)
     phase_kernels(report, dev)
-    launches = phase_main(report, dev, args.profile)
+    launches, grad_sample = phase_main(report, dev, args.profile)
     phase_control(report, dev)
     pack_launches = phase_wire(report, dev, args.profile)
     phase_check(report, dev)
+    phase_attention(report, dev)
+    phase_histogram(report, dev, grad_sample)
+    del grad_sample
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches)
     if args.out:

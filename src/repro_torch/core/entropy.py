@@ -7,7 +7,8 @@ alpha (fraction of iterations measured; the gate lives in the controller).
   * ``gaussian_entropy`` — Lemma 2, H = log(sigma) + 0.5*log(2*pi*e); what
     CQM's Theorem 3 consumes.
   * ``histogram_entropy`` — plug-in estimator -sum p log(p / w) in plain
-    torch (the reference's Pallas histogram kernel is ROADMAP Queue 2).
+    torch, as the reference's trainer computes it; the histogram kernel
+    is reached through ``kernels.ops.sampled_entropy_hist``.
 
 The measurement stays on the device: ``grads_entropy`` returns a 0-d tensor
 and the trainer reads it at its next flush.

@@ -12,6 +12,9 @@ import torch
 from repro.kernels import lowrank as ref_lr
 from repro.kernels import ref as ref_oracle
 
+from repro_torch.kernels import entropy_hist as eh
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import lowrank as lr
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
@@ -159,24 +162,35 @@ class _FakeEntryPoint:
         assert len(args) == len(self.argtypes), (self.name, len(args))
         for a, t in zip(args, self.argtypes):
             want = {ctypes.c_void_p: ctypes.c_void_p, ctypes.c_int: int,
-                    ctypes.c_float: float}[t]
+                    ctypes.c_longlong: int, ctypes.c_float: float}[t]
             assert isinstance(a, want), (self.name, a, t)
         self.calls.append((self.name, args))
         return self.rc
 
 
 class _FakeLib:
-    def __init__(self, rc=0):
-        self.calls, self.rc = [], rc
+    def __init__(self, card):
+        self._card = card
 
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
-        fn = _FakeEntryPoint(name, self.calls, self.rc)
+        fn = _FakeEntryPoint(name, self._card.calls, self._card.rc)
         if name == "repro_cuda_error_string":
             fn = lambda code: b"fake error"
         setattr(self, name, fn)
         return fn
+
+
+class _FakeCard:
+    """One fake library per CUDA source, as ``build.load`` gives one per
+    source, all recording into ``calls`` and returning ``rc``."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc, self.libs = [], rc, {}
+
+    def load(self, name):
+        return self.libs.setdefault(name, _FakeLib(self))
 
 
 @pytest.fixture
@@ -184,15 +198,16 @@ def fake_card(monkeypatch):
     """The wrappers' CUDA branch on CPU tensors, with a recording library."""
     import contextlib
     import types
-    lib = _FakeLib()
-    monkeypatch.setattr(lr.build, "load", lambda name: lib)
-    monkeypatch.setattr(lr, "_on_cpu", lambda *ts: False)
+    card = _FakeCard()
+    monkeypatch.setattr(lr.build, "load", card.load)
+    for module in (lr, fa, fb, eh):
+        monkeypatch.setattr(module, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=1234))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: types.SimpleNamespace(multi_processor_count=132))
-    return lib
+    return card
 
 
 def test_launches_match_the_declared_c_signatures(fake_card):
@@ -228,3 +243,51 @@ def test_refused_launch_raises_and_counts_nothing(fake_card):
     assert lr.gram_schmidt_panel.launches == before
     with pytest.raises(TypeError, match="fp32 or bf16"):
         lr.ef_lowrank_p(g.double(), g.double(), g[..., :8].transpose(1, 2))
+
+
+def test_flash_and_hist_launches_match_the_declared_c_signatures(fake_card):
+    """The flash entry points read q, k and v in place through their
+    strides: here slices of one fused (B, T, H + 2, Dh) projection."""
+    qkv = torch.from_numpy(_np((2, 70, 9, 96), 24))
+    q, k, v = qkv[:, :, :7], qkv[:, :, 7:8], qkv[:, :, 8:]
+    kernels = fa.KERNELS + fb.KERNELS + eh.KERNELS
+    before = [w.launches for w in kernels]
+    o, lse = fa.flash_fwd(q, k, v, causal=True, with_lse=True)
+    fa.flash_attention(q, k, v, causal=False)
+    fb.flash_dq(q, k, v, q, lse, lse, causal=True)
+    fb.flash_dkv(q, k, v, q, lse, lse, causal=False)
+    eh.hist_counts(qkv.reshape(-1), -1.0, 2.0, num_bins=64)
+    assert [w.launches - b for w, b in zip(kernels, before)] == [2, 1, 1, 1]
+    assert [name for name, _ in fake_card.calls] == [
+        "repro_flash_fwd", "repro_flash_fwd", "repro_flash_dq",
+        "repro_flash_dkv", "repro_hist_counts"]
+    (_, f1), (_, f2), (_, dq), (_, dkv), (_, h) = fake_card.calls
+    dims = (2, 70, 70, 7, 1, 96)
+    views = [t.stride()[:3] for t in (q, k, v)]
+    assert f1[5:13] == dims + (1, 0) and f2[5:13] == dims + (0, 0)
+    assert f1[13:22] == sum(views, ()) and f2[13:22] == f1[13:22]
+    assert [a.value for a in f1[:3]] == [t.data_ptr() for t in (q, k, v)]
+    assert f1[3].value == o.data_ptr() and f1[4].value == lse.data_ptr()
+    assert f2[4].value is None                     # no LSE rows asked for
+    assert dq[7:15] == dims + (1, 0) and dkv[8:16] == dims + (0, 0)
+    assert dq[15:27] == sum(views, ()) + q.stride()[:3]
+    assert dkv[16:28] == dq[15:27]
+    assert h[1:2] == (qkv.numel(),) and h[4:6] == (64, 0)
+    assert all(args[-1].value == 1234 for _, args in fake_card.calls)
+
+
+def test_refused_flash_and_hist_launches_raise_and_count_nothing(fake_card):
+    fake_card.rc = 1
+    q = torch.from_numpy(_np((1, 16, 2, 32), 26))
+    before = [w.launches for w in fa.KERNELS + eh.KERNELS]
+    with pytest.raises(RuntimeError, match="repro_flash_fwd.*fake error"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="repro_hist_counts.*fake error"):
+        eh.hist_counts(q.reshape(-1), 0.0, 1.0)
+    assert [w.launches for w in fa.KERNELS + eh.KERNELS] == before
+    with pytest.raises(ValueError, match="num_bins=2048"):
+        eh.hist_counts(q.reshape(-1), 0.0, 1.0, num_bins=2048)
+    with pytest.raises(ValueError, match="head width 40"):
+        fa.flash_attention(q[..., :20].repeat(1, 1, 1, 2)[..., :40],
+                           q[..., :20].repeat(1, 1, 1, 2)[..., :40],
+                           q[..., :20].repeat(1, 1, 1, 2)[..., :40])

@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import entropy_hist as eh
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import lowrank as lr
 from repro_torch.kernels import pack as pk
 from repro_torch.kernels import ref
@@ -115,3 +118,92 @@ def test_cuda_pack_unpack_match_plain(cuda_device, bits, n, offset):
                        ref.pack_bits(codes, bits).view(torch.int32))
     assert torch.equal(back, codes)
     assert torch.equal(back, ref.unpack_bits(words, bits, n))
+
+
+def _rel_close(got, want, tol, what):
+    """max|got - want| <= tol * max|want|, in fp32."""
+    diff = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert diff <= tol * scale, f"{what}: {diff:.3e} > {tol:.0e} x {scale:.3e}"
+
+
+# Kernel against plain version, relative to the plain output's largest
+# magnitude: fp32 sums in another order than cuBLAS; bf16 outputs round once.
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 7])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_kernels_match_plain(cuda_device, dh, rep, causal, dtype):
+    """Forward, LSE, dQ and dK/dV at a ragged T (non-causal: Tq != Tk)."""
+    dt = getattr(torch, dtype)
+    hkv = 2 if rep == 1 else 1
+    tq, tk = (200, 200) if causal else (130, 250)
+    q, k, v, do = (torch.from_numpy(_np(shape, seed)).to(cuda_device, dt)
+                   for shape, seed in (((2, tq, hkv * rep, dh), 40),
+                                       ((2, tk, hkv, dh), 41),
+                                       ((2, tk, hkv, dh), 42),
+                                       ((2, tq, hkv * rep, dh), 43)))
+    o, lse = fb._fwd_with_stats(q, k, v, causal=causal)
+    p_o, p_lse = ref.flash_fwd(q, k, v, causal)
+    delta = ref.flash_delta(o, do)
+    dq = fb.flash_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fb.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    _rel_close(o, p_o, tol, "o")
+    _rel_close(fa.flash_attention(q, k, v, causal=causal),
+               ref.flash_reference(q, k, v, causal), tol, "attention")
+    _rel_close(lse, p_lse, 1e-5, "lse")
+    _rel_close(dq, ref.flash_dq(q, k, v, do, lse, delta, causal), tol, "dq")
+    p_dk, p_dv = ref.flash_dkv(q, k, v, do, lse, delta, causal)
+    _rel_close(dk, p_dk, tol, "dk")
+    _rel_close(dv, p_dv, tol, "dv")
+    assert (dq.dtype, dk.dtype, dv.dtype) == (dt, dt, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_train_matches_plain_gradients(cuda_device):
+    q, k, v, do = (torch.from_numpy(_np(shape, seed)).to(cuda_device)
+                   for shape, seed in (((2, 300, 14, 64), 44),
+                                       ((2, 300, 2, 64), 45),
+                                       ((2, 300, 2, 64), 46),
+                                       ((2, 300, 14, 64), 47)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fb.flash_attention_train(*leaves, True)
+    o.backward(do)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref.flash_reference(*plain, True).backward(do)
+    for got, want in zip(leaves, plain):
+        _rel_close(got.grad, want.grad, 1e-5, "grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1_000_003, 1), (4099, 0), (7, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_cuda_hist_counts_bit_exact(cuda_device, n, offset, dtype):
+    """Ragged n, an unaligned start (offset), outliers and infinities."""
+    full = torch.from_numpy(_np((n + offset,), 48)).to(cuda_device)
+    full[offset] = 1e30
+    full[-1] = -float("inf")
+    x = full[offset:].to(getattr(torch, dtype))
+    lo, inv_w = torch.tensor(-4.0, device=cuda_device), 32.0
+    got = eh.hist_counts(x, lo, inv_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.hist_counts(x, lo, torch.tensor(inv_w)))
+    assert got.sum().item() == n and got[-1] >= 1 and got[0] >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_and_hist_wrappers_count_launches(cuda_device):
+    kernels = fa.KERNELS + fb.KERNELS + eh.KERNELS
+    before = [w.launches for w in kernels]
+    q = torch.from_numpy(_np((1, 64, 2, 32), 49)).to(cuda_device)
+    leaves = [q.clone().requires_grad_(True) for _ in range(3)]
+    fb.flash_attention_train(*leaves).sum().backward()
+    fa.flash_attention(q, q, q)
+    eh.hist_counts(q.reshape(-1), -4.0, 32.0)
+    assert [w.launches - b for w, b in zip(kernels, before)] == [2, 1, 1, 1]
