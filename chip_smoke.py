@@ -6,7 +6,9 @@
 
 Phases, in order; any failure raises, so the exit code is not 0:
 
-  (a) build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+  (a) build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+               count the tensor-core instructions (HGMMA) in the bf16
+               flash forward's SASS when the toolkit has ``cuobjdump``
   (b) kernels  each PowerSGD kernel against its plain PyTorch version on
                the main path's shape groups (and a ragged shape, and bf16),
                with kernel, plain, library-call and bound times; the
@@ -31,9 +33,12 @@ Phases, in order; any failure raises, so the exit code is not 0:
                gpt2-2.5b (20 heads of 96) and qwen2-0.5b (14 query heads,
                2 kv heads, of 64), bf16, causal, batch 8 x seq 1024; o, lse,
                dq, dk and dv against the plain versions; the same in fp32
-               non-causal with Tq != Tk and at a ragged T = 1000; then each
-               kernel, its plain version and ``scaled_dot_product_attention``
-               timed at both widths
+               non-causal with Tq != Tk and at a ragged T = 1000 (bf16 runs
+               the tensor-core forward, fp32 the FMA one: both counted);
+               then each kernel, its plain version and
+               ``scaled_dot_product_attention`` timed at both widths, the
+               bf16 forward's TFLOP/s and share of its bound, and SDPA's
+               forward under each backend that takes the inputs
   (h) histogram  ``hist_counts`` on the beta = 0.25 GDS sample of (c)'s
                gradient tree (about 113 M values), bit-equal to the plain
                version, and on a ragged, unaligned n and on outliers;
@@ -59,6 +64,8 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -86,6 +93,7 @@ PACK_REPLACES = {"pack_words": "src/repro/kernels/pack.py:42",
 # under 512 words at either width, a few codes.
 PACK_SIZES = [50257 * 1920, 512 * 8 + 3, 2047, 7]
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
+FLASH_FWD_SOURCE = "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu"
 HIST_SOURCE = "src/repro_torch/kernels/csrc/entropy_hist.cu"
 NEW_REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:75, "
@@ -186,12 +194,37 @@ def phase_build(report: dict) -> None:
     t0 = time.perf_counter()
     logs = build.build_all()
     secs = time.perf_counter() - t0
-    report["build"] = {"seconds": secs, "logs": logs}
+    report["build"] = {"seconds": secs, "logs": logs,
+                       "hgmma": count_hgmma(build)}
     log(f"(a) build: {secs:.2f} s ({', '.join(build.SOURCES)}) -> {build.BUILD_DIR}")
     for text in logs.values():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
+
+
+def count_hgmma(build) -> dict | None:
+    """HGMMA (wgmma) instructions per kernel in the bf16 flash forward's
+    SASS, read with ``cuobjdump -sass``; None without ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(tool).exists():
+        log("(a) no cuobjdump: HGMMA count not taken")
+        return None
+    sass = subprocess.run([tool, "-sass", str(build._target("flash_fwd_sm90"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif "HGMMA" in line and name is not None:
+            counts[name] += 1
+    for fn, n in counts.items():
+        log(f"(a) flash_fwd_sm90 SASS: {n} HGMMA in {fn}")
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"a bf16 flash forward kernel has no HGMMA: {counts}")
+    return counts
 
 
 # ---------------------------------------------------------------- (b) kernels
@@ -628,6 +661,11 @@ def time_pack(payloads: list[int], dev) -> dict:
 
 
 # -------------------------------------------------------------- (g) attention
+def _pairs(Tq: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs of one head that the mask keeps."""
+    return sum(min(i + 1, Tk) for i in range(Tq)) if causal else Tq * Tk
+
+
 def _attn_work(B, Tq, Tk, H, Hkv, Dh, causal, dtype) -> dict:
     """Least bytes and operations of the flash kernels at one shape: each
     input read once, each output written once, products counted over the
@@ -635,11 +673,7 @@ def _attn_work(B, Tq, Tk, H, Hkv, Dh, causal, dtype) -> dict:
     the forward's QK^T and PV; dQ's QK^T, dO V^T and dS K; dK/dV's QK^T,
     dO V^T, P^T dO and dS^T Q)."""
     isz = torch.tensor([], dtype=dtype).element_size()
-    if causal:
-        pairs = sum(min(i + 1, Tk) for i in range(Tq))
-    else:
-        pairs = Tq * Tk
-    pairs *= B * H
+    pairs = B * H * _pairs(Tq, Tk, causal)
     q_el, kv_el, rows = B * Tq * H * Dh, B * Tk * Hkv * Dh, B * H * Tq
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return {
@@ -684,8 +718,15 @@ def check_attention(name, shape, causal, dtype, dev) -> dict:
     q, k, v, do = _attn_inputs(shape, dtype, dev)
     for w in kernels:
         w.launches = 0
+    by_kernel = fa.flash_fwd.launches_by_kernel
+    by_kernel.update(dict.fromkeys(by_kernel, 0))
     o_inf, o, grads = _drive_attention(q, k, v, do, causal)
     launches = {w.__name__: w.launches for w in kernels}
+    fwd_kernels = dict(by_kernel)
+    want = "flash_fwd_sm90" if dtype == torch.bfloat16 else "flash_fwd_fma"
+    if fwd_kernels[want] != launches["flash_fwd"]:
+        raise AssertionError(f"{dtype} forward launches {fwd_kernels}: all "
+                             f"{launches['flash_fwd']} should be {want}")
     _, lse = _fwd_with_stats(q, k, v, causal=causal)
     p_o, p_lse = ref.flash_fwd(q, k, v, causal)
     plain = {"attention": ref.flash_reference(q, k, v, causal), "o": p_o,
@@ -699,13 +740,13 @@ def check_attention(name, shape, causal, dtype, dev) -> dict:
     errs = {key: rel_err(got[key], plain[key]) for key in got}
     log(f"(g) {name:10s} {list(shape)} causal={causal} {str(dtype)[6:]}: "
         + ", ".join(f"{key} {r:.2e}" for key, (_, r) in errs.items())
-        + f" relative (tol {tol:.0e})")
+        + f" relative (tol {tol:.0e}); forward launches {fwd_kernels}")
     bad = {key: r for key, (_, r) in errs.items() if not r <= tol}
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions at {name} {shape}: {bad}")
     return {"shape": list(shape), "causal": causal, "dtype": str(dtype)[6:],
-            "launches": launches,
+            "launches": launches, "forward_kernels": fwd_kernels,
             "rel_err": {key: r for key, (_, r) in errs.items()},
             "max_abs_err": {key: a for key, (a, _) in errs.items()}}
 
@@ -759,6 +800,12 @@ def time_attention(shape, dtype, dev) -> dict:
     work = _attn_work(*shape, True, dtype)
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = work[name]
+    fwd = rows["flash_fwd"]
+    B, Tq, Tk, H, _, Dh = shape
+    fwd["flop"] = 4 * Dh * B * H * _pairs(Tq, Tk, True)
+    fwd["tflop_per_s"] = fwd["flop"] / fwd["ms"] * 1e-9
+    fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
+    fwd["sdpa_backend_ms"] = sdpa_backends(sdpa, qt, kt, vt)
     extra = {"fwd_bwd_ms": fwd_bwd, "fwd_bwd_library_ms": fwd_bwd_lib,
              "backward_library_ms": pair_lib,
              "backward_ms": rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
@@ -766,6 +813,31 @@ def time_attention(shape, dtype, dev) -> dict:
     del q, k, v, do, o, lse, delta, leaves, out, train_leaves
     torch.cuda.empty_cache()
     return {"rows": rows, **extra}
+
+
+def sdpa_backends(sdpa, qt, kt, vt) -> dict:
+    """Device ms of SDPA's forward pinned to each backend (flash, cuDNN,
+    memory-efficient) with ``torch.nn.attention.sdpa_kernel``; None where
+    the backend refuses these inputs. The default dispatch is
+    ``library_ms``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return sdpa(qt, kt, vt)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            out[backend.name] = None
+            log(f"(g)   SDPA {backend.name} refuses these inputs: "
+                f"{str(err).splitlines()[0][:120]}")
+            continue
+        with torch.no_grad():
+            out[backend.name] = device_ms([call], 10)
+    return out
 
 
 def _attn_shapes() -> list[tuple]:
@@ -806,6 +878,13 @@ def phase_attention(report: dict, dev) -> dict:
                 f"{row['plain_ms']:.4f} library "
                 f"{'none' if lib is None else f'{lib:.4f}'} bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), device time")
+        fwd = t["rows"]["flash_fwd"]
+        log(f"(g) {name:10s} flash_fwd (bf16, tensor cores) "
+            f"{fwd['tflop_per_s']:.1f} TFLOP/s of {fwd['flop'] / 1e9:.2f} "
+            f"GFLOP; {fwd['bound_share']:.3f} of its bound; SDPA forward by "
+            "backend " + ", ".join(
+                f"{b} {'refused' if ms is None else f'{ms:.4f} ms'}"
+                for b, ms in fwd["sdpa_backend_ms"].items()))
         log(f"(g) {name:10s} backward pair {t['backward_ms']:.4f} ms (SDPA "
             f"backward {t['backward_library_ms']:.4f}, bound "
             f"{t['backward_bound_ms']:.4f}); forward with LSE "
@@ -930,14 +1009,20 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
     gpt2 = next(iter(attn["timing"].values()))
     for name, keys in outputs.items():
         row = gpt2["rows"][name]
-        entry = {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+        entry = {"name": name, "route": "cuda",
+                 "source": FLASH_FWD_SOURCE if name == "flash_fwd" else FLASH_SOURCE,
                  "replaces": NEW_REPLACES[name],
                  "launches": attn["launches"][name],
                  "max_abs_err": max(c["max_abs_err"][key]
                                     for c in attn["checks"] for key in keys),
                  **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}}
-        if name != "flash_fwd":
+        if name == "flash_fwd":
+            # the timed call is bf16; fp32 inputs run flash.cu's FMA kernel
+            entry.update(fp32_source=FLASH_SOURCE,
+                         tflop_per_s=row["tflop_per_s"],
+                         sdpa_backend_ms=row["sdpa_backend_ms"])
+        else:
             # no library call computes dQ or dK/dV alone; SDPA's backward
             # computes both, beside the pair's sum
             entry.update(pair_ms=gpt2["backward_ms"],

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lowrank", "pack", "flash", "entropy_hist")
+SOURCES = ("lowrank", "pack", "flash", "flash_fwd_sm90", "entropy_hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,9 +17,11 @@
 // head h reads kv head h / (H / Hkv). o, dq: (B, Tq, H, Dh) and dk, dv:
 // (B, Tk, Hkv, Dh), contiguous, in the inputs' dtype; lse and D: (B, H, Tq)
 // fp32. Inputs are fp32 or bf16 and every product runs in fp32, as the TPU
-// kernels cast every tile (.astype(F32)). Masked scores are -1e30, the row
-// sum is clamped at 1e-30, and scale = 1/sqrt(Dh) multiplies the dot, as
-// there. Ragged edges (T not a multiple of 64) are masked here, so every T
+// kernels cast every tile (.astype(F32)). The forward here takes fp32 only:
+// bf16 inputs run the tensor-core forward of flash_fwd_sm90.cu, and
+// repro_flash_fwd refuses them (each dtype has exactly one forward
+// kernel). Masked scores are -1e30, the row sum is clamped at 1e-30, and
+// scale = 1/sqrt(Dh) multiplies the dot, as there. Ragged edges (T not a multiple of 64) are masked here, so every T
 // runs the kernel.
 //
 // Design (H100 SXM: 67 TFLOP/s fp32 FMA, 3.35 TB/s HBM). At Dh = 64..128 a
@@ -36,8 +38,8 @@
 // the GQA group inside the block (the TPU reference wrote fp32 (B*H, Tk,
 // Dh) per query head and summed afterwards), so no atomics are needed and
 // the result does not depend on scheduling. Causal tiles wholly above the
-// diagonal are skipped, as _fwd_kernel:65-66 skips them. Tensor-core
-// products (wgmma), TMA and bf16 operands are later work.
+// diagonal are skipped, as _fwd_kernel:65-66 skips them. The backward's
+// tensor-core redesign (wgmma, TMA) is later work.
 //
 // Each C entry point launches on the stream it is given and returns
 // cudaGetLastError(); the Python wrappers raise on a non-zero code.
@@ -46,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -430,14 +434,18 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t run_fwd(const Args& a) {
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, fwd_smem(D));
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.s.Tq + kTile - 1) / kTile, a.s.H, a.s.B);
-  kern<<<grid, kThreads, fwd_smem(D), a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out0, a.lse_out, a.s,
-      a.sq, a.sk, a.sv);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return cudaErrorInvalidValue;   // bf16: flash_fwd_sm90.cu's kernel
+  } else {
+    auto kern = flash_fwd_kernel<T, D>;
+    cudaError_t e = allow_smem(kern, fwd_smem(D));
+    if (e != cudaSuccess) return e;
+    dim3 grid((a.s.Tq + kTile - 1) / kTile, a.s.H, a.s.B);
+    kern<<<grid, kThreads, fwd_smem(D), a.stream>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out0, a.lse_out, a.s,
+        a.sq, a.sk, a.sv);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -505,7 +513,8 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // o (B, Tq, H, D) and, when lse != NULL, lse (B, H, Tq) fp32 <- q, k, v.
-// dtype 0 = fp32, 1 = bf16; D in {32, 64, 96, 128}.
+// dtype 0 = fp32 (1 = bf16 is refused: flash_fwd_sm90.cu); D in {32, 64,
+// 96, 128}.
 int repro_flash_fwd(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int Tq, int Tk, int H, int Hkv, int D,
                     int causal, int dtype, long long qb, long long qt,

@@ -1,30 +1,43 @@
-"""Flash attention on Hopper: the forward kernel, with its plain version.
+"""Flash attention on Hopper: the forward kernels, with their plain version.
 
-The CUDA C++ lives in ``csrc/flash.cu`` (built by ``build.py``, loaded with
-``ctypes``). ``flash_fwd`` wraps its forward kernel, which replaces both
-``repro/kernels/flash_attention.py:75 flash_attention`` (``_flash_kernel``)
-and ``repro/kernels/flash_attention_bwd.py:153 _fwd_with_stats``
+``flash_fwd`` replaces both ``repro/kernels/flash_attention.py:75
+flash_attention`` (``_flash_kernel``) and
+``repro/kernels/flash_attention_bwd.py:153 _fwd_with_stats``
 (``_fwd_kernel``): one kernel writes o and, when asked, the log-sum-exp
-rows the backward needs. The backward kernels are in
-``flash_attention_bwd.py``.
+rows the backward needs. Each input dtype has exactly one kernel, chosen
+by dtype:
+
+* bf16 runs ``csrc/flash_fwd_sm90.cu`` on the tensor cores: Q, K and V come
+  by TMA (K/V through a ring of shared-memory stages that a producer warp
+  keeps full), S = Q K^T and
+  O += P V are ``wgmma`` products with fp32 sums, and P enters the second
+  product from registers, rounded to bf16 (the one place it rounds unlike
+  the reference, which multiplies fp32 P). On an H100 bytes bound it at
+  gpt2-2.5b widths and operations at qwen2-0.5b widths. ``sm90_plan``
+  states its tiles, swizzle and shared memory per head width;
+* fp32 runs ``flash_fwd_kernel<float, D>`` of ``csrc/flash.cu``, fp32 FMAs
+  from shared memory: ``wgmma`` has no fp32 mode, and TF32 keeps about
+  three decimal digits, short of the 1e-5 bar fp32 is held to.
+
+The backward kernels are in ``flash_attention_bwd.py``.
 
 Layout: q (B, Tq, H, Dh), k and v (B, Tk, Hkv, Dh), H a multiple of Hkv;
-query head h reads kv head ``h // (H // Hkv)``. The kernel reads the
+query head h reads kv head ``h // (H // Hkv)``. The kernels read the
 tensors in place through their strides (no (B*H, T, Dh) transposes), for
-Dh in ``HEAD_DIMS``, fp32 or bf16, any T: ragged tiles are masked. The
-reference's tile sizes (``bq``, ``bk``) and ``interpret`` do not change the
-function and are not part of these signatures.
-
-Design (H100 SXM: 67 TFLOP/s fp32 FMA): the kernel computes in fp32 FMAs
-from shared memory, so it is bound by operations; see ``csrc/flash.cu``.
+Dh in ``HEAD_DIMS``, any T: ragged tiles are masked. The reference's tile
+sizes (``bq``, ``bk``) and ``interpret`` do not change the function and are
+not part of these signatures.
 
 A wrapper given CPU tensors runs its plain version (``ref.py``); given
 CUDA tensors it launches its kernel or raises. ``<wrapper>.launches``
-counts kernel launches.
+counts kernel launches; ``flash_fwd.launches_by_kernel`` splits the
+forward's by kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import ClassVar
 
 import torch
 
@@ -33,7 +46,8 @@ from .launch import launch
 from .launch import on_cpu as _on_cpu
 from .launch import ptr as _ptr
 
-__all__ = ["flash_attention", "flash_fwd", "KERNELS", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_fwd", "KERNELS", "HEAD_DIMS", "Sm90Plan",
+           "sm90_plan", "tma_strides"]
 
 #: Head widths the kernels are built for.
 HEAD_DIMS = (32, 64, 96, 128)
@@ -56,6 +70,125 @@ def _lib() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _sm90_lib() -> ctypes.CDLL:
+    lib = build.load("flash_fwd_sm90")
+    if not getattr(lib, "_typed", False):
+        # q, k, v, o, lse; B, Tq, Tk, H, Hkv, D, causal; 9 strides; the plan
+        # (Sm90Plan.c_args); the stream
+        lib.repro_flash_fwd_sm90.argtypes = ([_P] * 5 + [_I] * 7 + [_L] * 9
+                                             + [_I] * 6 + [_P])
+        lib.repro_flash_fwd_sm90.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [_I]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+#: Shared memory a block may use on Hopper (227 KB).
+SMEM_LIMIT = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan:
+    """Tiles of the bf16 forward (``csrc/flash_fwd_sm90.cu``) at one Dh.
+
+    A block of two consumer warpgroups and a producer warp owns
+    ``block_m`` query rows; key and value tiles of ``block_n`` rows pass
+    through a ring of ``stages``, the deepest (up to 4) that fits.
+    Each tile sits in shared memory as column chunks of one swizzle span
+    (``swizzle`` bytes a row, ``chunk_cols`` columns), one TMA box
+    ``box_q`` / ``box_kv`` each, over the 4-D view (Dh, heads, T, B). The
+    kernel is built with the same numbers and refuses a launch that
+    states others.
+    """
+    dh: int
+    block_m: ClassVar[int] = 128
+    block_n: ClassVar[int] = 128
+    threads: ClassVar[int] = 288
+    max_stages: ClassVar[int] = 4
+
+    @property
+    def swizzle(self) -> int:
+        """128-byte spans where Dh divides into them (64, 128), else 64."""
+        return 128 if self.dh % 64 == 0 else 64
+
+    @property
+    def chunk_cols(self) -> int:
+        return self.swizzle // 2
+
+    @property
+    def chunks(self) -> int:
+        return self.dh // self.chunk_cols
+
+    @property
+    def box_q(self) -> tuple:
+        return (self.chunk_cols, 1, self.block_m, 1)
+
+    @property
+    def box_kv(self) -> tuple:
+        return (self.chunk_cols, 1, self.block_n, 1)
+
+    def _smem(self, stages: int) -> int:
+        return (1024 + 2 * self.block_m * self.dh
+                + stages * 2 * 2 * self.block_n * self.dh + 128)
+
+    @property
+    def stages(self) -> int:
+        """The deepest K/V ring, 2 to ``max_stages``, within SMEM_LIMIT."""
+        return max([2] + [s for s in range(2, self.max_stages + 1)
+                          if self._smem(s) <= SMEM_LIMIT])
+
+    @property
+    def smem_bytes(self) -> int:
+        """Q, the K/V ring, 128 bytes of mbarriers and 1024 of alignment."""
+        return self._smem(self.stages)
+
+    def c_args(self) -> list[int]:
+        return [self.block_m, self.block_n, self.threads, self.swizzle,
+                self.stages, self.smem_bytes]
+
+
+def sm90_plan(dh: int) -> Sm90Plan:
+    """The bf16 forward's plan at head width ``dh`` (one of ``HEAD_DIMS``)."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head width {dh}: the kernels are built for "
+                         f"{HEAD_DIMS}")
+    plan = Sm90Plan(dh)
+    assert plan.smem_bytes <= SMEM_LIMIT, plan
+    return plan
+
+
+def tma_strides(ptr: int, shape, strides, itemsize: int = 2):
+    """(b, t, h) element strides of a (B, T, heads, Dh) tensor as its TMA
+    map takes them, or None when TMA cannot read it in place.
+
+    TMA needs a 16-byte-aligned base, a contiguous head dimension and the
+    other strides positive multiples of 16 bytes below 2**40. A dimension
+    of size 1 is never stepped over, so its stride is set to Dh.
+    """
+    if ptr % 16 or strides[3] != 1:
+        return None
+    out = []
+    for size, stride in zip(shape[:3], strides[:3]):
+        if size == 1:
+            stride = shape[3]
+        if stride <= 0 or (stride * itemsize) % 16 or stride * itemsize >= 1 << 40:
+            return None
+        out.append(stride)
+    return out
+
+
+def _tma_view(t: torch.Tensor) -> tuple:
+    """(t, its TMA strides): t itself when TMA reads it in place, else a
+    fresh contiguous copy (the callers' (B, T, H, Dh) tensors and their
+    slices of a fused projection never need one)."""
+    st = tma_strides(t.data_ptr(), t.shape, t.stride(), t.element_size())
+    if st is None:
+        t = t.clone(memory_format=torch.contiguous_format)
+        st = tma_strides(t.data_ptr(), t.shape, t.stride(), t.element_size())
+    return t, st
 
 
 def _head_major(t: torch.Tensor) -> torch.Tensor:
@@ -94,7 +227,15 @@ def check_qkv(q, k, v) -> tuple:
 
 def flash_fwd(q, k, v, *, causal: bool = True, with_lse: bool = False):
     """Attention output (B, Tq, H, Dh) in q's dtype, and when ``with_lse``
-    the fp32 log-sum-exp rows (B, H, Tq), else None."""
+    the fp32 log-sum-exp rows (B, H, Tq), else None.
+
+    On CUDA, bf16 inputs launch the tensor-core kernel
+    (``csrc/flash_fwd_sm90.cu``) and fp32 inputs the fp32 kernel
+    (``csrc/flash.cu``); there is no other path. The bf16 kernel reads q,
+    k and v through TMA, which needs a 16-byte-aligned base and strides in
+    multiples of 16 bytes: a tensor that breaks that is copied to a
+    contiguous one first.
+    """
     if _on_cpu(q, k, v):
         o, lse = ref.flash_fwd(q, k, v, causal)
         return o, (lse if with_lse else None)
@@ -103,10 +244,19 @@ def flash_fwd(q, k, v, *, causal: bool = True, with_lse: bool = False):
     o = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    launch(_lib(), flash_fwd, "repro_flash_fwd", q.device, _ptr(q), _ptr(k),
-           _ptr(v), _ptr(o), _ptr(lse) if with_lse else _P(None), *dims,
-           int(causal), _DTYPE_CODE[q.dtype], *strides(q), *strides(k),
-           *strides(v))
+    lse_ptr = _ptr(lse) if with_lse else _P(None)
+    if q.dtype == torch.bfloat16:
+        plan = sm90_plan(Dh)
+        (q, sq), (k, sk), (v, sv) = (_tma_view(t) for t in (q, k, v))
+        launch(_sm90_lib(), flash_fwd, "repro_flash_fwd_sm90", q.device,
+               _ptr(q), _ptr(k), _ptr(v), _ptr(o), lse_ptr, *dims,
+               int(causal), *sq, *sk, *sv, *plan.c_args())
+        flash_fwd.launches_by_kernel["flash_fwd_sm90"] += 1
+    else:
+        launch(_lib(), flash_fwd, "repro_flash_fwd", q.device, _ptr(q),
+               _ptr(k), _ptr(v), _ptr(o), lse_ptr, *dims, int(causal),
+               _DTYPE_CODE[q.dtype], *strides(q), *strides(k), *strides(v))
+        flash_fwd.launches_by_kernel["flash_fwd_fma"] += 1
     return o, lse
 
 
@@ -124,3 +274,5 @@ def flash_attention(q, k, v, *, causal: bool = True):
 #: The kernels of this module: launch counters live on these wrappers.
 KERNELS = (flash_fwd,)
 flash_fwd.launches = 0
+#: Forward launches by kernel: bf16 (tensor cores) and fp32 (FMA).
+flash_fwd.launches_by_kernel = {"flash_fwd_sm90": 0, "flash_fwd_fma": 0}

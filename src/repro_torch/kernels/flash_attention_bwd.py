@@ -1,11 +1,11 @@
 """Flash attention for training: forward with LSE, recompute-form backward.
 
 Port of ``repro/kernels/flash_attention_bwd.py``. The CUDA C++ lives in
-``csrc/flash.cu``:
+``csrc/flash.cu`` (and, for the bf16 forward, ``csrc/flash_fwd_sm90.cu``):
 
 * ``_fwd_with_stats`` runs the forward kernel of ``flash_attention.py``
-  with its log-sum-exp rows (replaces ``:153 _fwd_with_stats``,
-  ``_fwd_kernel``);
+  for the inputs' dtype with its log-sum-exp rows (replaces ``:153
+  _fwd_with_stats``, ``_fwd_kernel``);
 * ``flash_dq`` wraps the dQ kernel (replaces ``_dq_kernel`` of ``:186
   _bwd``): one block per (batch, query head, query tile) loops over key
   tiles, recomputing P = exp(S * scale - L), dP = dO V^T and

@@ -291,3 +291,43 @@ def test_refused_flash_and_hist_launches_raise_and_count_nothing(fake_card):
         fa.flash_attention(q[..., :20].repeat(1, 1, 1, 2)[..., :40],
                            q[..., :20].repeat(1, 1, 1, 2)[..., :40],
                            q[..., :20].repeat(1, 1, 1, 2)[..., :40])
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_bf16_flash_fwd_launches_the_tensor_core_kernel(fake_card, dh):
+    """bf16 q/k/v go to ``repro_flash_fwd_sm90`` with their TMA strides and
+    the plan, read in place as slices of a fused (B, T, 3, H, Dh)
+    projection; fp32 ones to ``repro_flash_fwd``; counted per kernel."""
+    qkv = torch.from_numpy(_np((2, 70, 3, 4, dh), 27)).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1, :2], qkv[:, :, 2, :2]
+    by_kernel = dict(fa.flash_fwd.launches_by_kernel)
+    before = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, causal=True, with_lse=True)
+    fa.flash_fwd(q.float(), k.float(), v.float(), causal=False)
+    assert fa.flash_fwd.launches - before == 2
+    assert {n: c - by_kernel[n] for n, c in
+            fa.flash_fwd.launches_by_kernel.items()} == {
+        "flash_fwd_sm90": 1, "flash_fwd_fma": 1}
+    (n1, a1), (n2, a2) = fake_card.calls
+    assert (n1, n2) == ("repro_flash_fwd_sm90", "repro_flash_fwd")
+    assert [a.value for a in a1[:3]] == [t.data_ptr() for t in (q, k, v)]
+    assert a1[3].value == o.data_ptr() and a1[4].value == lse.data_ptr()
+    assert a1[5:12] == (2, 70, 70, 4, 2, dh, 1)
+    assert a1[12:21] == sum((t.stride()[:3] for t in (q, k, v)), ())
+    assert list(a1[21:27]) == fa.sm90_plan(dh).c_args()
+    assert a2[12] == 0                                # fp32 dtype code
+
+
+def test_bf16_flash_fwd_copies_what_tma_cannot_read(fake_card):
+    """A base off 16 bytes and a head stride off 16 bytes are copied to a
+    contiguous tensor before the launch; an aligned tensor is not."""
+    base = torch.from_numpy(_np((1, 40, 2, 2 * 32 + 8), 28)).to(torch.bfloat16)
+    shifted = base.reshape(-1)[1:1 + 40 * 2 * 32].view(1, 40, 2, 32)
+    odd_heads = base[..., 4:36]                       # head stride 72 elements
+    good = base[..., :32].contiguous()
+    fa.flash_fwd(shifted, odd_heads, good, causal=False)
+    (_, args), = fake_card.calls
+    assert args[0].value != shifted.data_ptr() and args[0].value % 16 == 0
+    assert args[1].value != odd_heads.data_ptr()
+    assert args[2].value == good.data_ptr()
+    assert args[12:21] == (32, 64, 32) * 3          # B = 1: batch stride Dh

@@ -165,6 +165,84 @@ def test_cuda_flash_kernels_match_plain(cuda_device, dh, rep, causal, dtype):
     assert (dq.dtype, dk.dtype, dv.dtype) == (dt, dt, dt)
 
 
+def _bf16_qkv(device, b, tq, tk, h, hkv, dh, layout="plain", seed=50):
+    """bf16 q (b, tq, h, dh) and k, v (b, tk, hkv, dh). ``fused_3h`` and
+    ``fused_h3`` take them as strided views of one projection, laid out
+    (b, t, 3, h, dh) (time stride 3 h dh) or (b, t, h, 3, dh) (head stride
+    3 dh); both need tq == tk and h == hkv."""
+    if layout == "plain":
+        return [torch.from_numpy(_np(shape, seed + i)).to(device, torch.bfloat16)
+                for i, shape in enumerate(((b, tq, h, dh), (b, tk, hkv, dh),
+                                           (b, tk, hkv, dh)))]
+    assert tq == tk and h == hkv
+    shape = (b, tq, 3, h, dh) if layout == "fused_3h" else (b, tq, h, 3, dh)
+    qkv = torch.from_numpy(_np(shape, seed)).to(device, torch.bfloat16)
+    return [qkv.select(2 if layout == "fused_3h" else 3, i) for i in range(3)]
+
+
+def _check_bf16_fwd(q, k, v, causal):
+    """o at 1e-2 and lse at 1e-5 (relative to the plain version's largest
+    magnitude), through the tensor-core kernel only."""
+    before = dict(fa.flash_fwd.launches_by_kernel)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    att = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.flash_fwd.launches_by_kernel.items()} \
+        == {"flash_fwd_sm90": 2, "flash_fwd_fma": 0}
+    p_o, p_lse = ref.flash_fwd(q, k, v, causal)
+    _rel_close(o, p_o, FLASH_TOL["bfloat16"], "o")
+    _rel_close(att, ref.flash_reference(q, k, v, causal), FLASH_TOL["bfloat16"],
+               "attention")
+    _rel_close(lse, p_lse, 1e-5, "lse")
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+
+
+# T around the 64-row warpgroup halves and the 128-row tiles, and ragged
+SM90_T = [1, 63, 64, 65, 127, 128, 129, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", SM90_T)
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 7])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_fwd_sm90_matches_plain(cuda_device, t, dh, rep, causal):
+    hkv = 2 if rep == 1 else 1
+    _check_bf16_fwd(*_bf16_qkv(cuda_device, 2, t, t, hkv * rep, hkv, dh),
+                    causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", [(65, 1000), (1000, 129), (1, 300), (300, 1)])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_cuda_flash_fwd_sm90_cross_lengths(cuda_device, tq, tk, dh):
+    """Tq != Tk, not causal (the reference's cross-attention case)."""
+    _check_bf16_fwd(*_bf16_qkv(cuda_device, 2, tq, tk, 4, 2, dh), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused_3h", "fused_h3"])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_fwd_sm90_reads_fused_projections(cuda_device, layout, dh,
+                                                     causal):
+    """q, k and v as strided views of one projection, read in place."""
+    q, k, v = _bf16_qkv(cuda_device, 2, 200, 200, 3, 3, dh, layout)
+    assert fa.tma_strides(q.data_ptr(), q.shape, q.stride()) is not None
+    _check_bf16_fwd(q, k, v, causal)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fwd_launches_one_kernel_per_dtype(cuda_device):
+    q = torch.from_numpy(_np((1, 64, 2, 64), 51)).to(cuda_device)
+    before = dict(fa.flash_fwd.launches_by_kernel)
+    fa.flash_attention(q, q, q)
+    fa.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    fb.flash_attention_train(*(q.bfloat16().requires_grad_(True),) * 3)
+    assert {n: c - before[n] for n, c in fa.flash_fwd.launches_by_kernel.items()} \
+        == {"flash_fwd_sm90": 2, "flash_fwd_fma": 1}
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_train_matches_plain_gradients(cuda_device):
     q, k, v, do = (torch.from_numpy(_np(shape, seed)).to(cuda_device)
