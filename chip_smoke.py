@@ -7,8 +7,9 @@
 Phases, in order; any failure raises, so the exit code is not 0:
 
   (a) build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-               count the tensor-core instructions (HGMMA) in the bf16
-               flash forward's SASS when the toolkit has ``cuobjdump``
+               count the tensor-core instructions (HGMMA) in the SASS of
+               the bf16 flash kernels (forward, dQ, dK/dV) when the
+               toolkit has ``cuobjdump``
   (b) kernels  each PowerSGD kernel against its plain PyTorch version on
                the main path's shape groups (and a ragged shape, and bf16),
                with kernel, plain, library-call and bound times; the
@@ -34,11 +35,12 @@ Phases, in order; any failure raises, so the exit code is not 0:
                2 kv heads, of 64), bf16, causal, batch 8 x seq 1024; o, lse,
                dq, dk and dv against the plain versions; the same in fp32
                non-causal with Tq != Tk and at a ragged T = 1000 (bf16 runs
-               the tensor-core forward, fp32 the FMA one: both counted);
-               then each kernel, its plain version and
+               the tensor-core kernels, fp32 the FMA ones: each counted by
+               kernel); then each kernel, its plain version and
                ``scaled_dot_product_attention`` timed at both widths, the
-               bf16 forward's TFLOP/s and share of its bound, and SDPA's
-               forward under each backend that takes the inputs
+               bf16 kernels' TFLOP/s and share of their bounds (forward,
+               dQ, dK/dV and the backward pair, beside SDPA's backward),
+               and SDPA's forward under each backend that takes the inputs
   (h) histogram  ``hist_counts`` on the beta = 0.25 GDS sample of (c)'s
                gradient tree (about 113 M values), bit-equal to the plain
                version, and on a ragged, unaligned n and on outliers;
@@ -94,6 +96,10 @@ PACK_REPLACES = {"pack_words": "src/repro/kernels/pack.py:42",
 PACK_SIZES = [50257 * 1920, 512 * 8 + 3, 2047, 7]
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
 FLASH_FWD_SOURCE = "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu"
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu"
+# the bf16 source of each flash kernel (fp32 inputs run FLASH_SOURCE)
+BF16_SOURCE = {"flash_fwd": FLASH_FWD_SOURCE, "flash_dq": FLASH_BWD_SOURCE,
+               "flash_dkv": FLASH_BWD_SOURCE}
 HIST_SOURCE = "src/repro_torch/kernels/csrc/entropy_hist.cu"
 NEW_REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:75, "
@@ -204,27 +210,37 @@ def phase_build(report: dict) -> None:
 
 
 def count_hgmma(build) -> dict | None:
-    """HGMMA (wgmma) instructions per kernel in the bf16 flash forward's
-    SASS, read with ``cuobjdump -sass``; None without ``cuobjdump``."""
+    """HGMMA (wgmma) instructions per kernel in the SASS of the bf16 flash
+    kernels (the forward; dQ and dK/dV), read with ``cuobjdump -sass``;
+    None without ``cuobjdump``."""
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     if not Path(tool).exists():
         log("(a) no cuobjdump: HGMMA count not taken")
         return None
-    sass = subprocess.run([tool, "-sass", str(build._target("flash_fwd_sm90"))],
-                          capture_output=True, text=True, check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif "HGMMA" in line and name is not None:
-            counts[name] += 1
-    for fn, n in counts.items():
-        log(f"(a) flash_fwd_sm90 SASS: {n} HGMMA in {fn}")
-    if not counts or not all(counts.values()):
-        raise AssertionError(f"a bf16 flash forward kernel has no HGMMA: {counts}")
-    return counts
+    out = {}
+    for source, kernels in (("flash_fwd_sm90", ("flash_fwd_sm90_kernel",)),
+                            ("flash_bwd_sm90", ("flash_dq_sm90_kernel",
+                                                "flash_dkv_sm90_kernel"))):
+        sass = subprocess.run([tool, "-sass", str(build._target(source))],
+                              capture_output=True, text=True, check=True).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                counts[name] = 0
+            elif "HGMMA" in line and name is not None:
+                counts[name] += 1
+        for fn, n in counts.items():
+            log(f"(a) {source} SASS: {n} HGMMA in {fn}")
+        # every instance of every kernel (mangled names hold the kernel's)
+        for kern in kernels:
+            found = {fn: n for fn, n in counts.items() if kern in fn}
+            if not found or not all(found.values()):
+                raise AssertionError(f"a bf16 {kern} instance has no HGMMA: "
+                                     f"{counts}")
+        out[source] = counts
+    return out
 
 
 # ---------------------------------------------------------------- (b) kernels
@@ -718,15 +734,19 @@ def check_attention(name, shape, causal, dtype, dev) -> dict:
     q, k, v, do = _attn_inputs(shape, dtype, dev)
     for w in kernels:
         w.launches = 0
-    by_kernel = fa.flash_fwd.launches_by_kernel
-    by_kernel.update(dict.fromkeys(by_kernel, 0))
+        w.launches_by_kernel.update(dict.fromkeys(w.launches_by_kernel, 0))
     o_inf, o, grads = _drive_attention(q, k, v, do, causal)
     launches = {w.__name__: w.launches for w in kernels}
-    fwd_kernels = dict(by_kernel)
-    want = "flash_fwd_sm90" if dtype == torch.bfloat16 else "flash_fwd_fma"
-    if fwd_kernels[want] != launches["flash_fwd"]:
-        raise AssertionError(f"{dtype} forward launches {fwd_kernels}: all "
-                             f"{launches['flash_fwd']} should be {want}")
+    by_kernel = {n: c for w in kernels for n, c in w.launches_by_kernel.items()}
+    # each dtype has one kernel per function: bf16 the tensor-core kernels,
+    # fp32 flash.cu's FMA kernels
+    suffix = "_sm90" if dtype == torch.bfloat16 else "_fma"
+    for w in kernels:
+        want = w.__name__ + suffix
+        if w.launches_by_kernel[want] != launches[w.__name__]:
+            raise AssertionError(f"{dtype} {w.__name__} launches "
+                                 f"{w.launches_by_kernel}: all "
+                                 f"{launches[w.__name__]} should be {want}")
     _, lse = _fwd_with_stats(q, k, v, causal=causal)
     p_o, p_lse = ref.flash_fwd(q, k, v, causal)
     plain = {"attention": ref.flash_reference(q, k, v, causal), "o": p_o,
@@ -740,13 +760,13 @@ def check_attention(name, shape, causal, dtype, dev) -> dict:
     errs = {key: rel_err(got[key], plain[key]) for key in got}
     log(f"(g) {name:10s} {list(shape)} causal={causal} {str(dtype)[6:]}: "
         + ", ".join(f"{key} {r:.2e}" for key, (_, r) in errs.items())
-        + f" relative (tol {tol:.0e}); forward launches {fwd_kernels}")
+        + f" relative (tol {tol:.0e}); launches by kernel {by_kernel}")
     bad = {key: r for key, (_, r) in errs.items() if not r <= tol}
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions at {name} {shape}: {bad}")
     return {"shape": list(shape), "causal": causal, "dtype": str(dtype)[6:],
-            "launches": launches, "forward_kernels": fwd_kernels,
+            "launches": launches, "launches_by_kernel": by_kernel,
             "rel_err": {key: r for key, (_, r) in errs.items()},
             "max_abs_err": {key: a for key, (a, _) in errs.items()}}
 
@@ -800,15 +820,24 @@ def time_attention(shape, dtype, dev) -> dict:
     work = _attn_work(*shape, True, dtype)
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = work[name]
-    fwd = rows["flash_fwd"]
+    # each kernel's own products: 2, 3 and 4 of 2 Dh FLOP per pair
     B, Tq, Tk, H, _, Dh = shape
-    fwd["flop"] = 4 * Dh * B * H * _pairs(Tq, Tk, True)
-    fwd["tflop_per_s"] = fwd["flop"] / fwd["ms"] * 1e-9
-    fwd["bound_share"] = fwd["bound_ms"] / fwd["ms"]
-    fwd["sdpa_backend_ms"] = sdpa_backends(sdpa, qt, kt, vt)
+    pairs = B * H * _pairs(Tq, Tk, True)
+    for name, products in (("flash_fwd", 2), ("flash_dq", 3), ("flash_dkv", 4)):
+        row = rows[name]
+        row["flop"] = 2 * products * Dh * pairs
+        row["tflop_per_s"] = row["flop"] / row["ms"] * 1e-9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    rows["flash_fwd"]["sdpa_backend_ms"] = sdpa_backends(sdpa, qt, kt, vt)
+    dq, dkv = rows["flash_dq"], rows["flash_dkv"]
+    pair_ms = dq["ms"] + dkv["ms"]
     extra = {"fwd_bwd_ms": fwd_bwd, "fwd_bwd_library_ms": fwd_bwd_lib,
              "backward_library_ms": pair_lib,
-             "backward_ms": rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
+             "backward_ms": pair_ms,
+             "backward_tflop_per_s": (dq["flop"] + dkv["flop"]) / pair_ms * 1e-9,
+             # against the pair's own 7 products, and the least work of the
+             # function (5 products: dQ's dS K and dK/dV's four)
+             "backward_bound_share": (dq["bound_ms"] + dkv["bound_ms"]) / pair_ms,
              "backward_bound_ms": work["backward_pair"][0]}
     del q, k, v, do, o, lse, delta, leaves, out, train_leaves
     torch.cuda.empty_cache()
@@ -878,15 +907,19 @@ def phase_attention(report: dict, dev) -> dict:
                 f"{row['plain_ms']:.4f} library "
                 f"{'none' if lib is None else f'{lib:.4f}'} bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), device time")
+        for kname in ("flash_fwd", "flash_dq", "flash_dkv"):
+            row = t["rows"][kname]
+            log(f"(g) {name:10s} {kname} (bf16, tensor cores) "
+                f"{row['tflop_per_s']:.1f} TFLOP/s of {row['flop'] / 1e9:.2f} "
+                f"GFLOP; {row['bound_share']:.3f} of its bound")
         fwd = t["rows"]["flash_fwd"]
-        log(f"(g) {name:10s} flash_fwd (bf16, tensor cores) "
-            f"{fwd['tflop_per_s']:.1f} TFLOP/s of {fwd['flop'] / 1e9:.2f} "
-            f"GFLOP; {fwd['bound_share']:.3f} of its bound; SDPA forward by "
-            "backend " + ", ".join(
-                f"{b} {'refused' if ms is None else f'{ms:.4f} ms'}"
-                for b, ms in fwd["sdpa_backend_ms"].items()))
-        log(f"(g) {name:10s} backward pair {t['backward_ms']:.4f} ms (SDPA "
-            f"backward {t['backward_library_ms']:.4f}, bound "
+        log(f"(g) {name:10s} SDPA forward by backend " + ", ".join(
+            f"{b} {'refused' if ms is None else f'{ms:.4f} ms'}"
+            for b, ms in fwd["sdpa_backend_ms"].items()))
+        log(f"(g) {name:10s} backward pair {t['backward_ms']:.4f} ms, "
+            f"{t['backward_tflop_per_s']:.1f} TFLOP/s, "
+            f"{t['backward_bound_share']:.3f} of its bound (SDPA backward "
+            f"{t['backward_library_ms']:.4f}; 5-product bound "
             f"{t['backward_bound_ms']:.4f}); forward with LSE "
             f"{t['rows']['flash_fwd']['fwd_lse_ms']:.4f}; forward+backward "
             f"{t['fwd_bwd_ms']:.4f} ms (SDPA {t['fwd_bwd_library_ms']:.4f})")
@@ -1009,19 +1042,18 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
     gpt2 = next(iter(attn["timing"].values()))
     for name, keys in outputs.items():
         row = gpt2["rows"][name]
-        entry = {"name": name, "route": "cuda",
-                 "source": FLASH_FWD_SOURCE if name == "flash_fwd" else FLASH_SOURCE,
+        # the timed call is bf16; fp32 inputs run flash.cu's FMA kernels
+        entry = {"name": name, "route": "cuda", "source": BF16_SOURCE[name],
+                 "fp32_source": FLASH_SOURCE,
                  "replaces": NEW_REPLACES[name],
                  "launches": attn["launches"][name],
                  "max_abs_err": max(c["max_abs_err"][key]
                                     for c in attn["checks"] for key in keys),
                  **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}}
+                                              "bound_by", "library_ms",
+                                              "tflop_per_s")}}
         if name == "flash_fwd":
-            # the timed call is bf16; fp32 inputs run flash.cu's FMA kernel
-            entry.update(fp32_source=FLASH_SOURCE,
-                         tflop_per_s=row["tflop_per_s"],
-                         sdpa_backend_ms=row["sdpa_backend_ms"])
+            entry.update(sdpa_backend_ms=row["sdpa_backend_ms"])
         else:
             # no library call computes dQ or dK/dV alone; SDPA's backward
             # computes both, beside the pair's sum

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch_kernels/`` at
 the root of the checkout, then loaded with ``ctypes``. Library names carry
-a hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. All sources compile in parallel, one
+a hash of the source, of the ``csrc/*.cuh`` headers it includes and of the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. All sources compile in parallel, one
 ``nvcc`` process each. A missing ``nvcc`` or a failed compile raises: there
 is no fallback that would hide the kernels.
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +26,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lowrank", "pack", "flash", "flash_fwd_sm90", "entropy_hist")
+SOURCES = ("lowrank", "pack", "flash", "flash_fwd_sm90", "flash_bwd_sm90",
+           "entropy_hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,10 +46,24 @@ def _nvcc() -> str:
                        " the port's CUDA kernels are compiled from source")
 
 
+def _included(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and the local headers it includes (``#include "x.cuh"``),
+    transitively, each once, in the order first met."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(),
+                          re.MULTILINE):
+        _included(path.parent / inc, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _included(CSRC / f"{name}.cu", []):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, str]:

@@ -16,12 +16,13 @@
 // batch, time and head strides (the head dimension is contiguous); query
 // head h reads kv head h / (H / Hkv). o, dq: (B, Tq, H, Dh) and dk, dv:
 // (B, Tk, Hkv, Dh), contiguous, in the inputs' dtype; lse and D: (B, H, Tq)
-// fp32. Inputs are fp32 or bf16 and every product runs in fp32, as the TPU
-// kernels cast every tile (.astype(F32)). The forward here takes fp32 only:
-// bf16 inputs run the tensor-core forward of flash_fwd_sm90.cu, and
-// repro_flash_fwd refuses them (each dtype has exactly one forward
-// kernel). Masked scores are -1e30, the row sum is clamped at 1e-30, and
-// scale = 1/sqrt(Dh) multiplies the dot, as there. Ragged edges (T not a multiple of 64) are masked here, so every T
+// fp32. Every product runs in fp32, as the TPU kernels cast every tile
+// (.astype(F32)). The kernels here take fp32 only: bf16 inputs run the
+// tensor-core kernels of flash_fwd_sm90.cu (forward) and flash_bwd_sm90.cu
+// (dQ, dK/dV), and the entry points here refuse them, so each dtype has
+// exactly one kernel per function. Masked scores are -1e30, the row sum
+// is clamped at 1e-30, and scale = 1/sqrt(Dh) multiplies the dot, as
+// there. Ragged edges (T not a multiple of 64) are masked here, so every T
 // runs the kernel.
 //
 // Design (H100 SXM: 67 TFLOP/s fp32 FMA, 3.35 TB/s HBM). At Dh = 64..128 a
@@ -38,18 +39,14 @@
 // the GQA group inside the block (the TPU reference wrote fp32 (B*H, Tk,
 // Dh) per query head and summed afterwards), so no atomics are needed and
 // the result does not depend on scheduling. Causal tiles wholly above the
-// diagonal are skipped, as _fwd_kernel:65-66 skips them. The backward's
-// tensor-core redesign (wgmma, TMA) is later work.
+// diagonal are skipped, as _fwd_kernel:65-66 skips them.
 //
 // Each C entry point launches on the stream it is given and returns
 // cudaGetLastError(); the Python wrappers raise on a non-zero code.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -59,13 +56,9 @@ constexpr int kRows = 8;        // tile rows per warp
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {   // in elements; the head dimension has stride 1
   long long b, t, h;
@@ -434,18 +427,14 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t run_fwd(const Args& a) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return cudaErrorInvalidValue;   // bf16: flash_fwd_sm90.cu's kernel
-  } else {
-    auto kern = flash_fwd_kernel<T, D>;
-    cudaError_t e = allow_smem(kern, fwd_smem(D));
-    if (e != cudaSuccess) return e;
-    dim3 grid((a.s.Tq + kTile - 1) / kTile, a.s.H, a.s.B);
-    kern<<<grid, kThreads, fwd_smem(D), a.stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out0, a.lse_out, a.s,
-        a.sq, a.sk, a.sv);
-    return cudaGetLastError();
-  }
+  auto kern = flash_fwd_kernel<T, D>;
+  cudaError_t e = allow_smem(kern, fwd_smem(D));
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.s.Tq + kTile - 1) / kTile, a.s.H, a.s.B);
+  kern<<<grid, kThreads, fwd_smem(D), a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out0, a.lse_out, a.s,
+      a.sq, a.sk, a.sv);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -499,8 +488,9 @@ int dispatch(Which w, int d, int dtype, Args& a, int B, int Tq, int Tk, int H,
   a.s = Shape{B, Tq, Tk, H, Hkv, H / Hkv, causal ? 1 : 0,
               (float)(1.0 / sqrt((double)d))};
   a.stream = static_cast<cudaStream_t>(stream);
+  // dtype 1 (bf16) is refused: it runs the tensor-core kernels of
+  // flash_fwd_sm90.cu and flash_bwd_sm90.cu
   if (dtype == 0) return (int)dispatch_d<float>(w, d, a);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(w, d, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -527,6 +517,7 @@ int repro_flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // dq (B, Tq, H, D) <- q, k, v, dO and the forward's lse and D = rowsum(dO o).
+// dtype 0 = fp32 (1 = bf16 is refused: flash_bwd_sm90.cu), as for dk, dv.
 int repro_flash_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int Tq, int Tk, int H, int Hkv, int D,

@@ -19,7 +19,8 @@ by dtype:
   from shared memory: ``wgmma`` has no fp32 mode, and TF32 keeps about
   three decimal digits, short of the 1e-5 bar fp32 is held to.
 
-The backward kernels are in ``flash_attention_bwd.py``.
+The backward kernels, split by dtype the same way, are in
+``flash_attention_bwd.py``.
 
 Layout: q (B, Tq, H, Dh), k and v (B, Tk, Hkv, Dh), H a multiple of Hkv;
 query head h reads kv head ``h // (H // Hkv)``. The kernels read the
@@ -91,23 +92,11 @@ SMEM_LIMIT = 232_448
 
 
 @dataclasses.dataclass(frozen=True)
-class Sm90Plan:
-    """Tiles of the bf16 forward (``csrc/flash_fwd_sm90.cu``) at one Dh.
-
-    A block of two consumer warpgroups and a producer warp owns
-    ``block_m`` query rows; key and value tiles of ``block_n`` rows pass
-    through a ring of ``stages``, the deepest (up to 4) that fits.
-    Each tile sits in shared memory as column chunks of one swizzle span
-    (``swizzle`` bytes a row, ``chunk_cols`` columns), one TMA box
-    ``box_q`` / ``box_kv`` each, over the 4-D view (Dh, heads, T, B). The
-    kernel is built with the same numbers and refuses a launch that
-    states others.
-    """
+class _Chunked:
+    """How the Hopper kernels keep a bf16 tile of Dh columns in shared
+    memory (``csrc/sm90_common.cuh``, ``Chunking<D>``): column chunks of one
+    swizzle span, one TMA box each."""
     dh: int
-    block_m: ClassVar[int] = 128
-    block_n: ClassVar[int] = 128
-    threads: ClassVar[int] = 288
-    max_stages: ClassVar[int] = 4
 
     @property
     def swizzle(self) -> int:
@@ -121,6 +110,25 @@ class Sm90Plan:
     @property
     def chunks(self) -> int:
         return self.dh // self.chunk_cols
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan(_Chunked):
+    """Tiles of the bf16 forward (``csrc/flash_fwd_sm90.cu``) at one Dh.
+
+    A block of two consumer warpgroups and a producer warp owns
+    ``block_m`` query rows; key and value tiles of ``block_n`` rows pass
+    through a ring of ``stages``, the deepest (up to 4) that fits.
+    Each tile sits in shared memory as column chunks of one swizzle span
+    (``swizzle`` bytes a row, ``chunk_cols`` columns), one TMA box
+    ``box_q`` / ``box_kv`` each, over the 4-D view (Dh, heads, T, B). The
+    kernel is built with the same numbers and refuses a launch that
+    states others.
+    """
+    block_m: ClassVar[int] = 128
+    block_n: ClassVar[int] = 128
+    threads: ClassVar[int] = 288
+    max_stages: ClassVar[int] = 4
 
     @property
     def box_q(self) -> tuple:
@@ -150,11 +158,15 @@ class Sm90Plan:
                 self.stages, self.smem_bytes]
 
 
-def sm90_plan(dh: int) -> Sm90Plan:
-    """The bf16 forward's plan at head width ``dh`` (one of ``HEAD_DIMS``)."""
+def check_head_width(dh: int) -> None:
     if dh not in HEAD_DIMS:
         raise ValueError(f"head width {dh}: the kernels are built for "
                          f"{HEAD_DIMS}")
+
+
+def sm90_plan(dh: int) -> Sm90Plan:
+    """The bf16 forward's plan at head width ``dh`` (one of ``HEAD_DIMS``)."""
+    check_head_width(dh)
     plan = Sm90Plan(dh)
     assert plan.smem_bytes <= SMEM_LIMIT, plan
     return plan
@@ -213,9 +225,7 @@ def check_qkv(q, k, v) -> tuple:
     if k.shape[0] != B or k.shape[3] != Dh or H % Hkv != 0:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not "
                          "match (batch, head width, H a multiple of Hkv)")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head width {Dh}: the kernels are built for "
-                         f"{HEAD_DIMS}")
+    check_head_width(Dh)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: the "
                         "kernels take fp32 or bf16, all the same")

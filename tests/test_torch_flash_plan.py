@@ -1,15 +1,18 @@
-"""Host-side plan of the bf16 tensor-core flash forward, on the CPU.
+"""Host-side plans of the bf16 tensor-core flash kernels, on the CPU.
 
 ``flash_attention.sm90_plan`` states the tiles, swizzle, TMA boxes and
-shared memory of ``csrc/flash_fwd_sm90.cu`` per head width (the kernel is
+shared memory of ``csrc/flash_fwd_sm90.cu`` per head width, and
+``flash_attention_bwd.sm90_bwd_plan`` those of the dQ and dK/dV kernels of
+``csrc/flash_bwd_sm90.cu`` with their register arithmetic (each kernel is
 built with the same numbers and refuses a launch that states others);
-``tma_strides`` says whether TMA reads a tensor in place. The kernel itself
-runs only on the card (``test_torch_kernels_cuda.py``).
+``tma_strides`` says whether TMA reads a tensor in place. The kernels
+themselves run only on the card (``test_torch_kernels_cuda.py``).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
 
 # Dh: (swizzle bytes, chunk columns, chunks)
 CHUNKING = {32: (64, 32, 1), 64: (128, 64, 1), 96: (64, 32, 3),
@@ -87,3 +90,64 @@ def test_other_dtypes_still_raise(dtype):
     q = torch.zeros((1, 8, 2, 32), dtype=dtype)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         fa.check_qkv(q, q, q)
+
+
+# (kernel, Dh): rows of a streamed tile, the widest whose accumulator and
+# fragment floats a thread fit 160 (dQ Dh/2 + n, dK/dV Dh + n).
+BWD_TILE = {("dq", 32): 128, ("dq", 64): 128, ("dq", 96): 64, ("dq", 128): 64,
+            ("dkv", 32): 128, ("dkv", 64): 64, ("dkv", 96): 64,
+            ("dkv", 128): 32}
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_bwd_plan_chunks_like_the_forward(kernel, dh):
+    plan = fb.sm90_bwd_plan(dh, kernel)
+    assert (plan.swizzle, plan.chunk_cols, plan.chunks) == CHUNKING[dh]
+    assert plan.tile == BWD_TILE[(kernel, dh)]
+    # two warpgroups of 64 rows, and no separate producer warp
+    assert (plan.block, plan.threads) == (128, 2 * 128)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_bwd_plan_shared_memory_fits_a_block(kernel, dh):
+    plan = fb.sm90_bwd_plan(dh, kernel)
+    rows = 0 if kernel == "dq" else 2 * 4 * plan.tile     # fp32 L and D
+    stage = 2 * 2 * plan.tile * dh + rows
+    assert plan.smem_bytes == 1024 + 4 * 128 * dh + plan.stages * stage + 128
+    assert plan.smem_bytes <= fa.SMEM_LIMIT == 232_448
+    assert plan.stages == 4        # every head width takes the deepest ring
+    # every tile starts on the 1024-byte period of the 128-byte swizzle
+    assert (2 * dh * plan.block) % 1024 == 0
+    assert (2 * dh * plan.tile) % 1024 == 0
+    # the mbarriers: one for the block's rows, a full and an empty per stage
+    assert 8 * (1 + 2 * plan.stages) <= 128
+    assert plan.c_args() == [128, plan.tile, 256, plan.swizzle, plan.stages,
+                             plan.smem_bytes]
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_bwd_plan_register_arithmetic(kernel, dh):
+    """Accumulators (dQ: Dh/2 floats a thread; dK and dV: Dh) and the S and
+    dP fragments (tile/2 each) stay within the budget of 160, which leaves
+    95 of the 255 registers a thread may use for addresses and the packed
+    fragments: the eight warps of a block put two on each of the SM's four
+    sub-partitions of 16,384 registers (a ninth, producer warp would put
+    three on one and cap a thread at 168). The widest tile that fits is
+    taken."""
+    plan = fb.sm90_bwd_plan(dh, kernel)
+    acc = dh // 2 if kernel == "dq" else dh
+    assert plan.fragments(plan.tile) == acc + plan.tile <= plan.frag_budget
+    assert 16384 // (2 * 32) == 256 and plan.max_registers == 255
+    assert 16384 // (3 * 32) // 8 * 8 == 168       # with a ninth warp
+    assert plan.max_registers - plan.frag_budget == 95
+    wider = {32: 64, 64: 128, 128: None}[plan.tile]
+    assert wider is None or plan.fragments(wider) > plan.frag_budget
+
+
+@pytest.mark.parametrize("dh,kernel", [(40, "dq"), (256, "dkv"), (64, "fwd")])
+def test_bwd_plan_refuses_other_widths_and_kernels(dh, kernel):
+    with pytest.raises(ValueError, match=f"head width {dh}|kernel 'fwd'"):
+        fb.sm90_bwd_plan(dh, kernel)

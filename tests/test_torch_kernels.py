@@ -245,6 +245,12 @@ def test_refused_launch_raises_and_counts_nothing(fake_card):
         lr.ef_lowrank_p(g.double(), g.double(), g[..., :8].transpose(1, 2))
 
 
+def _bwd_by_kernel(before=None) -> dict:
+    """The backward wrappers' launches by kernel, less ``before``."""
+    now = {**fb.flash_dq.launches_by_kernel, **fb.flash_dkv.launches_by_kernel}
+    return now if before is None else {n: c - before[n] for n, c in now.items()}
+
+
 def test_flash_and_hist_launches_match_the_declared_c_signatures(fake_card):
     """The flash entry points read q, k and v in place through their
     strides: here slices of one fused (B, T, H + 2, Dh) projection."""
@@ -252,12 +258,17 @@ def test_flash_and_hist_launches_match_the_declared_c_signatures(fake_card):
     q, k, v = qkv[:, :, :7], qkv[:, :, 7:8], qkv[:, :, 8:]
     kernels = fa.KERNELS + fb.KERNELS + eh.KERNELS
     before = [w.launches for w in kernels]
+    by_kernel = _bwd_by_kernel()
     o, lse = fa.flash_fwd(q, k, v, causal=True, with_lse=True)
     fa.flash_attention(q, k, v, causal=False)
     fb.flash_dq(q, k, v, q, lse, lse, causal=True)
     fb.flash_dkv(q, k, v, q, lse, lse, causal=False)
     eh.hist_counts(qkv.reshape(-1), -1.0, 2.0, num_bins=64)
     assert [w.launches - b for w, b in zip(kernels, before)] == [2, 1, 1, 1]
+    # fp32 gradients run flash.cu's FMA kernels
+    assert _bwd_by_kernel(by_kernel) == {"flash_dq_sm90": 0, "flash_dq_fma": 1,
+                                         "flash_dkv_sm90": 0,
+                                         "flash_dkv_fma": 1}
     assert [name for name, _ in fake_card.calls] == [
         "repro_flash_fwd", "repro_flash_fwd", "repro_flash_dq",
         "repro_flash_dkv", "repro_hist_counts"]
@@ -331,3 +342,84 @@ def test_bf16_flash_fwd_copies_what_tma_cannot_read(fake_card):
     assert args[1].value != odd_heads.data_ptr()
     assert args[2].value == good.data_ptr()
     assert args[12:21] == (32, 64, 32) * 3          # B = 1: batch stride Dh
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("hkv", [4, 2])
+def test_bf16_flash_bwd_launches_the_tensor_core_kernels(fake_card, dh, hkv):
+    """bf16 dQ and dK/dV go to ``repro_flash_dq_sm90`` and
+    ``repro_flash_dkv_sm90`` with the TMA strides of q, k, v (slices of a
+    fused (B, T, 3, H, Dh) projection) and of a dO that is a transposed
+    view, and each kernel's plan; fp32 ones to ``flash.cu``'s; counted
+    per kernel. Under GQA (hkv 2 of 4 heads) the dK/dV kernel writes fp32
+    partials per query head, which the wrapper sums to bf16."""
+    qkv = torch.from_numpy(_np((2, 70, 3, 4, dh), 29)).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1, :hkv], qkv[:, :, 2, :hkv]
+    do = torch.from_numpy(_np((2, 4, 70, dh), 30)).to(torch.bfloat16)
+    do = do.transpose(1, 2)                           # (B, T, H, Dh) view
+    lse = torch.from_numpy(_np((2, 4, 70), 31))
+    by_kernel = _bwd_by_kernel()
+    dq = fb.flash_dq(q, k, v, do, lse, lse, causal=True)
+    dk, dv = fb.flash_dkv(q, k, v, do, lse, lse, causal=False)
+    fb.flash_dq(q.float(), k.float(), v.float(), do.float(), lse, lse)
+    fb.flash_dkv(q.float(), k.float(), v.float(), do.float(), lse, lse)
+    assert _bwd_by_kernel(by_kernel) == {"flash_dq_sm90": 1, "flash_dq_fma": 1,
+                                         "flash_dkv_sm90": 1,
+                                         "flash_dkv_fma": 1}
+    names = [name for name, _ in fake_card.calls]
+    assert names == ["repro_flash_dq_sm90", "repro_flash_dkv_sm90",
+                     "repro_flash_dq", "repro_flash_dkv"]
+    (_, a_dq), (_, a_dkv), (_, f_dq), (_, f_dkv) = fake_card.calls
+    inputs = [t.data_ptr() for t in (q, k, v, do)] + [lse.data_ptr()] * 2
+    views = sum((t.stride()[:3] for t in (q, k, v, do)), ())
+    assert do.stride()[:3] == (70 * 4 * dh, dh, 70 * dh)   # read in place
+    assert [a.value for a in a_dq[:6]] == inputs
+    assert a_dq[6].value == dq.data_ptr()
+    assert a_dq[7:14] == (2, 70, 70, 4, hkv, dh, 1)
+    assert a_dq[14:26] == views
+    assert list(a_dq[26:32]) == fb.sm90_bwd_plan(dh, "dq").c_args()
+    assert [a.value for a in a_dkv[:6]] == inputs
+    assert a_dkv[8:15] == (2, 70, 70, 4, hkv, dh, 0)
+    assert a_dkv[15:27] == views
+    assert list(a_dkv[27:33]) == fb.sm90_bwd_plan(dh, "dkv").c_args()
+    assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if hkv == 4:      # bf16 written by the kernel itself
+        assert (a_dkv[6].value, a_dkv[7].value) == (dk.data_ptr(), dv.data_ptr())
+    else:             # fp32 partials, summed over each kv head's group
+        assert dk.data_ptr() not in (a_dkv[6].value, a_dkv[7].value)
+    assert f_dq[14] == 0 and f_dkv[15] == 0          # fp32 dtype code
+    assert all(args[-1].value == 1234 for _, args in fake_card.calls)
+
+
+def test_refused_bf16_flash_bwd_launches_raise_and_count_nothing(fake_card):
+    fake_card.rc = 1
+    q = torch.from_numpy(_np((1, 16, 2, 64), 32)).to(torch.bfloat16)
+    lse = torch.from_numpy(_np((1, 2, 16), 33))
+    before = [w.launches for w in fb.KERNELS], _bwd_by_kernel()
+    with pytest.raises(RuntimeError, match="repro_flash_dq_sm90.*fake error"):
+        fb.flash_dq(q, q, q, q, lse, lse)
+    with pytest.raises(RuntimeError, match="repro_flash_dkv_sm90.*fake error"):
+        fb.flash_dkv(q, q, q, q, lse, lse)
+    assert ([w.launches for w in fb.KERNELS], _bwd_by_kernel()) == before
+
+
+def test_build_target_follows_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and the local headers it
+    includes, so editing a shared header rebuilds every source that
+    includes it, and no other."""
+    from repro_torch.kernels import build
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("#include <stdint.h>\nint b;\n")
+    (tmp_path / "common.cuh").write_text('#pragma once\n#include "deep.cuh"\n')
+    (tmp_path / "deep.cuh").write_text("int x = 1;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build._included(tmp_path / "a.cu", [])] == [
+        "a.cu", "common.cuh", "deep.cuh"]
+    a, b = build._target("a"), build._target("b")
+    (tmp_path / "deep.cuh").write_text("int x = 2;\n")
+    assert build._target("a") != a and build._target("b") == b
+    assert build._target("a").name.startswith("liba-")
+    real = [p.name for p in build._included(
+        build.Path(fb.__file__).with_name("csrc") / "flash_bwd_sm90.cu", [])]
+    assert real == ["flash_bwd_sm90.cu", "sm90_common.cuh"]

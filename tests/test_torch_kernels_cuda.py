@@ -232,6 +232,137 @@ def test_cuda_flash_fwd_sm90_reads_fused_projections(cuda_device, layout, dh,
     _check_bf16_fwd(q, k, v, causal)
 
 
+def _bf16_do(device, q, layout="plain", seed=59):
+    """A bf16 dO of q's shape: contiguous, a transposed (B, H, T, Dh)
+    tensor seen as (B, T, H, Dh) (strided; TMA reads it in place), or
+    every other column of a wider tensor (head dimension not contiguous:
+    the wrapper copies it)."""
+    b, t, h, dh = q.shape
+    if layout == "transposed":
+        return torch.from_numpy(_np((b, h, t, dh), seed)).to(
+            device, torch.bfloat16).transpose(1, 2)
+    if layout == "every_other":
+        return torch.from_numpy(_np((b, t, h, 2 * dh), seed)).to(
+            device, torch.bfloat16)[..., ::2]
+    return torch.from_numpy(_np((b, t, h, dh), seed)).to(device, torch.bfloat16)
+
+
+def _check_bf16_bwd(q, k, v, do, causal):
+    """dQ, dK and dV at 1e-2 (relative to the plain version's largest
+    magnitude), through the tensor-core kernels only, and bit-equal over
+    two calls (no atomics)."""
+    o, lse = fb._fwd_with_stats(q, k, v, causal=causal)
+    delta = ref.flash_delta(o, do)
+    before = {**fb.flash_dq.launches_by_kernel, **fb.flash_dkv.launches_by_kernel}
+    runs = [(fb.flash_dq(q, k, v, do, lse, delta, causal=causal),
+             *fb.flash_dkv(q, k, v, do, lse, delta, causal=causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    after = {**fb.flash_dq.launches_by_kernel, **fb.flash_dkv.launches_by_kernel}
+    assert {n: c - before[n] for n, c in after.items()} == {
+        "flash_dq_sm90": 2, "flash_dq_fma": 0, "flash_dkv_sm90": 2,
+        "flash_dkv_fma": 0}
+    (dq, dk, dv), again = runs
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    tol = FLASH_TOL["bfloat16"]
+    _rel_close(dq, ref.flash_dq(q, k, v, do, lse, delta, causal), tol, "dq")
+    p_dk, p_dv = ref.flash_dkv(q, k, v, do, lse, delta, causal)
+    _rel_close(dk, p_dk, tol, "dk")
+    _rel_close(dv, p_dv, tol, "dv")
+    assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+# ragged T, one tile (under the 64 rows of a warpgroup), and the tiles' edges
+SM90_BWD_T = [50, 128, 200, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", SM90_BWD_T)
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("rep", [1, 2, 7])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bwd_sm90_matches_plain(cuda_device, t, dh, rep, causal):
+    q, k, v = _bf16_qkv(cuda_device, 2, t, t, 2 * rep, 2, dh)
+    _check_bf16_bwd(q, k, v, _bf16_do(cuda_device, q), causal)
+
+
+# (Tq, Tk, causal) with Tq != Tk. A row that sees one key has P = 1 and
+# dS = 0, so a single key (Tk = 1), or a single causal row (Tq = 1), makes dQ
+# and dK vanish identically and leaves the relative bar no scale: the
+# one-row and two-key cases take the shapes nearest to those instead.
+CROSS = [(65, 1000, True), (65, 1000, False), (1000, 129, True),
+         (1000, 129, False), (1, 300, False), (2, 300, True), (300, 2, True),
+         (300, 2, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,causal", CROSS)
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_cuda_flash_bwd_sm90_cross_lengths(cuda_device, tq, tk, causal, dh):
+    """Tq != Tk; causal rows align at the top left, as the reference's
+    mask does, so keys past Tq get no gradient."""
+    q, k, v = _bf16_qkv(cuda_device, 2, tq, tk, 4, 2, dh)
+    _check_bf16_bwd(q, k, v, _bf16_do(cuda_device, q), causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused_3h", "fused_h3"])
+@pytest.mark.parametrize("do_layout", ["transposed", "every_other"])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bwd_sm90_reads_strided_inputs(cuda_device, layout,
+                                                  do_layout, dh, causal):
+    """q, k and v as strided views of one projection and a non-contiguous
+    dO, as autograd hands them over."""
+    q, k, v = _bf16_qkv(cuda_device, 2, 200, 200, 3, 3, dh, layout)
+    do = _bf16_do(cuda_device, q, do_layout)
+    assert not do.is_contiguous()
+    _check_bf16_bwd(q, k, v, do, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 14, 2, 64), (2, 300, 4, 4, 96),
+                                   (1, 200, 6, 3, 128), (2, 130, 2, 1, 32)])
+def test_cuda_flash_attention_train_bf16_matches_plain_gradients(cuda_device,
+                                                                 shape):
+    """The autograd gradients of flash_attention_train in bf16 (tensor-core
+    forward and backward) against autograd through the plain version."""
+    b, t, h, hkv, dh = shape
+    q, k, v = _bf16_qkv(cuda_device, b, t, t, h, hkv, dh)
+    do = _bf16_do(cuda_device, q)
+    before = {**fb.flash_dq.launches_by_kernel, **fb.flash_dkv.launches_by_kernel}
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fb.flash_attention_train(*leaves, True).backward(do)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref.flash_reference(*plain, True).backward(do)
+    after = {**fb.flash_dq.launches_by_kernel, **fb.flash_dkv.launches_by_kernel}
+    assert {n: c - before[n] for n, c in after.items()} == {
+        "flash_dq_sm90": 1, "flash_dq_fma": 0, "flash_dkv_sm90": 1,
+        "flash_dkv_fma": 0}
+    for got, want, name in zip(leaves, plain, ("dq", "dk", "dv")):
+        assert got.grad.dtype == torch.bfloat16
+        _rel_close(got.grad, want.grad, FLASH_TOL["bfloat16"], name)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_cu_refuses_bf16_backward(cuda_device):
+    """flash.cu's entry points take fp32 only: a bf16 dQ or dK/dV launch is
+    refused (cudaErrorInvalidValue), so each dtype has one kernel."""
+    import ctypes
+    q = torch.zeros((1, 64, 2, 64), device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64), device=cuda_device)
+    lib = fa._lib()
+    p = lambda x: ctypes.c_void_p(x.data_ptr())
+    st = list(q.stride()[:3]) * 4
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dims = [1, 64, 64, 2, 2, 64, 1, 1]                # dtype 1: bf16
+    assert lib.repro_flash_dq(*[p(q)] * 4, p(lse), p(lse), p(q), *dims, *st,
+                              stream) == 1
+    assert lib.repro_flash_dkv(*[p(q)] * 4, p(lse), p(lse), p(q), p(q), *dims,
+                               *st, stream) == 1
+
+
 @pytest.mark.cuda
 def test_cuda_flash_fwd_launches_one_kernel_per_dtype(cuda_device):
     q = torch.from_numpy(_np((1, 64, 2, 64), 51)).to(cuda_device)
