@@ -9,12 +9,18 @@ Phases, in order; any failure raises, so the exit code is not 0:
   (a) build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
                count the tensor-core instructions (HGMMA) in the SASS of
                the bf16 flash kernels (forward, dQ, dK/dV) when the
-               toolkit has ``cuobjdump``
+               toolkit has ``cuobjdump``; read each ``ef_factor_kernel``
+               instance's registers, spills and shared memory from the
+               ptxas log and hold them to ``lowrank.factor_plan``'s (no
+               spills, the same resident blocks per SM)
   (b) kernels  each PowerSGD kernel against its plain PyTorch version on
                the main path's shape groups (and a ragged shape, and bf16),
-               with kernel, plain, library-call and bound times; the
-               pack/unpack kernels bit-exact against theirs at 4 and 8
-               bits (the tied wte payload, a ragged n, under 512 words)
+               two calls bit-equal, with kernel, plain, library-call and
+               bound times; for P and Q also TFLOP/s, GB/s and bound share
+               per group and per step, the plan, and the time at each
+               split count beside the plan's; the pack/unpack kernels
+               bit-exact against theirs at 4 and 8 bits (the tied wte
+               payload, a ragged n, under 512 words)
   (c) main     ``Trainer.run`` for 4 steps on gpt2-2.5b at its published
                widths (depth cut to 8 layers, 2 per stage), policy fixed,
                rank 64, kernels on, bucketed, batch 8 x seq 1024, bf16
@@ -36,7 +42,9 @@ Phases, in order; any failure raises, so the exit code is not 0:
                dq, dk and dv against the plain versions; the same in fp32
                non-causal with Tq != Tk and at a ragged T = 1000 (bf16 runs
                the tensor-core kernels, fp32 the FMA ones: each counted by
-               kernel); then each kernel, its plain version and
+               kernel); in bf16 at one key (Tk = 1) and one causal row (Tq
+               = 1), where dq and dk vanish and are held against zero;
+               then each kernel, its plain version and
                ``scaled_dot_product_attention`` timed at both widths, the
                bf16 kernels' TFLOP/s and share of their bounds (forward,
                dQ, dK/dV and the backward pair, beside SDPA's backward),
@@ -50,7 +58,9 @@ Phases, in order; any failure raises, so the exit code is not 0:
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
-work for that kernel (the three shape groups; the quant8 payloads), their
+work for that kernel (the three shape groups; the quant8 payloads; P and Q
+add the step's rates, the plan's splits per group and the ptxas registers
+and spills of their ``ef_factor_kernel`` instances), their
 launches counted on the run that drives them: (c) for the PowerSGD
 kernels, (f) quant8 for the pack kernels. The flash entries give one call
 at gpt2-2.5b widths (one layer's attention) and ``hist_counts`` one pooled
@@ -112,8 +122,16 @@ BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 # (g) also checks in fp32 (B, Tq, Tk, H, Hkv, Dh, causal): the reference's
 # cross-attention case (non-causal, Tq != Tk) and a ragged T at Dh 96.
 ATTN_FP32 = [(2, 128, 384, 4, 1, 32, False), (2, 1000, 1000, 4, 2, 96, True)]
+# ... and in bf16 at one key (Tk = 1) and at one causal row (Tq = 1): a row
+# that sees one key has P = 1 and dS = 0, so dQ and dK vanish identically.
+# They are held against zero with VANISH_ATOL (what is left is fp32
+# rounding in dP - D, far below the unit-normal inputs' gradients of order
+# 1); o, lse and dv keep the relative bar.
+ATTN_VANISH = [(2, 300, 1, 4, 2, 64, False), (2, 1, 300, 4, 2, 96, True)]
+VANISH_ATOL = 1e-3
 # Kernel against plain version, as max|kernel - plain| / max|plain|. fp32
-# products sum in another order than cuBLAS (about 1e-7 relative); bf16
+# products sum in another order than cuBLAS where the kernel splits the
+# reduction (up to about 5e-6 relative at the main groups); bf16
 # outputs of decompress round once (2**-8 relative), as do the flash
 # kernels' bf16 outputs.
 TOL = {"float32": 1e-5, "bfloat16": 1e-2, "gram_schmidt": 1e-4}
@@ -155,28 +173,39 @@ def device_ms(calls, iters: int) -> float:
     own, with CUDA events around ``iters`` runs queued behind a device-side
     sleep of about 25 ms, so that the device runs them back to back. Unlike
     ``time_ms`` this leaves out the gaps in which the device waits for the
-    host to launch, which dominate a run of small launches."""
+    host to launch, which dominate a run of small launches.
+
+    The host's queueing time varies with the load on its cores (autograd
+    calls cost milliseconds each), so a loop queued in more than half of
+    its sleep is timed again behind a sleep four times its queueing time;
+    a call that never fits (one that synchronises) raises."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    cycles = 50_000_000
+    base_cycles = 50_000_000
     start.record()
-    torch.cuda._sleep(cycles)
+    torch.cuda._sleep(base_cycles)
     end.record()
     torch.cuda.synchronize()
-    sleep_ms = start.elapsed_time(end)
+    ms_per_cycle = start.elapsed_time(end) / base_cycles
     total = 0.0
     for call in calls:
         call()
         torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(iters):
-            call()
-        end.record()
-        queued_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        if not queued_ms < 0.5 * sleep_ms:
+        cycles = base_cycles
+        for _ in range(4):
+            sleep_ms = cycles * ms_per_cycle
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(iters):
+                call()
+            end.record()
+            queued_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            if queued_ms < 0.5 * sleep_ms:
+                break
+            cycles = int(cycles * max(2.0, 4.0 * queued_ms / sleep_ms))
+        else:
             raise AssertionError(f"queueing {iters} calls took {queued_ms:.1f} "
                                  f"ms, not well inside a {sleep_ms:.1f} ms sleep")
         total += start.elapsed_time(end) / iters
@@ -207,6 +236,38 @@ def phase_build(report: dict) -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
+    report["build"]["factor_ptxas"] = check_factor_ptxas(build)
+
+
+def check_factor_ptxas(build) -> dict:
+    """Each ef_factor_kernel instance's registers, spills and shared memory
+    from the ptxas log of lowrank.cu's library: no spills, the shared
+    memory ``factor_smem`` states, and the resident blocks per SM that
+    ``factor_plan`` reckons from ``FACTOR_REGS``."""
+    from repro_torch.kernels import lowrank as lr
+    found = lr.parse_factor_ptxas(build.build_log("lowrank"))
+    if sorted(found) != sorted(lr.FACTOR_REGS):
+        raise AssertionError(f"ef_factor_kernel instances in the ptxas log: "
+                             f"{sorted(found)}, want {sorted(lr.FACTOR_REGS)}")
+    out = {}
+    for key, info in sorted(found.items()):
+        dt, trans, vec = key
+        name = f"{'q' if trans else 'p'}/{dt}/{'vector' if vec else 'scalar'}"
+        smem = lr.factor_smem(lr.factor_k_tile(trans, vec))
+        resident = lr.resident_blocks(info["registers"], info["smem"])
+        stated = lr.resident_blocks(lr.FACTOR_REGS[key], smem)
+        log(f"(a) ef_factor_kernel {name}: {info['registers']} registers "
+            f"(plan states {lr.FACTOR_REGS[key]}), spill stores/loads "
+            f"{info['spill_stores']}/{info['spill_loads']} B, {info['smem']} B "
+            f"smem: {resident} blocks per SM (plan {stated})")
+        if info["spill_stores"] or info["spill_loads"]:
+            raise AssertionError(f"ef_factor_kernel {name} spills: {info}")
+        if info["smem"] != smem or resident != stated:
+            raise AssertionError(f"ef_factor_kernel {name}: {info} against the "
+                                 f"plan's {lr.FACTOR_REGS[key]} registers, "
+                                 f"{smem} B smem")
+        out[name] = {**info, "resident_blocks": resident}
+    return out
 
 
 def count_hgmma(build) -> dict | None:
@@ -260,12 +321,21 @@ def _cases(e, m, n, r, dtype, dev):
     return {
         "lowrank_p": dict(
             kernel=lambda: lr.ef_lowrank_p(g, err, q),
+            at_splits=lambda s: lr._launch_factor(lr.ef_lowrank_p, "repro_lowrank_p",
+                                                  g, err, q, trans=False, splits=s),
+            plan=lr.factor_plan(e, m, n, r, dtype, _sms(dev), trans=False,
+                                ptrs=(g.data_ptr(), err.data_ptr(), q.data_ptr())),
             plain=lambda: ref.ef_lowrank_p(g, err, q),
             library=lambda: torch.bmm(g.float() + err.float(), q),
             nbytes=2 * mn * isz + 4 * e * (n * r + m * r),
             flops=mn + 2 * mn * r, tol=TOL["float32"]),
         "lowrank_q": dict(
             kernel=lambda: lr.ef_lowrank_q(g, err, p_hat),
+            at_splits=lambda s: lr._launch_factor(lr.ef_lowrank_q, "repro_lowrank_q",
+                                                  g, err, p_hat, trans=True, splits=s),
+            plan=lr.factor_plan(e, m, n, r, dtype, _sms(dev), trans=True,
+                                ptrs=(g.data_ptr(), err.data_ptr(),
+                                      p_hat.data_ptr())),
             plain=lambda: ref.ef_lowrank_q(g, err, p_hat),
             library=lambda: torch.bmm((g.float() + err.float()).mT, p_hat),
             nbytes=2 * mn * isz + 4 * e * (m * r + n * r),
@@ -285,6 +355,10 @@ def _cases(e, m, n, r, dtype, dev):
             nbytes=2 * 4 * e * m * r,
             flops=e * (2 * m * r * (r - 1) + 3 * m * r), tol=TOL["gram_schmidt"]),
     }
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _library_decompress(p_hat, q, g, err):
@@ -318,6 +392,14 @@ def phase_kernels(report: dict, dev) -> None:
             if not rel <= c["tol"]:
                 raise AssertionError(f"{name} {(e, m, n, r)} {dtype}: error "
                                      f"{rel:.3e} relative > {c['tol']:.0e}")
+            again = c["kernel"]()
+            same = all(torch.equal(a, b) for a, b in
+                       zip(*(t if isinstance(t, tuple) else (t,)
+                             for t in (got, again))))
+            if not same:
+                raise AssertionError(f"{name} {(e, m, n, r)} {dtype}: two "
+                                     "calls differ")
+            del got, want, again
             slow = name == "gram_schmidt"
             row = dict(kernel=name, shape=[e, m, n, r], dtype=str(dtype)[6:],
                        main_path=main, max_abs_err=abs_err, rel_err=rel,
@@ -326,16 +408,55 @@ def phase_kernels(report: dict, dev) -> None:
                        plain_ms=time_ms(c["plain"], 3 if slow else 10),
                        library_ms=time_ms(c["library"], 3 if slow else 10))
             row["bound_ms"], row["bound_by"] = bound_ms(c["nbytes"], c["flops"])
+            row.update(flop=c["flops"], nbytes=c["nbytes"], bit_equal=same)
             rows.append(row)
             log(f"(b) {name:20s} E,m,n,r={e},{m},{n},{r} {row['dtype']:8s} "
-                f"err {abs_err:.2e} abs {rel:.2e} rel (tol {c['tol']:.0e}) | "
+                f"err {abs_err:.2e} abs {rel:.2e} rel (tol {c['tol']:.0e}), "
+                f"two calls bit-equal | "
                 f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
                 f"library {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
                 f"ms ({row['bound_by']})")
+            if "plan" in c:
+                row["plan"] = dataclasses.asdict(c["plan"])
+                log(f"(b)   {name} {_rates(row)}; plan {row['plan']}")
+                if main:
+                    row["splits_ms"] = sweep_splits(name, c)
         del cases
         torch.cuda.empty_cache()
     report["kernel_rows"] = rows
+    for name in ("lowrank_p", "lowrank_q"):
+        main = [r for r in rows if r["kernel"] == name and r["main_path"]]
+        step = {key: sum(r[key] for r in main)
+                for key in ("ms", "library_ms", "bound_ms", "flop", "nbytes")}
+        log(f"(b) {name} per step (3 groups): kernel {step['ms']:.4f} ms, "
+            f"library {step['library_ms']:.4f} ({step['library_ms'] / step['ms']:.2f}x "
+            f"the kernel), bound {step['bound_ms']:.4f}; {_rates(step)}")
     report["pack_checks"] = check_pack(dev)
+
+
+def _rates(row: dict) -> str:
+    """TFLOP/s, GB/s and bound share of a timed row (or a step's sum)."""
+    return (f"{row['flop'] / row['ms'] * 1e-9:.1f} TFLOP/s, "
+            f"{row['nbytes'] / row['ms'] * 1e-6:.0f} GB/s, "
+            f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+
+
+SWEEP_SPLITS = (1, 2, 3, 4, 6, 8)
+
+
+def sweep_splits(name: str, case: dict) -> dict:
+    """The P or Q kernel timed at each split count of ``SWEEP_SPLITS`` and
+    the plan's, on the same inputs: what the plan's choice costs against
+    the others."""
+    chosen = case["plan"].splits
+    out = {}
+    for s in sorted(set(SWEEP_SPLITS) | {chosen}):
+        out[s] = time_ms(lambda: case["at_splits"](s), 20)
+    best = min(out, key=out.get)
+    log(f"(b)   {name} by splits: " + ", ".join(
+        f"{s}: {ms:.4f}{' (plan)' if s == chosen else ''}"
+        for s, ms in out.items()) + f" ms; fastest {best}")
+    return out
 
 
 def check_pack(dev) -> list[dict]:
@@ -723,9 +844,11 @@ def _drive_attention(q, k, v, do, causal):
     return o_inf, o.detach(), [t.grad for t in leaves]
 
 
-def check_attention(name, shape, causal, dtype, dev) -> dict:
+def check_attention(name, shape, causal, dtype, dev, vanish=()) -> dict:
     """Forward, LSE, dQ, dK and dV through the kernel API against the plain
-    versions on the same inputs, as max|kernel - plain| / max|plain|."""
+    versions on the same inputs, as max|kernel - plain| / max|plain|; the
+    outputs named in ``vanish`` instead as max|kernel| and max|plain|
+    against ``VANISH_ATOL``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention_bwd import _fwd_with_stats
     from repro_torch.kernels import flash_attention as fa
@@ -757,18 +880,29 @@ def check_attention(name, shape, causal, dtype, dev) -> dict:
            "dk": grads[1], "dv": grads[2]}
     torch.cuda.synchronize()
     tol = TOL[str(dtype)[6:]]
-    errs = {key: rel_err(got[key], plain[key]) for key in got}
+    errs = {key: rel_err(got[key], plain[key]) for key in got
+            if key not in vanish}
+    zero = {key: (got[key].float().abs().max().item(),
+                  plain[key].float().abs().max().item()) for key in vanish}
     log(f"(g) {name:10s} {list(shape)} causal={causal} {str(dtype)[6:]}: "
         + ", ".join(f"{key} {r:.2e}" for key, (_, r) in errs.items())
-        + f" relative (tol {tol:.0e}); launches by kernel {by_kernel}")
+        + f" relative (tol {tol:.0e})"
+        + "".join(f"; {key} max|kernel| {k:.2e} max|plain| {p:.2e} "
+                  f"(vanishes; atol {VANISH_ATOL:.0e})"
+                  for key, (k, p) in zero.items())
+        + f"; launches by kernel {by_kernel}")
     bad = {key: r for key, (_, r) in errs.items() if not r <= tol}
+    bad.update({key: v for key, v in zero.items()
+                if not max(v) <= VANISH_ATOL})
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions at {name} {shape}: {bad}")
     return {"shape": list(shape), "causal": causal, "dtype": str(dtype)[6:],
             "launches": launches, "launches_by_kernel": by_kernel,
             "rel_err": {key: r for key, (_, r) in errs.items()},
-            "max_abs_err": {key: a for key, (a, _) in errs.items()}}
+            "max_abs_err": {**{key: a for key, (a, _) in errs.items()},
+                            **{key: abs(k - p) for key, (k, p) in zero.items()}},
+            "vanish_max_abs": {key: k for key, (k, _) in zero.items()}}
 
 
 def time_attention(shape, dtype, dev) -> dict:
@@ -808,8 +942,8 @@ def time_attention(shape, dtype, dev) -> dict:
                 library_ms=None),
         }
     # one library call computes dQ, dK and dV together: SDPA's backward.
-    # Calls through autograd cost up to about 1.5 ms of host time each, so
-    # few of them are queued, well inside device_ms's 25 ms sleep.
+    # Calls through autograd cost milliseconds of host time each, so few of
+    # them are queued; device_ms lengthens its sleep when they need more.
     pair_lib = device_ms([lambda: torch.autograd.grad(
         out, leaves, dot, retain_graph=True)], 5)
     fwd_bwd_lib = device_ms([lambda: torch.autograd.grad(
@@ -893,6 +1027,9 @@ def phase_attention(report: dict, dev) -> dict:
                for i, c in enumerate(ATTN_FP32)]
     checks = [check_attention(name, shape, causal, dtype, dev)
               for name, shape, causal, dtype in shapes]
+    checks += [check_attention(f"bf16-Tq{c[1]}-Tk{c[2]}", c[:6], c[6],
+                               torch.bfloat16, dev, vanish=("dq", "dk"))
+               for c in ATTN_VANISH]
     launches = {k.__name__: sum(c["launches"][k.__name__] for c in checks)
                 for k in kernels}
     log(f"(g) launches {launches}")
@@ -1018,13 +1155,27 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
                 if r["kernel"] == name and r["main_path"]]
         total = lambda key: sum(r[key] for r in rows)
         bound_by = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
-        out.append({"name": name, "route": "cuda", "source": SOURCE,
-                    "replaces": REPLACES[name], "launches": launches[wrapper],
-                    "max_abs_err": max(r["max_abs_err"] for r in report["kernel_rows"]
-                                       if r["kernel"] == name),
-                    "ms": total("ms"), "plain_ms": total("plain_ms"),
-                    "bound_ms": total("bound_ms"), "bound_by": bound_by,
-                    "library_ms": total("library_ms")})
+        entry = {"name": name, "route": "cuda", "source": SOURCE,
+                 "replaces": REPLACES[name], "launches": launches[wrapper],
+                 "max_abs_err": max(r["max_abs_err"] for r in report["kernel_rows"]
+                                    if r["kernel"] == name),
+                 "ms": total("ms"), "plain_ms": total("plain_ms"),
+                 "bound_ms": total("bound_ms"), "bound_by": bound_by,
+                 "library_ms": total("library_ms")}
+        if name in ("lowrank_p", "lowrank_q"):
+            # ef_factor_kernel: the step's rates, the plan's splits per
+            # group, and each instance's ptxas numbers for this product
+            kind = name[-1]
+            entry.update(
+                tflop_per_s=total("flop") / total("ms") * 1e-9,
+                gb_per_s=total("nbytes") / total("ms") * 1e-6,
+                bound_share=total("bound_ms") / total("ms"),
+                splits=[r["plan"]["splits"] for r in rows],
+                ptxas={k: {key: v[key] for key in ("registers", "spill_stores",
+                                                   "spill_loads")}
+                       for k, v in report["build"]["factor_ptxas"].items()
+                       if k.startswith(kind + "/")})
+        out.append(entry)
     for name, row in report["wire"]["timing"].items():
         out.append({"name": name, "route": "cuda", "source": PACK_SOURCE,
                     "replaces": PACK_REPLACES[name],

@@ -5,7 +5,8 @@ by ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch_kernels/`` at
 the root of the checkout, then loaded with ``ctypes``. Library names carry
 a hash of the source, of the ``csrc/*.cuh`` headers it includes and of the
 flags, so an edited source or header is rebuilt and a stale library is
-never loaded. All sources compile in parallel, one
+never loaded; the compiler's log (``-Xptxas -v``) is kept beside each
+library (``build_log``). All sources compile in parallel, one
 ``nvcc`` process each. A missing ``nvcc`` or a failed compile raises: there
 is no fallback that would hide the kernels.
 
@@ -22,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_log", "load"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -90,10 +91,19 @@ def build_all() -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)     # atomic: a reader never sees a partial file
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler log of the current library of ``csrc/<name>.cu``
+    (``ptxas -v``: each kernel's registers, spills and shared memory),
+    building it first if need be."""
+    build_all()
+    return _target(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

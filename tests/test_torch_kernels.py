@@ -223,8 +223,9 @@ def test_launches_match_the_declared_c_signatures(fake_card):
     assert names == ["repro_lowrank_p", "repro_lowrank_q",
                      "repro_decompress_residual", "repro_gram_schmidt"]
     (_, p_args), (_, q_args), (_, d_args), (_, gs_args) = fake_card.calls
-    # (E, m, n, r, splits, dtype); one block of 64 rows splits n 16 ways
-    assert p_args[5:11] == (1, 64, 7680, 8, 16, 0)
+    # (E, m, n, r, splits, dtype); one block of 128 rows splits n into 30
+    # chunks of 256 (MIN_CHUNK), short of the 264 resident blocks
+    assert p_args[5:11] == (1, 64, 7680, 8, 30, 0)
     assert p_args[0].value == g.data_ptr() and p_args[3].value == p.data_ptr()
     assert p_args[4].value != p_args[3].value     # split partials
     assert q_args[5:11] == (1, 64, 7680, 8, 1, 1)  # bf16; m too short to split
@@ -243,6 +244,48 @@ def test_refused_launch_raises_and_counts_nothing(fake_card):
     assert lr.gram_schmidt_panel.launches == before
     with pytest.raises(TypeError, match="fp32 or bf16"):
         lr.ef_lowrank_p(g.double(), g.double(), g[..., :8].transpose(1, 2))
+
+
+@pytest.mark.parametrize("case", ["float64", "int_r", "stack_of_70000",
+                                  "mismatched_factor"])
+def test_refused_factor_launch_raises_before_launch(fake_card, case):
+    """What ef_factor_kernel does not take raises before anything launches:
+    no call reaches the library and no launch is counted."""
+    g = torch.from_numpy(_np((2, 64, 64), 25))
+    q = torch.from_numpy(_np((2, 64, 8), 26))
+    args, exc = {
+        "float64": ((g.double(), g.double(), q), TypeError),
+        "int_r": ((g.to(torch.int32), g.to(torch.int32), q), TypeError),
+        # the grid's third axis holds E x splits <= 65535
+        "stack_of_70000": ((torch.zeros(70000, 4, 4), torch.zeros(70000, 4, 4),
+                            torch.zeros(70000, 4, 2)), ValueError),
+        "mismatched_factor": ((g, g, q[:, :32]), ValueError),
+    }[case]
+    before = [k.launches for k in lr.KERNELS]
+    for fn in (lr.ef_lowrank_p, lr.ef_lowrank_q):
+        with pytest.raises(exc):
+            fn(*args)
+    assert fake_card.calls == []
+    assert [k.launches for k in lr.KERNELS] == before
+
+
+def test_factor_launch_passes_the_plans_splits(fake_card):
+    """The wrappers hand the C entry points the splits of ``factor_plan``
+    for the main path's three fp32 shape groups, on CPU tensors of those
+    sizes that are never written (the plan reads shapes and addresses)."""
+    calls = []
+    for e, m, n, r in [(32, 1920, 1920, 64), (8, 1920, 7680, 64),
+                       (8, 7680, 1920, 64)]:
+        g = torch.empty((e, m, n))
+        f_p, f_q = torch.empty((e, n, r)), torch.empty((e, m, r))
+        lr.ef_lowrank_p(g, g, f_p)
+        lr.ef_lowrank_q(g, g, f_q)
+        for trans, f in ((False, f_p), (True, f_q)):
+            calls.append(lr.factor_plan(e, m, n, r, g.dtype, 132, trans=trans,
+                                        ptrs=(g.data_ptr(),) * 2
+                                        + (f.data_ptr(),)).splits)
+    assert [args[9] for _, args in fake_card.calls] == calls == [1, 1, 2, 1,
+                                                                 1, 2]
 
 
 def _bwd_by_kernel(before=None) -> dict:

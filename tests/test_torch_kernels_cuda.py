@@ -45,8 +45,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# ef_factor_kernel's tile is 128 rows x 64 ranks, k-tiles 32 deep for P's
+# 16-byte path and 16 otherwise; fp32 rows take 16-byte loads at n % 4 ==
+# 0, bf16 ones at n % 8 == 0. After the first four: m and n off the tiles
+# (n % 32 == 8); n % 4 == 2; n % 4 == 0 but n % 8 == 4; K under one k-tile
+# (n = 12 for P, m = 9 for Q); split groups whose last chunk is ragged (P:
+# 18 chunks of 288 over n = 5000; Q: 11 of 288 over m = 3000); r = 2 and
+# r = 128.
 CUDA_STACKS = [(4, 192, 320, 64), (3, 100, 77, 5), (2, 130, 1030, 70),
-               (1, 1920, 7680, 64)]
+               (1, 1920, 7680, 64),
+               (2, 200, 328, 64), (2, 150, 98, 32), (2, 150, 140, 32),
+               (2, 130, 12, 8), (2, 9, 200, 16), (1, 100, 5000, 64),
+               (1, 3000, 100, 16), (2, 190, 260, 2), (2, 190, 260, 128)]
 
 
 @pytest.mark.cuda
@@ -69,6 +79,24 @@ def test_cuda_kernels_match_plain(cuda_device, e, m, n, r, dtype):
     _close(gh, ghr.to(dt), tol)
     _close(ne, ner.to(dt), tol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_factor_kernels_bit_equal_across_calls(cuda_device, dtype):
+    """P and Q at a shape both split (no atomics: partials summed in split
+    order), and a scalar-path shape, give the same bits on every call."""
+    for e, m, n, r in [(1, 3000, 5000, 64), (1, 3001, 4999, 40)]:
+        dt = getattr(torch, dtype)
+        g = torch.from_numpy(_np((e, m, n), 30)).to(cuda_device, dt)
+        err = torch.from_numpy(_np((e, m, n), 31)).to(cuda_device, dt)
+        q = torch.from_numpy(_np((e, n, r), 32)).to(cuda_device)
+        p_hat = torch.from_numpy(_np((e, m, r), 33)).to(cuda_device)
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        for trans in (False, True):
+            assert lr.factor_plan(e, m, n, r, dt, sms, trans=trans).splits > 1
+        for fn, f in ((lr.ef_lowrank_p, q), (lr.ef_lowrank_q, p_hat)):
+            assert torch.equal(fn(g, err, f), fn(g, err, f))
 
 
 @pytest.mark.cuda
@@ -247,10 +275,12 @@ def _bf16_do(device, q, layout="plain", seed=59):
     return torch.from_numpy(_np((b, t, h, dh), seed)).to(device, torch.bfloat16)
 
 
-def _check_bf16_bwd(q, k, v, do, causal):
+def _check_bf16_bwd(q, k, v, do, causal, vanish=()):
     """dQ, dK and dV at 1e-2 (relative to the plain version's largest
     magnitude), through the tensor-core kernels only, and bit-equal over
-    two calls (no atomics)."""
+    two calls (no atomics). The gradients named in ``vanish`` are zero in
+    exact arithmetic: they and their plain versions are held to
+    ``VANISH_ATOL`` instead."""
     o, lse = fb._fwd_with_stats(q, k, v, causal=causal)
     delta = ref.flash_delta(o, do)
     before = {**fb.flash_dq.launches_by_kernel, **fb.flash_dkv.launches_by_kernel}
@@ -265,10 +295,16 @@ def _check_bf16_bwd(q, k, v, do, causal):
     (dq, dk, dv), again = runs
     assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
     tol = FLASH_TOL["bfloat16"]
-    _rel_close(dq, ref.flash_dq(q, k, v, do, lse, delta, causal), tol, "dq")
     p_dk, p_dv = ref.flash_dkv(q, k, v, do, lse, delta, causal)
-    _rel_close(dk, p_dk, tol, "dk")
-    _rel_close(dv, p_dv, tol, "dv")
+    plain = {"dq": ref.flash_dq(q, k, v, do, lse, delta, causal), "dk": p_dk,
+             "dv": p_dv}
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if name in vanish:
+            for what, x in ((name, got), (f"plain {name}", plain[name])):
+                big = x.float().abs().max().item()
+                assert big <= VANISH_ATOL, f"{what}: {big:.3e} > {VANISH_ATOL:.0e}"
+        else:
+            _rel_close(got, plain[name], tol, name)
     assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
@@ -304,6 +340,23 @@ def test_cuda_flash_bwd_sm90_cross_lengths(cuda_device, tq, tk, causal, dh):
     mask does, so keys past Tq get no gradient."""
     q, k, v = _bf16_qkv(cuda_device, 2, tq, tk, 4, 2, dh)
     _check_bf16_bwd(q, k, v, _bf16_do(cuda_device, q), causal)
+
+
+# A row that sees one key has P = 1 and dS = 0: at Tk = 1, and at the single
+# row of a causal Tq = 1, dQ and dK vanish identically and the relative bar
+# has no scale. They are held against zero: what is left is fp32 rounding
+# in dP - D, far below the unit-normal inputs' gradients of order 1. dV
+# keeps the relative bar.
+VANISH_ATOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,causal", [(300, 1, False), (1, 300, True)])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_cuda_flash_bwd_sm90_single_key_or_row(cuda_device, tq, tk, causal, dh):
+    q, k, v = _bf16_qkv(cuda_device, 2, tq, tk, 4, 2, dh)
+    _check_bf16_bwd(q, k, v, _bf16_do(cuda_device, q), causal,
+                    vanish=("dq", "dk"))
 
 
 @pytest.mark.cuda
