@@ -12,13 +12,19 @@ Phases, in order; any failure raises, so the exit code is not 0:
                toolkit has ``cuobjdump``; read each ``ef_factor_kernel``
                instance's registers, spills and shared memory from the
                ptxas log and hold them to ``lowrank.factor_plan``'s (no
-               spills, the same resident blocks per SM)
+               spills, the same resident blocks per SM); the same numbers
+               for both ``gram_schmidt_kernel`` instances (no spills)
   (b) kernels  each PowerSGD kernel against its plain PyTorch version on
                the main path's shape groups (and a ragged shape, and bf16),
-               two calls bit-equal, with kernel, plain, library-call and
-               bound times; for P and Q also TFLOP/s, GB/s and bound share
-               per group and per step, the plan, and the time at each
-               split count beside the plan's; the pack/unpack kernels
+               two calls bit-equal, with kernel (host-clock loop and device
+               time), plain, library-call and bound times; for P and Q also
+               TFLOP/s, GB/s and bound share per group and per step, the
+               plan, and the time at each split count beside the plan's;
+               for Gram-Schmidt the plan (cluster size, path, resident
+               clusters), the time at each cluster size and path and per
+               column,
+               and more panels (ragged m, r = 1, the device-memory path);
+               the pack/unpack kernels
                bit-exact against theirs at 4 and 8 bits (the tied wte
                payload, a ragged n, under 512 words)
   (c) main     ``Trainer.run`` for 4 steps on gpt2-2.5b at its published
@@ -60,7 +66,9 @@ The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
 work for that kernel (the three shape groups; the quant8 payloads; P and Q
 add the step's rates, the plan's splits per group and the ptxas registers
-and spills of their ``ef_factor_kernel`` instances), their
+and spills of their ``ef_factor_kernel`` instances; Gram-Schmidt its
+cluster size and ms per column per group and its instances' ptxas
+numbers), their
 launches counted on the run that drives them: (c) for the PowerSGD
 kernels, (f) quant8 for the pack kernels. The flash entries give one call
 at gpt2-2.5b widths (one layer's attention) and ``hist_counts`` one pooled
@@ -91,6 +99,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 MAIN_GROUPS = [(32, 1920, 1920, 64), (8, 1920, 7680, 64), (8, 7680, 1920, 64)]
 RAGGED = (3, 1000, 1030, 40)
+# Gram-Schmidt panels (E, m, r) off the main path: ragged m (no cluster size
+# divides it), r = 1, and the device-memory path (r = 128 at m = 7680, and
+# the 4 MiB panel that ops routes to Gram-Schmidt)
+GS_EXTRA = [(3, 1001, 24), (1, 1000, 24), (2, 1920, 1), (1, 7680, 128),
+            (1, 16384, 64)]
 REPLACES = {
     "lowrank_p": "src/repro/kernels/lowrank.py:188",
     "lowrank_q": "src/repro/kernels/lowrank.py:218",
@@ -237,6 +250,7 @@ def phase_build(report: dict) -> None:
             if "registers" in line or "spill" in line:
                 log("    ptxas:", line.strip())
     report["build"]["factor_ptxas"] = check_factor_ptxas(build)
+    report["build"]["gs_ptxas"] = check_gs_ptxas(build)
 
 
 def check_factor_ptxas(build) -> dict:
@@ -268,6 +282,23 @@ def check_factor_ptxas(build) -> dict:
                                  f"{smem} B smem")
         out[name] = {**info, "resident_blocks": resident}
     return out
+
+
+def check_gs_ptxas(build) -> dict:
+    """Both gram_schmidt_kernel instances (shared-memory and device-memory
+    slab) from the ptxas log of lowrank.cu's library: no spills."""
+    from repro_torch.kernels import lowrank as lr
+    found = lr.parse_gs_ptxas(build.build_log("lowrank"))
+    if sorted(found) != ["device", "shared"]:
+        raise AssertionError(f"gram_schmidt_kernel instances in the ptxas "
+                             f"log: {sorted(found)}, want device and shared")
+    for path, info in sorted(found.items()):
+        log(f"(a) gram_schmidt_kernel {path}: {info['registers']} registers, "
+            f"spill stores/loads {info['spill_stores']}/{info['spill_loads']} "
+            f"B, {info['smem']} B static smem")
+        if info["spill_stores"] or info["spill_loads"]:
+            raise AssertionError(f"gram_schmidt_kernel {path} spills: {info}")
+    return found
 
 
 def count_hgmma(build) -> dict | None:
@@ -315,7 +346,6 @@ def _cases(e, m, n, r, dtype, dev):
     err = (0.1 * rand(e, m, n)).to(dtype)
     q = rand(e, n, r)
     p_hat = torch.linalg.qr(rand(e, m, r))[0]
-    panel = rand(e, m, r)
     isz = g.element_size()
     mn = e * m * n
     return {
@@ -348,13 +378,24 @@ def _cases(e, m, n, r, dtype, dev):
             nbytes=4 * mn * isz + 4 * e * (m * r + n * r),
             flops=2 * mn * r + 2 * mn,
             tol=TOL["float32"] if dtype == torch.float32 else TOL["bfloat16"]),
-        "gram_schmidt": dict(
-            kernel=lambda: lr.gram_schmidt_panel(panel),
-            plain=lambda: lr.plain_gram_schmidt(panel),
-            library=lambda: torch.linalg.qr(panel)[0],
-            nbytes=2 * 4 * e * m * r,
-            flops=e * (2 * m * r * (r - 1) + 3 * m * r), tol=TOL["gram_schmidt"]),
+        "gram_schmidt": _gs_case(e, m, r, dev),
     }
+
+
+def _gs_case(e, m, r, dev) -> dict:
+    """Gram-Schmidt of an (E, m, r) panel stack, as ``_cases`` gives it."""
+    from repro_torch.kernels import lowrank as lr
+    gen = torch.Generator(device=dev).manual_seed(e * 7 + m + r)
+    panel = torch.randn((e, m, r), generator=gen, device=dev)
+    return dict(
+        kernel=lambda: lr.gram_schmidt_panel(panel),
+        at_cluster=lambda c, path: lr._launch_gs(panel, cluster=c, path=path),
+        plan_at=lambda c, path: lr._gs_plan_for(panel, c, path),
+        gs_plan=lr._gs_plan_for(panel),
+        plain=lambda: lr.plain_gram_schmidt(panel),
+        library=lambda: torch.linalg.qr(panel)[0],
+        nbytes=2 * 4 * e * m * r,
+        flops=e * (2 * m * r * (r - 1) + 3 * m * r), tol=TOL["gram_schmidt"])
 
 
 def _sms(dev) -> int:
@@ -379,59 +420,82 @@ def phase_kernels(report: dict, dev) -> None:
     rows = []
     shapes = [(s, torch.float32, True) for s in MAIN_GROUPS]
     shapes += [(RAGGED, torch.float32, False), (RAGGED, torch.bfloat16, False)]
-    for (e, m, n, r), dtype, main in shapes:
-        cases = _cases(e, m, n, r, dtype, dev)
+    jobs = [(s, dtype, main, lambda s=s, dtype=dtype: _cases(*s, dtype, dev))
+            for s, dtype, main in shapes]
+    # Gram-Schmidt alone on panels off the main path (n plays no part)
+    jobs += [((e, m, 0, r), torch.float32, False,
+              lambda e=e, m=m, r=r: {"gram_schmidt": _gs_case(e, m, r, dev)})
+             for e, m, r in GS_EXTRA]
+    for shape, dtype, main, make in jobs:
+        cases = make()
         for name, c in cases.items():
-            got, want = c["kernel"](), c["plain"]()
-            torch.cuda.synchronize()
-            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-            abs_err, rel = max((rel_err(a, b) for a, b in pairs),
-                               key=lambda t: t[1])
-            if name == "gram_schmidt":
-                _check_orthonormal(got, want)
-            if not rel <= c["tol"]:
-                raise AssertionError(f"{name} {(e, m, n, r)} {dtype}: error "
-                                     f"{rel:.3e} relative > {c['tol']:.0e}")
-            again = c["kernel"]()
-            same = all(torch.equal(a, b) for a, b in
-                       zip(*(t if isinstance(t, tuple) else (t,)
-                             for t in (got, again))))
-            if not same:
-                raise AssertionError(f"{name} {(e, m, n, r)} {dtype}: two "
-                                     "calls differ")
-            del got, want, again
-            slow = name == "gram_schmidt"
-            row = dict(kernel=name, shape=[e, m, n, r], dtype=str(dtype)[6:],
-                       main_path=main, max_abs_err=abs_err, rel_err=rel,
-                       tol=c["tol"],
-                       ms=time_ms(c["kernel"], 20),
-                       plain_ms=time_ms(c["plain"], 3 if slow else 10),
-                       library_ms=time_ms(c["library"], 3 if slow else 10))
-            row["bound_ms"], row["bound_by"] = bound_ms(c["nbytes"], c["flops"])
-            row.update(flop=c["flops"], nbytes=c["nbytes"], bit_equal=same)
-            rows.append(row)
-            log(f"(b) {name:20s} E,m,n,r={e},{m},{n},{r} {row['dtype']:8s} "
-                f"err {abs_err:.2e} abs {rel:.2e} rel (tol {c['tol']:.0e}), "
-                f"two calls bit-equal | "
-                f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
-                f"library {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
-                f"ms ({row['bound_by']})")
-            if "plan" in c:
-                row["plan"] = dataclasses.asdict(c["plan"])
-                log(f"(b)   {name} {_rates(row)}; plan {row['plan']}")
-                if main:
-                    row["splits_ms"] = sweep_splits(name, c)
+            rows.append(check_kernel(name, c, shape, dtype, main))
         del cases
         torch.cuda.empty_cache()
     report["kernel_rows"] = rows
-    for name in ("lowrank_p", "lowrank_q"):
+    for name in ("lowrank_p", "lowrank_q", "gram_schmidt"):
         main = [r for r in rows if r["kernel"] == name and r["main_path"]]
         step = {key: sum(r[key] for r in main)
-                for key in ("ms", "library_ms", "bound_ms", "flop", "nbytes")}
-        log(f"(b) {name} per step (3 groups): kernel {step['ms']:.4f} ms, "
-            f"library {step['library_ms']:.4f} ({step['library_ms'] / step['ms']:.2f}x "
-            f"the kernel), bound {step['bound_ms']:.4f}; {_rates(step)}")
+                for key in ("ms", "device_ms", "library_ms", "bound_ms", "flop",
+                            "nbytes")}
+        log(f"(b) {name} per step (3 groups): kernel {step['ms']:.4f} ms "
+            f"(device {step['device_ms']:.4f}), library {step['library_ms']:.4f} "
+            f"({step['library_ms'] / step['ms']:.2f}x the kernel), bound "
+            f"{step['bound_ms']:.4f}; {_rates(step)}")
     report["pack_checks"] = check_pack(dev)
+
+
+def check_kernel(name: str, c: dict, shape: tuple, dtype, main: bool) -> dict:
+    """One kernel at one shape: against its plain version (and, for
+    Gram-Schmidt, orthonormal), two calls bit-equal, then timed."""
+    e, m, n, r = shape
+    got, want = c["kernel"](), c["plain"]()
+    torch.cuda.synchronize()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    abs_err, rel = max((rel_err(a, b) for a, b in pairs), key=lambda t: t[1])
+    if name == "gram_schmidt":
+        _check_orthonormal(got, want)
+    if not rel <= c["tol"]:
+        raise AssertionError(f"{name} {shape} {dtype}: error {rel:.3e} "
+                             f"relative > {c['tol']:.0e}")
+    again = c["kernel"]()
+    same = all(torch.equal(a, b) for a, b in
+               zip(*(t if isinstance(t, tuple) else (t,) for t in (got, again))))
+    if not same:
+        raise AssertionError(f"{name} {shape} {dtype}: two calls differ")
+    del got, want, again
+    slow = name == "gram_schmidt"
+    row = dict(kernel=name, shape=list(shape), dtype=str(dtype)[6:],
+               main_path=main, max_abs_err=abs_err, rel_err=rel, tol=c["tol"],
+               ms=time_ms(c["kernel"], 20),
+               device_ms=device_ms([c["kernel"]], 20),
+               plain_ms=time_ms(c["plain"], 3 if slow else 10),
+               library_ms=time_ms(c["library"], 3 if slow else 10))
+    row["bound_ms"], row["bound_by"] = bound_ms(c["nbytes"], c["flops"])
+    row.update(flop=c["flops"], nbytes=c["nbytes"], bit_equal=same)
+    log(f"(b) {name:20s} E,m,n,r={e},{m},{n},{r} {row['dtype']:8s} "
+        f"err {abs_err:.2e} abs {rel:.2e} rel (tol {c['tol']:.0e}), "
+        f"two calls bit-equal | kernel {row['ms']:.4f} ms (device "
+        f"{row['device_ms']:.4f}) plain {row['plain_ms']:.4f} "
+        f"library {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']})")
+    if "plan" in c:
+        row["plan"] = dataclasses.asdict(c["plan"])
+        log(f"(b)   {name} {_rates(row)}; plan {row['plan']}")
+        if main:
+            row["splits_ms"] = sweep_splits(name, c)
+    if "gs_plan" in c:
+        plan = c["gs_plan"]
+        row["plan"] = dataclasses.asdict(plan)
+        row["ms_per_column"] = row["device_ms"] / r
+        log(f"(b)   gram_schmidt plan: cluster {plan.cluster} x {plan.rows} "
+            f"rows (column stride {plan.ld}), {plan.path} slab, {plan.smem} B "
+            f"smem, {plan.blocks} blocks, {plan.active} clusters resident "
+            f"(cudaOccupancyMaxActiveClusters), {plan.waves} wave(s); "
+            f"{1e3 * row['ms_per_column']:.3f} us per column")
+        if main:
+            row["clusters_ms"] = sweep_clusters(c)
+    return row
 
 
 def _rates(row: dict) -> str:
@@ -456,6 +520,31 @@ def sweep_splits(name: str, case: dict) -> dict:
     log(f"(b)   {name} by splits: " + ", ".join(
         f"{s}: {ms:.4f}{' (plan)' if s == chosen else ''}"
         for s, ms in out.items()) + f" ms; fastest {best}")
+    return out
+
+
+def sweep_clusters(case: dict) -> dict:
+    """Gram-Schmidt's device time at each cluster size and path, forced, on
+    the same inputs (the shared-memory slab where it fits, and the
+    device-memory one): what the plan's choice costs against the others."""
+    from repro_torch.kernels import lowrank as lr
+    plan = case["gs_plan"]
+    out = {}
+    for c in lr.GS_CLUSTERS:
+        for path in ("shared", "device"):
+            try:
+                at = case["plan_at"](c, path)
+            except ValueError:      # the slab does not fit shared memory
+                continue
+            out[f"{c}/{path}"] = {
+                "active": at.active, "waves": at.waves,
+                "ms": device_ms([lambda: case["at_cluster"](c, path)], 10)}
+    chosen = f"{plan.cluster}/{plan.path}"
+    best = min(out, key=lambda k: out[k]["ms"])
+    log("(b)   gram_schmidt by cluster/path (resident clusters, waves): " +
+        ", ".join(f"{k} ({v['active']}, {v['waves']}): {v['ms']:.4f}"
+                  f"{' (plan)' if k == chosen else ''}" for k, v in out.items())
+        + f" ms; fastest {best}")
     return out
 
 
@@ -1162,6 +1251,18 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
                  "ms": total("ms"), "plain_ms": total("plain_ms"),
                  "bound_ms": total("bound_ms"), "bound_by": bound_by,
                  "library_ms": total("library_ms")}
+        entry["device_ms"] = total("device_ms")
+        if name == "gram_schmidt":
+            # the column chain: cluster size, device ms per column and
+            # resident clusters per group; both instances' ptxas numbers
+            entry.update(
+                clusters=[r["plan"]["cluster"] for r in rows],
+                paths=[r["plan"]["path"] for r in rows],
+                active_clusters=[r["plan"]["active"] for r in rows],
+                ms_per_column=[r["ms_per_column"] for r in rows],
+                ptxas={k: {key: v[key] for key in ("registers", "spill_stores",
+                                                   "spill_loads")}
+                       for k, v in report["build"]["gs_ptxas"].items()})
         if name in ("lowrank_p", "lowrank_q"):
             # ef_factor_kernel: the step's rates, the plan's splits per
             # group, and each instance's ptxas numbers for this product

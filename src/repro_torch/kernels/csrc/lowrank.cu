@@ -8,13 +8,14 @@
 //   ef_factor_kernel<T, false, V>  P[e] = (G[e] + E[e]) . Q[e]     (E,m,n)x(E,n,r)
 //   ef_factor_kernel<T, true, V>   Q[e] = (G[e] + E[e])^T . P[e]   (E,m,n)x(E,m,r)
 //   decompress_kernel<T>           ghat = P Q^T,  E' = (G + E) - ghat
-//   gram_schmidt_kernel            classical Gram-Schmidt of each (m, r) panel
+//   gram_schmidt_kernel<S>         classical Gram-Schmidt of each (m, r) panel,
+//                                  one thread-block cluster per panel
 //
 // All arithmetic is fp32 FMA on the CUDA cores: no tensor-core TF32, since
 // the factors must agree with an fp32 reference. No atomics: every output
-// element is summed by one thread in a fixed order, and split reductions
-// are summed by a second pass in split order, so results do not depend on
-// launch order. Ragged edges (m, n, r not multiples of the tiles) are
+// element is summed by one thread in a fixed order, split reductions are
+// summed by a second pass in split order, and a cluster's partial sums in
+// block order, so results do not depend on launch order. Ragged edges (m, n, r not multiples of the tiles) are
 // masked, so every shape runs the kernel.
 //
 // ef_factor_kernel reads G and E once and does 2r FLOP per element: at
@@ -51,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"   // mbarrier helpers
 
 namespace {
 
@@ -420,76 +423,383 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of v over the block, returned to every thread. `red` holds one float
-// per warp.
-__device__ float block_sum(float v, float* red) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < nwarps ? red[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) red[0] = t;
+// ---------------------------------------------------- gram_schmidt_kernel
+namespace gs {
+constexpr int kMaxCluster = 16;    // blocks per panel (non-portable above 8)
+constexpr int kThreads = 256;      // a block of 8 warps:
+constexpr int kMainWarps = 4;      // the step's chain: wait, sums, update
+constexpr int kLookWarps = 4;      // the next column's other dot products, alongside
+// Resident blocks per SM that the register cap keeps: 3 for shared slabs
+// (80 registers), 2 for device-memory ones (128: under 80 they spill).
+template <bool SHARED> constexpr int min_blocks() { return SHARED ? 3 : 2; }
+constexpr int kGroup = 8;          // dot products a warp sums per pass (warp_sum8)
+
+// Column stride of a block's slab: its rows rounded up to 4 mod 8, so that
+// each column is whole 16-byte row chunks and the transposing load and
+// store (4 rows x 8 columns a warp) hit 32 banks.
+__host__ __device__ inline int ld_of(int rows) { return (rows + 3) / 8 * 8 + 4; }
+
+// Dynamic shared memory of one block, in bytes (kernels/lowrank.py's
+// gs_smem states the same): two mbarriers, the slab (shared path), X[2][C]
+// [r + 1] (every block's partial sums for one step: r coefficients and
+// ||v||^2, two steps' worth), coef[r], the columns' denominators dn[r],
+// pre[2][r + 1] (this block's partials, staged before they are sent) and
+// red[2][kMainWarps] (the main warps' shares of two sums).
+__host__ __device__ inline size_t smem_bytes(bool shared, int rows, int r, int cluster) {
+  const size_t slab = shared ? (size_t)ld_of(rows) * r : 0;
+  return 16 + 4 * (slab + 2 * ((size_t)cluster + 1) * (r + 1) + 2 * (size_t)r +
+                   2 * kMainWarps);
+}
+}  // namespace gs
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// The shared::cluster address of shared address `local` in cluster block
+// `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t local, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+// Store v at shared::cluster address `dst` and count its 4 bytes on the
+// mbarrier at shared::cluster address `bar` of the same block (complete_tx):
+// no barrier of the whole cluster, the receiver waits on its own mbarrier.
+__device__ __forceinline__ void st_async(uint32_t dst, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               :: "r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+// A barrier of the main warps alone (named barrier 1).
+__device__ __forceinline__ void bar_main() {
+  asm volatile("bar.sync 1, %0;" :: "n"(gs::kMainWarps * 32) : "memory");
+}
+// p[0] + p[stride] + ... + p[(C - 1) stride], in that order: the blocks'
+// partials in block order, so every block gets the same bits.
+__device__ __forceinline__ float ordered_sum(const float* p, unsigned C, int stride) {
+  float part[gs::kMaxCluster];
+#pragma unroll
+  for (unsigned c = 0; c < gs::kMaxCluster; ++c)   // all loads in flight at once
+    part[c] = c < C ? p[c * stride] : 0.f;
+  float s = part[0];
+#pragma unroll
+  for (unsigned c = 1; c < gs::kMaxCluster; ++c)
+    if (c < C) s += part[c];
+  return s;
+}
+// The sums over the warp of acc[0..8), in 9 shuffles instead of 40: the
+// lanes halve the slots they hold at each of three exchanges, then sum the
+// last one across 4 lanes. Lane l returns the sum of slot (l >> 2) & 7, in
+// a fixed order.
+__device__ __forceinline__ float warp_sum8(const float (&acc)[gs::kGroup], int lane) {
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+  float a4[4], a2[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {     // slot j + 4 h4
+    const float send = h4 ? acc[j] : acc[j + 4];
+    a4[j] = (h4 ? acc[j + 4] : acc[j]) + __shfl_xor_sync(0xffffffffu, send, 16);
   }
-  __syncthreads();
-  const float total = red[0];
-  __syncthreads();
-  return total;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {     // slot j + 2 h3 + 4 h4
+    const float send = h3 ? a4[j] : a4[j + 2];
+    a2[j] = (h3 ? a4[j + 2] : a4[j]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const float send = h2 ? a2[0] : a2[1];
+  float s = (h2 ? a2[1] : a2[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s + __shfl_xor_sync(0xffffffffu, s, 1);
+}
+// A warp's share of n <= 8 dot products over the block's rows: acc[j] = sum
+// over its row chunks q (lane, lane + 32, ...) of column (kb + j nwarps) .
+// a, the four rows of a chunk in order; acc[n..8) = 0. All of a chunk's
+// loads are issued before its FMAs: a loop that waits for each shared load
+// is latency-bound.
+__device__ __forceinline__ void dots(float (&acc)[gs::kGroup], const float4* S4,
+                                     const float4* a4, int ld4, int kb, int nwarps,
+                                     int n, int q4, int lane) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < gs::kGroup; ++j) acc[j] = 0.f;
+  for (int q = lane; q < q4; q += 32) {
+    const float4 x = a4[q];
+    float4 w[gs::kGroup];
+#pragma unroll
+    for (int j = 0; j < gs::kGroup; ++j)
+      w[j] = j < n ? S4[(kb + j * nwarps) * ld4 + q] : zero;
+#pragma unroll
+    for (int j = 0; j < gs::kGroup; ++j) {
+      acc[j] = fmaf(w[j].x, x.x, acc[j]);
+      acc[j] = fmaf(w[j].y, x.y, acc[j]);
+      acc[j] = fmaf(w[j].z, x.z, acc[j]);
+      acc[j] = fmaf(w[j].w, x.w, acc[j]);
+    }
+  }
 }
 
-// Classical Gram-Schmidt of one (m, r) panel per block, as the TPU kernel
-// computes it: for column i, coef = U^T v against all previous columns at
-// once, v -= U coef, v /= (||v|| + eps). The panel lives column-major in
-// device memory (`work`, L2-resident), so each dot product and each column
-// update reads contiguous memory; shared memory holds only the r
-// coefficients and the per-warp partial sums.
-__global__ void gram_schmidt_kernel(const float* __restrict__ p,
-                                    float* __restrict__ out,
-                                    float* __restrict__ work,
-                                    int m, int r, float eps) {
-  extern __shared__ float smem[];
-  float* coef = smem;        // r
-  float* red = smem + r;     // one per warp
-  const size_t mr = (size_t)m * r;
-  const float* P = p + blockIdx.x * mr;
-  float* O = out + blockIdx.x * mr;
-  float* C = work + blockIdx.x * mr;   // C[k * m + row] = panel[row][k]
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
+// Classical Gram-Schmidt of each (m, r) panel by one thread-block cluster,
+// as the TPU kernel computes it: for column i, coef = U^T v against all
+// previous columns at once (v as it came in), v -= U coef, v /= (||v|| +
+// eps). It replaces a kernel whose one block per panel re-read the whole
+// panel from L2 for every column, on at most 32 of the 132 SMs.
+//
+// What bounds it is the column chain: r steps, each needing sums over all
+// m rows, so its time is r times the latency of one step. The panel is
+// split by rows over the C blocks of a cluster (block c owns rows [c rows,
+// min((c + 1) rows, m)); the ragged end, and a block past it, are masked),
+// and each step costs one exchange of partial sums. A barrier of the whole
+// cluster (barrier.cluster) costs several times what the exchange needs,
+// so the exchange is point to point: every block stores its partials into
+// every block's shared memory with st.async, which counts the bytes on the
+// receiver's mbarrier, and each block waits on its own. The columns stay
+// unnormalized, v_k, during the sweep, each with its denominator d_k =
+// ||v_k|| + eps, and the coefficient of u_k = v_k / d_k is taken as (a_i .
+// v_k) / d_k, so the update v_i -= u_k coef_k is v_i -= v_k (a_i . v_k) /
+// (d_k d_k): the same classical Gram-Schmidt, with no division on the slab
+// inside the chain.
+// Step i, on each block, two groups of warps side by side:
+//   main  1. wait for step i's partials; thread k sums a_i . v_k over the
+//            blocks in block order (the same bits in every block), and
+//            thread i - 1 also ||v_{i-1}||^2, giving d_{i-1}; then cf_k =
+//            (a_i . v_k) / (d_k d_k);
+//         2. on its rows, a 16-byte chunk of four rows a thread: v_i = a_i
+//            - sum_k v_k cf_k, and from the same registers the chunk's
+//            shares of a_{i+1} . v_i and ||v_i||^2, summed over the main
+//            warps;
+//   look  a_{i+1} . v_k for k < i over its rows: they need no column of
+//         this step, so they run while the main warps wait and update
+//         (warp w takes w, w + W, ..., eight at a time);
+//   all   send the block's step i+1 partials (staged in pre) to every
+//         block of the cluster.
+// Dot products over the rows are summed over a warp's lanes by warp_sum8.
+// So the exchange that delivers column i's norm also delivers the next
+// column's coefficients. At the end each column is divided by its
+// denominator, u_k = v_k / d_k, on its way out. The partials and the
+// mbarriers are double-buffered by step parity; a block can only send step
+// s + 2's partials after it received every block's step s + 1 partials,
+// which each block sends after it has read its step s buffer.
+//
+// SHARED: the block's slab of the panel lives column-major in shared memory,
+// read once from p and written once to out. Otherwise (panels that do not
+// fit at C = 16) the same algorithm runs on the block's slab in device
+// memory, `work` (E C, r, ld), which stays in L2. Rows are handled in
+// 16-byte chunks of four (the pad rows of the last chunk are zeros).
+//
+// fp32 FMA only, no atomics, every sum in a fixed order: two calls agree
+// bit for bit.
+template <bool SHARED>
+__global__ void __launch_bounds__(gs::kThreads, gs::min_blocks<SHARED>())
+gram_schmidt_kernel(const float* __restrict__ p, float* __restrict__ out,
+                    float* __restrict__ work, int m, int r, int rows, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);   // [2], by step parity
+  float* base = reinterpret_cast<float*>(smem_raw + 16);
+  const unsigned C = cluster_size();
+  const unsigned rank = cluster_rank();
+  const size_t panel = blockIdx.x / C;
+  const int row0 = (int)rank * rows;
+  const int nrows = max(0, min(rows, m - row0));
+  const int q4 = (nrows + 3) / 4;                // 16-byte row chunks
+  const int ld = gs::ld_of(rows);
+  const int ld4 = ld / 4;
+  const int xs = r + 1;                          // floats a block sends per step
+  float* S = SHARED ? base : work + (size_t)blockIdx.x * r * ld;
+  float4* S4 = reinterpret_cast<float4*>(S);
+  float* X = base + (SHARED ? r * ld : 0);       // [2][C][r + 1]
+  float* coef = X + 2 * C * xs;                  // [r]: cf_k of the step
+  float* dn = coef + r;                          // [r]: d_k = ||v_k|| + eps
+  float* pre = dn + r;                           // [2][r + 1]: partials to send
+  float* red = pre + 2 * xs;                     // [2][kMainWarps]
+  const float* P = p + panel * m * r + (size_t)row0 * r;
+  float* O = out + panel * m * r + (size_t)row0 * r;
+  constexpr int T = gs::kThreads;
+  constexpr int nwarps = T / 32;
+  constexpr int TM = gs::kMainWarps * 32;       // main threads
+  const int lc = __ffs(C) - 1;                   // C = 2^lc
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
 
-  for (size_t idx = threadIdx.x; idx < mr; idx += blockDim.x)
-    C[(idx % r) * m + idx / r] = P[idx];
-  __syncthreads();
-
-  for (int i = 0; i < r; ++i) {
-    float* v = C + (size_t)i * m;
-    for (int k = warp; k < i; k += nwarps) {
-      const float* u = C + (size_t)k * m;
-      float s = 0.f;
-      for (int row = lane; row < m; row += 32) s = fmaf(u[row], v[row], s);
-      s = warp_sum(s);
-      if (lane == 0) coef[k] = s;
-    }
-    __syncthreads();
-    float ss = 0.f;
-    for (int row = threadIdx.x; row < m; row += blockDim.x) {
-      float x = v[row];
-      for (int k = 0; k < i; ++k) x = fmaf(-C[(size_t)k * m + row], coef[k], x);
-      v[row] = x;
-      ss = fmaf(x, x, ss);
-    }
-    const float denom = sqrtf(block_sum(ss, red)) + eps;
-    for (int row = threadIdx.x; row < m; row += blockDim.x) v[row] = v[row] / denom;
-    __syncthreads();
+  // the slab, transposed in tiles of 4 rows x 8 columns (a warp each), and
+  // zeros in the pad rows of the last chunk
+  const int kt = (r + 7) / 8;
+  for (int t = warp; t < q4 * kt; t += nwarps) {
+    const int row = t / kt * 4 + (lane & 3), k = t % kt * 8 + (lane >> 2);
+    if (k < r) S[k * ld + row] = row < nrows ? P[(size_t)row * r + k] : 0.f;
   }
+  if (tid == 0) {
+    mbar_init(smem_u32(&bars[0]), 1);
+    mbar_init(smem_u32(&bars[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();   // every block has started and set up its mbarriers
 
-  for (size_t idx = threadIdx.x; idx < mr; idx += blockDim.x)
-    O[idx] = C[(idx % r) * m + idx / r];
+  for (int i = 0; i <= r; ++i) {
+    const int nb = (i + 1) & 1;                  // parity of step i + 1
+    float* staged = pre + nb * xs;
+    if (warp < gs::kMainWarps) {
+      // 1. step i's partials (sent in step i-1), summed in block order;
+      // thread k keeps d_k (k % TM == tid at every step)
+      if (i > 0) {
+        const int buf = i & 1;
+        const uint32_t bar = smem_u32(&bars[buf]);
+        if (tid == 0) mbar_expect_tx(bar, 4 * C * (i < r ? i + 1 : 1));
+        mbar_wait(bar, ((i - 1) >> 1) & 1);
+        const float* Xi = X + buf * C * xs;
+        for (int k = tid; k < i; k += TM) {
+          if (k == i - 1) dn[k] = sqrtf(ordered_sum(Xi + r, C, xs)) + eps;
+          if (i < r) coef[k] = ordered_sum(Xi + k, C, xs) / (dn[k] * dn[k]);
+        }
+        if (i == r) break;
+        bar_main();
+      }
+      // 2. this block's rows, a 16-byte chunk a thread: v_i = a_i - sum_k
+      // v_k cf_k, the sum over k in groups of four columns (one
+      // accumulator each), each group's loads issued before its FMAs; then,
+      // from the same registers, the chunk's shares of a_{i+1} . v_i and
+      // ||v_i||^2
+      const bool last = i + 1 == r;
+      float dp = 0.f, ss = 0.f;
+      for (int q = tid; q < q4; q += TM) {
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 y[4] = {zero, zero, zero, zero};
+        for (int g = 0; g < i; g += 4) {
+          float4 w[4];
+          float c[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const bool ok = g + u < i;
+            w[u] = ok ? S4[(g + u) * ld4 + q] : zero;
+            c[u] = ok ? coef[g + u] : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            y[u].x = fmaf(w[u].x, c[u], y[u].x);
+            y[u].y = fmaf(w[u].y, c[u], y[u].y);
+            y[u].z = fmaf(w[u].z, c[u], y[u].z);
+            y[u].w = fmaf(w[u].w, c[u], y[u].w);
+          }
+        }
+        float4 x = S4[i * ld4 + q];
+        x.x -= (y[0].x + y[1].x) + (y[2].x + y[3].x);
+        x.y -= (y[0].y + y[1].y) + (y[2].y + y[3].y);
+        x.z -= (y[0].z + y[1].z) + (y[2].z + y[3].z);
+        x.w -= (y[0].w + y[1].w) + (y[2].w + y[3].w);
+        S4[i * ld4 + q] = x;
+        ss = fmaf(x.x, x.x, ss);
+        ss = fmaf(x.y, x.y, ss);
+        ss = fmaf(x.z, x.z, ss);
+        ss = fmaf(x.w, x.w, ss);
+        if (!last) {
+          const float4 a = S4[(i + 1) * ld4 + q];
+          dp = fmaf(x.x, a.x, dp);
+          dp = fmaf(x.y, a.y, dp);
+          dp = fmaf(x.z, a.z, dp);
+          dp = fmaf(x.w, a.w, dp);
+        }
+      }
+      // 3. the two sums over the main warps, in warp order
+      ss = warp_sum(ss);
+      dp = warp_sum(dp);
+      if (lane == 0) {
+        red[warp] = ss;
+        red[gs::kMainWarps + warp] = dp;
+      }
+      bar_main();
+      if (tid < 2 && (tid == 0 || !last)) {
+        const float* rw = red + tid * gs::kMainWarps;
+        float sum = rw[0];
+#pragma unroll
+        for (int w = 1; w < gs::kMainWarps; ++w) sum += rw[w];
+        staged[tid == 0 ? r : i] = sum;
+      }
+    } else if (i + 1 < r) {
+      // look: a_{i+1} . v_k, k < i
+      const int lw = warp - gs::kMainWarps;
+      constexpr int nl = gs::kLookWarps;
+      for (int kb = lw; kb < i; kb += nl * gs::kGroup) {
+        float acc[gs::kGroup];
+        dots(acc, S4, S4 + (i + 1) * ld4, ld4, kb, nl,
+             min(gs::kGroup, (i - 1 - kb) / nl + 1), q4, lane);
+        const float s = warp_sum8(acc, lane);
+        const int k = kb + ((lane >> 2) & 7) * nl;
+        if (k < i && (lane & 3) == 0) staged[k] = s;
+      }
+    } else if (i == r) {
+      break;
+    }
+    __syncthreads();
+    // send the staged partials: k <= i, then ||v_i||^2 at r
+    const int nv = i + 1 < r ? i + 2 : 1;
+    const uint32_t xdst = smem_u32(X + (nb * C + rank) * xs);
+    const uint32_t bdst = smem_u32(&bars[nb]);
+    for (int t = tid; t < nv << lc; t += T) {
+      const int j = t >> lc, c = t & (C - 1);
+      const int k = j == nv - 1 ? r : j;
+      st_async(mapa(xdst + 4 * k, c), staged[k], mapa(bdst, c));
+    }
+  }
+  // the slab back out, each column divided by its denominator
+  __syncthreads();
+  for (int t = warp; t < q4 * kt; t += nwarps) {
+    const int row = t / kt * 4 + (lane & 3), k = t % kt * 8 + (lane >> 2);
+    if (k < r && row < nrows) O[(size_t)row * r + k] = S[k * ld + row] / dn[k];
+  }
+  cluster_sync();   // no block leaves while a store to it may be in flight
 }
+
+// Cluster size and dynamic shared memory above the portable limits, set
+// once per instance and device.
+template <bool SHARED>
+cudaError_t gs_prepare() {
+  static unsigned long long done = 0;   // one bit per device
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done & bit) return cudaSuccess;
+  rc = cudaFuncSetAttribute(gram_schmidt_kernel<SHARED>,
+                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(gram_schmidt_kernel<SHARED>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kSmemLimit);
+  if (rc == cudaSuccess) done |= bit;
+  return rc;
+}
+
+// One launch configuration: `blocks` blocks in clusters of `cluster`.
+struct GSConfig {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  GSConfig(int blocks, int cluster, size_t smem, cudaStream_t stream) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(blocks, 1, 1);
+    cfg.blockDim = dim3(gs::kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+bool gs_valid_cluster(int cluster) {
+  return cluster >= 1 && cluster <= gs::kMaxCluster && (cluster & (cluster - 1)) == 0;
+}
+
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -602,16 +912,54 @@ int repro_decompress_residual(const void* p, const void* q, const void* g,
   return (int)cudaGetLastError();
 }
 
-// Orthonormalize each (m, r) slice of p (E, m, r) fp32 into out; work is
-// (E, r, m) fp32 scratch.
+// Orthonormalize each (m, r) slice of p (E, m, r) fp32 into out, one
+// cluster of `cluster` blocks of 256 threads per slice, `rows` =
+// ceil(m / cluster) rows per block, as kernels/lowrank.py's gs_plan
+// decides. shared != 0: each block's slab in shared memory; else in work,
+// (E cluster, r, ld) fp32 scratch, ld = gs::ld_of(rows) (unused on the
+// shared path).
 int repro_gram_schmidt(const void* p, void* out, void* work, int num_e, int m,
-                       int r, float eps, void* stream) {
-  const int threads = 512;
-  const size_t smem = (size_t)(r + threads / 32) * sizeof(float);
-  gram_schmidt_kernel<<<num_e, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<float*>(out),
-      static_cast<float*>(work), m, r, eps);
-  return (int)cudaGetLastError();
+                       int r, int cluster, int rows, int shared, float eps,
+                       void* stream) {
+  if (num_e < 1 || m < 1 || r < 1 || !gs_valid_cluster(cluster) ||
+      rows != (m + cluster - 1) / cluster ||
+      (long long)num_e * cluster > 0x7fffffffLL || (long long)m * r > 0x7fffffffLL ||
+      (!shared && work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = gs::smem_bytes(shared != 0, rows, r, cluster);
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  const float* pt = static_cast<const float*>(p);
+  float* ot = static_cast<float*>(out);
+  float* wt = static_cast<float*>(work);
+  GSConfig c(num_e * cluster, cluster, smem, static_cast<cudaStream_t>(stream));
+  cudaError_t rc = shared ? gs_prepare<true>() : gs_prepare<false>();
+  if (rc == cudaSuccess)
+    rc = shared ? cudaLaunchKernelEx(&c.cfg, gram_schmidt_kernel<true>, pt, ot, wt, m, r, rows, eps)
+                : cudaLaunchKernelEx(&c.cfg, gram_schmidt_kernel<false>, pt, ot, wt, m, r, rows, eps);
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch's error
+  return (int)(rc != cudaSuccess ? rc : last);
+}
+
+// out[0]: clusters of `cluster` blocks that can be resident at once
+// (cudaOccupancyMaxActiveClusters) for that launch of gram_schmidt_kernel;
+// out[1]: its dynamic shared memory in bytes; out[2]: the slab's column
+// stride (gs::ld_of). out is int[3].
+int repro_gs_occupancy(int shared, int cluster, int rows, int r, void* out) {
+  int* o = static_cast<int*>(out);
+  o[0] = 0;
+  o[1] = 0;
+  o[2] = gs::ld_of(rows);
+  if (rows < 1 || r < 1 || !gs_valid_cluster(cluster))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = gs::smem_bytes(shared != 0, rows, r, cluster);
+  o[1] = (int)(smem < 0x7fffffff ? smem : 0x7fffffff);
+  if (smem > (size_t)kSmemLimit) return (int)cudaSuccess;   // never resident
+  GSConfig c(cluster, cluster, smem, nullptr);
+  cudaError_t rc = shared ? gs_prepare<true>() : gs_prepare<false>();
+  if (rc == cudaSuccess)
+    rc = shared ? cudaOccupancyMaxActiveClusters(&o[0], gram_schmidt_kernel<true>, &c.cfg)
+                : cudaOccupancyMaxActiveClusters(&o[0], gram_schmidt_kernel<false>, &c.cfg);
+  return (int)rc;
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// What the Hopper (sm_90a) flash kernels share: flash_fwd_sm90.cu (the
-// bf16 forward) and flash_bwd_sm90.cu (the bf16 dQ and dK/dV) include it.
+// What the Hopper (sm_90a) kernels share: flash_fwd_sm90.cu (the bf16
+// forward) and flash_bwd_sm90.cu (the bf16 dQ and dK/dV) include it, and
+// lowrank.cu for the mbarriers of its Gram-Schmidt cluster exchange.
 //
 // * Chunking<D>: a bf16 tile of D columns sits in shared memory as column
 //   chunks of one swizzle span each (128 bytes, 64 columns, for D 64 and

@@ -33,13 +33,22 @@ Design notes, per kernel (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 FMA):
   Each block computes one (64 x 64) tile of ghat = P Q^T (inner dimension
   r, staged 32 at a time), reads G and E once and writes ghat and E' once
   in G's dtype: bound by bytes.
-* ``gram_schmidt_panel`` replaces ``:288 gram_schmidt_panel_batched``:
-  classical Gram-Schmidt, eps 1e-8, as ``_gs3_kernel`` computes it. The TPU
-  kept the whole panel (up to 4 MiB) in VMEM; that does not fit a Hopper
-  block's 227 KB of shared memory, so one block per slice works on a
-  column-major copy of the panel in device memory (L2-resident), with
-  block reductions for the dot products. It is bound by its serial column
-  loop; at E <= 32 it fills at most 32 of the 132 SMs.
+* ``gram_schmidt_panel`` replaces ``:288 gram_schmidt_panel_batched`` (and
+  ``:155``): classical Gram-Schmidt, eps 1e-8, as ``_gs3_kernel`` computes
+  it. What bounds it is not bytes (the panel crosses device memory once
+  each way) but its column chain: r columns, each needing sums over all m
+  rows, so its time is r times one step's latency. The TPU kept the whole
+  panel (up to 4 MiB) in VMEM. The first Hopper kernel ran one block per
+  panel on a copy in L2, re-reading it for every column on at most 32 of
+  the 132 SMs. Now each panel is one thread-block cluster of C <= 16
+  blocks (``gs_plan``), the panel split by rows over the blocks' shared
+  memory, and each column costs one exchange: every block stores its
+  partial sums into every block's shared memory (``st.async`` counted on
+  the receiver's mbarrier, no cluster barrier), and each sums them in
+  block order. The columns are normalized at the end (the coefficients
+  carry 1 / d^2), and four warps compute the next column's older dot
+  products while four wait, sum and update. Panels that do not fit at C =
+  16 run the same kernel on a device-memory slab.
 
 All four accumulate in fp32 FMA (no TF32) and use no atomics.
 """
@@ -59,7 +68,8 @@ from .launch import ptr as _ptr
 __all__ = ["ef_lowrank_p", "ef_lowrank_q", "decompress_residual",
            "gram_schmidt_panel", "KERNELS", "plain_gram_schmidt",
            "FactorPlan", "factor_plan", "factor_k_tile", "factor_smem",
-           "resident_blocks", "parse_factor_ptxas"]
+           "resident_blocks", "parse_factor_ptxas", "GSPlan", "gs_plan",
+           "gs_smem", "gs_ld", "parse_gs_ptxas"]
 
 F32 = torch.float32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,10 +84,12 @@ def _lib() -> ctypes.CDLL:
         lib.repro_lowrank_p.argtypes = factor
         lib.repro_lowrank_q.argtypes = factor
         lib.repro_decompress_residual.argtypes = [_P] * 6 + [_I] * 5 + [_P]
-        lib.repro_gram_schmidt.argtypes = [_P, _P, _P, _I, _I, _I,
-                                           ctypes.c_float, _P]
+        lib.repro_gram_schmidt.argtypes = [_P, _P, _P] + [_I] * 6 + [
+            ctypes.c_float, _P]
+        lib.repro_gs_occupancy.argtypes = [_I] * 4 + [_P]
         for fn in (lib.repro_lowrank_p, lib.repro_lowrank_q,
-                   lib.repro_decompress_residual, lib.repro_gram_schmidt):
+                   lib.repro_decompress_residual, lib.repro_gram_schmidt,
+                   lib.repro_gs_occupancy):
             fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [_I]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -149,8 +161,34 @@ def resident_blocks(regs: int, smem: int, threads: int = FACTOR_THREADS) -> int:
                2048 // threads, 32)
 
 
-_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S*ef_factor_kernel"
-                          r"I(f|13__nv_bfloat16)Lb([01])ELb([01])E\S*)'")
+def _parse_ptxas(log: str, entry: re.Pattern, key) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel
+    instance whose mangled name ``entry`` matches in a ``ptxas -v`` log,
+    keyed by ``key(match)``."""
+    out, k = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            hit = entry.search(line)
+            k = None if hit is None else key(hit)
+            if k is not None:
+                out[k] = {"registers": None, "spill_stores": None,
+                          "spill_loads": None, "smem": 0}
+        elif k is not None and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            out[k].update({f"spill_{kind}": int(b) for b, kind in nums})
+        elif k is not None and "Used" in line and "registers" in line:
+            out[k]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[k]["smem"] = int(smem.group(1)) if smem else 0
+            k = None
+    return out
+
+
+_FACTOR_ENTRY = re.compile(r"Compiling entry function '(\S*ef_factor_kernel"
+                           r"I(f|13__nv_bfloat16)Lb([01])ELb([01])E\S*)'")
+_GS_ENTRY = re.compile(r"Compiling entry function "
+                       r"'(\S*gram_schmidt_kernelILb([01])E\S*)'")
 
 
 def parse_factor_ptxas(log: str) -> dict:
@@ -158,26 +196,16 @@ def parse_factor_ptxas(log: str) -> dict:
     ``ef_factor_kernel`` instance in a ``ptxas -v`` log, keyed like
     ``FACTOR_REGS``: ``{(dtype, trans, vector): {"registers": ...,
     "spill_stores": ..., "spill_loads": ..., "smem": ...}}``."""
-    out, key = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            hit = _PTXAS_ENTRY.search(line)
-            key = None if hit is None else (
-                "float32" if hit.group(2) == "f" else "bfloat16",
-                hit.group(3) == "1", hit.group(4) == "1")
-            if key is not None:
-                out[key] = {"registers": None, "spill_stores": None,
-                            "spill_loads": None, "smem": 0}
-        elif key is not None and "spill stores" in line:
-            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
-            out[key].update({f"spill_{kind}": int(b) for b, kind in nums})
-        elif key is not None and "Used" in line and "registers" in line:
-            out[key]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                  line).group(1))
-            smem = re.search(r"(\d+) bytes smem", line)
-            out[key]["smem"] = int(smem.group(1)) if smem else 0
-            key = None
-    return out
+    return _parse_ptxas(log, _FACTOR_ENTRY, lambda hit: (
+        "float32" if hit.group(2) == "f" else "bfloat16",
+        hit.group(3) == "1", hit.group(4) == "1"))
+
+
+def parse_gs_ptxas(log: str) -> dict:
+    """The same for the two ``gram_schmidt_kernel`` instances, keyed by
+    their path: ``{"shared": {...}, "device": {...}}``."""
+    return _parse_ptxas(log, _GS_ENTRY, lambda hit: (
+        "shared" if hit.group(2) == "1" else "device"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,21 +349,189 @@ def plain_gram_schmidt(p, eps: float = 1e-8):
     return p
 
 
+# gram_schmidt_kernel's shape (csrc/lowrank.cu, namespace gs)
+GS_CLUSTERS = (1, 2, 4, 8, 16)     # blocks per panel; above 8 non-portable
+GS_THREADS = 256                   # a block: 8 warps share a step's dot products
+GS_SMEM_MAX = 232_448              # the most shared memory a Hopper block has
+#: the register caps of ``__launch_bounds__(256, 3)`` (shared slabs) and
+#: ``(256, 2)`` (device-memory slabs): used only to reckon resident blocks
+#: where the card's count is not asked
+GS_REGS = {"shared": 80, "device": 128}
+
+
+def gs_ld(rows: int) -> int:
+    """Column stride of a block's slab, as ``gs::ld_of``: ``rows`` rounded
+    up to 4 mod 8, so each column is whole 16-byte chunks and the
+    transposing load and store (4 rows x 8 columns a warp) hit 32 banks."""
+    return (rows + 3) // 8 * 8 + 4
+
+
+def gs_smem(shared: bool, rows: int, r: int, cluster: int) -> int:
+    """Dynamic shared memory of one block, bytes, as ``gs::smem_bytes``
+    computes it: two mbarriers (16 B); on the shared path the slab, ``r``
+    columns of ``gs_ld(rows)`` floats; X[2][C][r + 1], every block's
+    partial sums for a step (r coefficients and ||v||^2), two steps' worth;
+    coef[r]; the columns' denominators dn[r]; pre[2][r + 1], this block's
+    partials staged before they are sent; red[2][4], the main warps' shares
+    of two sums."""
+    slab = r * gs_ld(rows) if shared else 0
+    return 16 + 4 * (slab + 2 * (cluster + 1) * (r + 1) + 2 * r + 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class GSPlan:
+    """One ``gram_schmidt_kernel`` launch: ``blocks`` = E x ``cluster``
+    blocks of ``GS_THREADS``, block c of a cluster owning rows [c rows,
+    min((c + 1) rows, m)) of its panel."""
+    cluster: int
+    rows: int
+    path: str          # "shared": the slab in shared memory; "device": in L2
+    ld: int            # the slab's column stride, floats
+    smem: int          # dynamic shared memory per block, bytes
+    slab_bytes: int    # rows x r x 4: the block's share of the panel
+    blocks: int
+    active: int        # clusters resident at once
+    waves: int
+
+
+def gs_plan(num_e: int, m: int, r: int, sm_count: int, *, active=None,
+            cluster: int | None = None, path: str | None = None) -> GSPlan:
+    """The launch of ``gram_schmidt_kernel`` for an (E, m, r) stack, a pure
+    function.
+
+    The least cluster size C is the smallest at which a block's slab (and
+    its buffers) fits the 232,448 B of shared memory a block may use; the
+    plan may take any larger one up to 16 with 2C <= m (every block keeps
+    rows). It takes the one with the fewest waves of resident clusters,
+    then the fewest blocks per SM (ceil(E C / SMs): blocks on one SM share
+    its issue slots and shared-memory bandwidth), then on the shared path
+    the one nearest 8 (beyond 8 a step's exchange grows faster than its
+    row work shrinks; ``chip_smoke.py`` (b) times every size), then the
+    largest (the device path's row work, read from L2, dominates).
+    ``active(cluster, path, rows)`` gives the clusters resident at
+    once (on the card, ``cudaOccupancyMaxActiveClusters``); without it they
+    are reckoned from shared memory and ``GS_REGS``, as if the SMs fell
+    into clusters without waste. A panel that does not fit at C = 16 takes
+    the device-memory path by the same rules (C from 1). ``cluster`` forces
+    a size (timing sweeps): the shared path if the slab fits there, else
+    the device one; ``path`` forces the path too. Raises on what the kernel
+    does not take.
+    """
+    if min(num_e, m, r) < 1:
+        raise ValueError(f"(E, m, r) = {(num_e, m, r)}: each must be >= 1")
+    if m * r > _MAX_INT:
+        raise ValueError(f"an ({m}, {r}) panel has over 2**31 - 1 elements")
+    if cluster is not None and cluster not in GS_CLUSTERS:
+        raise ValueError(f"cluster {cluster}: want one of {GS_CLUSTERS}")
+    if path not in (None, "shared", "device") or (path and cluster is None):
+        raise ValueError(f"path {path!r}: want 'shared' or 'device', with a cluster")
+
+    def shape(c: int, shared: bool):
+        rows = -(-m // c)
+        return rows, gs_smem(shared, rows, r, c)
+
+    fits = lambda c: shape(c, True)[1] <= GS_SMEM_MAX
+    if cluster is not None:
+        shared, sizes = fits(cluster) if path is None else path == "shared", [cluster]
+        if shared and not fits(cluster):
+            raise ValueError(f"an ({m}, {r}) panel's slab does not fit shared "
+                             f"memory at cluster {cluster}")
+    else:
+        least = next((c for c in GS_CLUSTERS if fits(c)), None)
+        shared = least is not None
+        least = least or 1
+        sizes = [c for c in GS_CLUSTERS if c == least or (c > least and 2 * c <= m)]
+    if shape(sizes[0], False)[1] > GS_SMEM_MAX:
+        raise ValueError(f"r = {r}: the kernel's buffers exceed shared memory")
+    if num_e * sizes[0] > _MAX_INT:
+        raise ValueError(f"E = {num_e}: the grid holds at most {_MAX_INT} "
+                         f"blocks, E x {sizes[0]} asked")
+    path = "shared" if shared else "device"
+    best, best_key = None, None
+    for c in sizes:
+        rows, smem = shape(c, shared)
+        act = (active(c, path, rows) if active is not None else
+               sm_count * resident_blocks(GS_REGS[path], smem, GS_THREADS) // c)
+        if act < 1:
+            continue
+        waves = -(-num_e // act)
+        near8 = abs(c.bit_length() - 4) if shared else 0
+        key = (waves, -(-num_e * c // sm_count), near8, -c)
+        if best is None or key < best_key:
+            best_key = key
+            best = GSPlan(cluster=c, rows=rows, path=path, ld=gs_ld(rows),
+                          smem=smem, slab_bytes=4 * rows * r,
+                          blocks=num_e * c, active=act, waves=waves)
+    if best is None:
+        raise RuntimeError(f"no cluster of {sizes} blocks with {path} slabs "
+                           f"can be resident for an ({m}, {r}) panel")
+    return best
+
+
+_GS_OCCUPANCY: dict = {}
+
+
+def _gs_active(device: torch.device, cluster: int, path: str, rows: int,
+               r: int) -> int:
+    """Clusters of that launch resident at once on ``device``, from
+    ``repro_gs_occupancy`` (cached); raises where the C side's shared
+    memory or column stride differs from ``gs_smem`` or ``gs_ld``."""
+    key = (str(device), cluster, path, rows, r)
+    if key not in _GS_OCCUPANCY:
+        out = (ctypes.c_int * 3)()
+        shared = path == "shared"
+        with torch.cuda.device(device):
+            rc = _lib().repro_gs_occupancy(int(shared), cluster, rows, r,
+                                           ctypes.cast(out, _P))
+        if rc != 0:
+            msg = _lib().repro_cuda_error_string(rc).decode()
+            raise RuntimeError(f"repro_gs_occupancy failed: {msg} ({rc})")
+        want = gs_smem(shared, rows, r, cluster), gs_ld(rows)
+        if tuple(out[1:]) != want:
+            raise RuntimeError(f"gram_schmidt_kernel takes {tuple(out[1:])} "
+                               f"(shared memory, column stride), the plan {want}")
+        _GS_OCCUPANCY[key] = out[0]
+    return _GS_OCCUPANCY[key]
+
+
+def _gs_plan_for(p: torch.Tensor, cluster: int | None = None,
+                 path: str | None = None) -> GSPlan:
+    """``gs_plan`` for a CUDA stack, with the card's SM count and resident
+    clusters."""
+    num_e, m, r = p.shape
+    return gs_plan(
+        num_e, m, r,
+        torch.cuda.get_device_properties(p.device).multi_processor_count,
+        active=lambda c, where, rows: _gs_active(p.device, c, where, rows, r),
+        cluster=cluster, path=path)
+
+
+def _launch_gs(p, eps: float = 1e-8, cluster: int | None = None,
+               path: str | None = None):
+    """Launch ``gram_schmidt_kernel`` on a CUDA stack as ``gs_plan``
+    decides; counts the launch. ``cluster`` and ``path`` force the plan's
+    size and path (timing sweeps)."""
+    if p.ndim != 3:
+        raise ValueError(f"want an (E, m, r) stack, got {tuple(p.shape)}")
+    p = p.to(F32).contiguous()
+    out = torch.empty_like(p)
+    if p.numel() == 0:
+        return out
+    num_e, m, r = p.shape
+    plan = _gs_plan_for(p, cluster, path)
+    work = (torch.empty((num_e * plan.cluster, r, plan.ld), dtype=F32,
+                        device=p.device) if plan.path == "device" else None)
+    _launch(gram_schmidt_panel, "repro_gram_schmidt", p.device, _ptr(p),
+            _ptr(out), _P(None) if work is None else _ptr(work), num_e, m, r,
+            plan.cluster, plan.rows, int(plan.path == "shared"), eps)
+    return out
+
+
 def gram_schmidt_panel(p, eps: float = 1e-8):
     """Orthonormal columns for each slice of an (E, m, r) stack, fp32."""
     if _on_cpu(p):
         return plain_gram_schmidt(p, eps)
-    if p.ndim != 3:
-        raise ValueError(f"want an (E, m, r) stack, got {tuple(p.shape)}")
-    p = p.to(F32).contiguous()
-    num_e, m, r = p.shape
-    out = torch.empty_like(p)
-    if p.numel() == 0:
-        return out
-    work = torch.empty((num_e, r, m), dtype=F32, device=p.device)
-    _launch(gram_schmidt_panel, "repro_gram_schmidt", p.device, _ptr(p),
-            _ptr(out), _ptr(work), num_e, m, r, eps)
-    return out
+    return _launch_gs(p, eps)
 
 
 #: The kernels of this module: launch counters live on these wrappers.

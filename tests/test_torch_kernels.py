@@ -168,6 +168,17 @@ class _FakeEntryPoint:
         return self.rc
 
 
+def _fake_gs_occupancy(shared, cluster, rows, r, out):
+    """A card of 132 SMs on which one block fits per SM: 132 // cluster
+    clusters resident; the shared memory and column stride ``gs_smem``
+    and ``gs_ld`` state."""
+    res = ctypes.cast(out, ctypes.POINTER(ctypes.c_int))
+    res[0] = 132 // cluster
+    res[1] = lr.gs_smem(bool(shared), rows, r, cluster)
+    res[2] = lr.gs_ld(rows)
+    return 0
+
+
 class _FakeLib:
     def __init__(self, card):
         self._card = card
@@ -178,6 +189,8 @@ class _FakeLib:
         fn = _FakeEntryPoint(name, self._card.calls, self._card.rc)
         if name == "repro_cuda_error_string":
             fn = lambda code: b"fake error"
+        if name == "repro_gs_occupancy":
+            fn = _fake_gs_occupancy
         setattr(self, name, fn)
         return fn
 
@@ -231,7 +244,11 @@ def test_launches_match_the_declared_c_signatures(fake_card):
     assert q_args[5:11] == (1, 64, 7680, 8, 1, 1)  # bf16; m too short to split
     assert q_args[4].value == q_args[3].value
     assert d_args[6:11] == (1, 64, 7680, 8, 0)
-    assert gs_args[3:7] == (1, 64, 8, 1e-8)
+    # (E, m, r, cluster, rows per block, shared slab, eps): a 64 x 8 panel
+    # spread over 8 blocks of 8 rows, its slab in shared memory, no
+    # device-memory scratch
+    assert gs_args[3:10] == (1, 64, 8, 8, 8, 1, 1e-8)
+    assert gs_args[0].value == p.data_ptr() and gs_args[2].value is None
     assert all(args[-1].value == 1234 for _, args in fake_card.calls)
 
 
@@ -286,6 +303,30 @@ def test_factor_launch_passes_the_plans_splits(fake_card):
                                         + (f.data_ptr(),)).splits)
     assert [args[9] for _, args in fake_card.calls] == calls == [1, 1, 2, 1,
                                                                  1, 2]
+
+
+@pytest.mark.parametrize("shape", [(32, 1920, 64), (8, 1920, 64),
+                                   (8, 7680, 64), (3, 1001, 24),
+                                   (1, 7680, 128), (1, 16384, 64)])
+def test_gs_launch_passes_the_plan(fake_card, shape):
+    """The wrapper hands ``repro_gram_schmidt`` what ``gs_plan`` decides
+    (cluster, rows per block, path), and a device-memory slab, (E C, r,
+    ld), only on the device path; the 2-D form goes through the same
+    plan."""
+    e, m, r = shape
+    p = torch.zeros(shape)
+    before = lr.gram_schmidt_panel.launches
+    lr.gram_schmidt_panel(p)
+    plan = lr.gs_plan(e, m, r, 132, active=lambda c, path, rows: 132 // c)
+    (name, args), = fake_card.calls
+    assert name == "repro_gram_schmidt"
+    assert args[3:9] == (e, m, r, plan.cluster, plan.rows,
+                         int(plan.path == "shared"))
+    assert (args[2].value is None) == (plan.path == "shared")
+    assert lr.gram_schmidt_panel.launches == before + 1
+    if e == 1 and not ops._use_qr(m, r):
+        ops.orthonormalize(p[0])
+        assert fake_card.calls[1][1][3:9] == args[3:9]
 
 
 def _bwd_by_kernel(before=None) -> dict:

@@ -99,14 +99,76 @@ def test_cuda_factor_kernels_bit_equal_across_calls(cuda_device, dtype):
             assert torch.equal(fn(g, err, f), fn(g, err, f))
 
 
+# gram_schmidt_kernel's plans (lowrank.gs_plan): the main path's three
+# panels (shared-memory slabs), m not a multiple of the rows per block
+# (1001, 1000), r = 1, a cluster with an empty block (m = 17), and the
+# device-memory path: r = 128 at m = 7680 and the 4 MiB panel the GS
+# routing admits.
+GS_SHAPES = [(1, 64, 4), (8, 7680, 64), (3, 1000, 24), (32, 1920, 64),
+             (8, 1920, 64), (3, 1001, 24), (2, 1920, 1), (2, 17, 3),
+             (1, 7680, 128), (1, 16384, 64)]
+GS_TOL = 1e-4    # relative to the plain version: sums in another order
+
+
+def _gs_close(got, want):
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= GS_TOL, err
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("e,m,r", [(1, 64, 4), (8, 7680, 64), (3, 1000, 24)])
+@pytest.mark.parametrize("e,m,r", GS_SHAPES)
 def test_cuda_gram_schmidt_matches_plain(cuda_device, e, m, r):
     p = torch.from_numpy(_np((e, m, r), 18)).to(cuda_device)
-    got = lr.gram_schmidt_panel(p).cpu().numpy()
-    want = lr.plain_gram_schmidt(p).cpu().numpy()
+    got = lr.gram_schmidt_panel(p)
+    want = lr.plain_gram_schmidt(p)
+    _gs_close(got, want)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
     for i in range(e):
         _assert_orthonormal_span(got[i], want[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,r", [(8, 1920, 64), (3, 1001, 24),
+                                   (1, 16384, 64), (1, 7680, 128)])
+def test_cuda_gram_schmidt_bit_equal_across_calls(cuda_device, e, m, r):
+    """Both paths (shared-memory and device-memory slabs): the cluster's
+    partial sums are taken in block order, so every call gives the same
+    bits."""
+    p = torch.from_numpy(_np((e, m, r), 34)).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    path = lr.gs_plan(e, m, r, sms).path
+    assert path == ("device" if m * r >= 7680 * 128 else "shared")
+    assert torch.equal(lr.gram_schmidt_panel(p), lr.gram_schmidt_panel(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,r,zero", [(4, 1920, 16, 5), (2, 1001, 24, 0),
+                                        (1, 7680, 128, 77)])
+def test_cuda_gram_schmidt_zero_column(cuda_device, e, m, r, zero):
+    """A zero column stays zero (v / (0 + eps)) and the later columns are
+    orthonormalized past it: held to the plain version directly, since the
+    columns are not orthonormal."""
+    p = torch.from_numpy(_np((e, m, r), 35)).to(cuda_device)
+    p[..., zero] = 0
+    got = lr.gram_schmidt_panel(p)
+    assert torch.count_nonzero(got[..., zero]) == 0
+    _gs_close(got, lr.plain_gram_schmidt(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("path", [None, "device"])
+def test_cuda_gram_schmidt_every_cluster_size(cuda_device, cluster, path):
+    """Each cluster size the plan may take, forced, on the plan's path and
+    on the device-memory one: at (2, 1920, 64) one or two blocks a panel
+    need the device-memory slab, four or more fit shared memory."""
+    p = torch.from_numpy(_np((2, 1920, 64), 36)).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = lr.gs_plan(2, 1920, 64, sms, cluster=cluster, path=path)
+    assert plan.path == (path or ("device" if cluster < 4 else "shared"))
+    got = lr._launch_gs(p, cluster=cluster, path=path)
+    _gs_close(got, lr.plain_gram_schmidt(p))
+    assert torch.equal(got, lr._launch_gs(p, cluster=cluster, path=path))
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
-"""The host plan of ``ef_factor_kernel`` (``kernels/lowrank.py``:
-``factor_plan``, ``resident_blocks``, ``parse_factor_ptxas``), a pure
-function of shapes, dtype, addresses and the SM count, checked without a
-card. ``csrc/lowrank.cu``'s ``launch_factor`` derives the k-chunk and the
-load paths by the same rules; the card tests run every path."""
+"""The host plans of ``ef_factor_kernel`` (``kernels/lowrank.py``:
+``factor_plan``, ``resident_blocks``, ``parse_factor_ptxas``) and of
+``gram_schmidt_kernel`` (``gs_plan``, ``gs_smem``, ``parse_gs_ptxas``),
+pure functions of shapes, dtype, addresses and the SM count, checked
+without a card. ``csrc/lowrank.cu``'s ``launch_factor`` derives the k-chunk
+and the load paths by the same rules, and ``gs::smem_bytes`` the shared
+memory; the card tests run every path."""
 import itertools
 
 import pytest
@@ -191,3 +193,234 @@ def test_parse_factor_ptxas_reads_each_instance():
                                     "spill_loads": 16, "smem": 25088}}
     assert set(lr.FACTOR_REGS) == set(itertools.product(
         ("float32", "bfloat16"), (False, True), (False, True)))
+
+
+# --------------------------------------------------------- gram_schmidt plan
+# The main path's panels (E, m, r) at the smallest cluster whose slab fits
+# 232,448 B: C = 2 at m = 1920 and C = 8 at m = 7680 would need 964 x 64 x
+# 4 = 246,784 B. Without the card's count of resident clusters the plan
+# reckons one block per SM at these slabs (123,904 B) and three at 61,440
+# B: (cluster, rows per block, slab bytes, blocks).
+GS_MAIN = {(32, 1920, 64): (4, 480, 122_880, 128),
+           (8, 1920, 64): (8, 240, 61_440, 64),
+           (8, 7680, 64): (16, 480, 122_880, 128)}
+# ... and with the resident clusters read on an H100 (80GB HBM3, 700 W;
+# cudaOccupancyMaxActiveClusters): 30 clusters of 4 at 127,064 B (two
+# waves of 32 panels), 45 of 8 at 67,704 B, 21 of 16 at 41,144 B, 7 of 16
+# at 133,304 B (the (8, 7680, 64) group takes two waves)
+GS_CARD = {4: 30, 8: 45, 16: 21}
+GS_MAIN_CARD = {(32, 1920, 64): (8, 1), (8, 1920, 64): (8, 1),
+                (8, 7680, 64): (16, 2)}
+
+
+def _card_active(m):
+    return lambda c, path, rows: 7 if m == 7680 and c == 16 else GS_CARD[c]
+
+
+@pytest.mark.parametrize("group", sorted(GS_MAIN))
+def test_gs_plan_at_the_main_groups(group):
+    e, m, r = group
+    plan = lr.gs_plan(*group, SMS)
+    assert (plan.cluster, plan.rows, plan.slab_bytes, plan.blocks) == GS_MAIN[group]
+    assert plan.path == "shared" and plan.waves == 1
+    # two mbarriers, the slab at its column stride, X[2][C][r + 1], coef[r],
+    # dn[r], pre[2][r + 1], red[2][4]
+    assert plan.ld == lr.gs_ld(plan.rows) and plan.ld % 8 == 4
+    assert plan.smem == 16 + 4 * (plan.ld * r + 2 * (plan.cluster + 1) * (r + 1)
+                                  + 2 * r + 8)
+    assert plan.smem <= lr.GS_SMEM_MAX
+    fit = lambda c: lr.gs_smem(True, -(-m // c), r, c) <= lr.GS_SMEM_MAX
+    least = 4 if m == 1920 else 16
+    assert fit(least) and not fit(least // 2)
+
+
+@pytest.mark.parametrize("group", sorted(GS_MAIN_CARD))
+def test_gs_plan_at_the_main_groups_with_the_cards_residency(group):
+    e, m, r = group
+    plan = lr.gs_plan(*group, SMS, active=_card_active(m))
+    assert (plan.cluster, plan.waves) == GS_MAIN_CARD[group]
+    assert plan.rows == -(-m // plan.cluster) and plan.path == "shared"
+
+
+def _block_rows(plan, m):
+    return [max(0, min(plan.rows, m - c * plan.rows)) for c in range(plan.cluster)]
+
+
+@pytest.mark.parametrize("shape", [(3, 1001, 24), (1, 1000, 24)])
+def test_gs_plan_ragged_m(shape):
+    """m is not a multiple of the rows per block: every block but the last
+    owns ``rows`` rows, the last the rest, and together they cover m once;
+    the last 16-byte chunk of a block is part pad."""
+    e, m, r = shape
+    plan = lr.gs_plan(*shape, SMS)
+    assert plan.cluster == 8 and plan.path == "shared"
+    rows = _block_rows(plan, m)
+    assert sum(rows) == m and rows[:-1] == [plan.rows] * 7
+    assert 0 < rows[-1] <= plan.rows and plan.blocks == 8 * e
+    assert any(n % 4 for n in rows) and plan.ld >= 4 * -(-plan.rows // 4)
+
+
+@pytest.mark.parametrize("shape", [(1, 1920, 1), (2, 1000, 1), (8, 7680, 1)])
+def test_gs_plan_rank_one(shape):
+    e, m, r = shape
+    plan = lr.gs_plan(*shape, SMS)
+    assert plan.path == "shared" and plan.cluster == 8
+    assert plan.smem == 16 + 4 * (plan.ld + 2 * 9 * 2 + 2 + 8)
+    assert sum(_block_rows(plan, m)) == m
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((1, 7680, 128), 480),     # 484 x 128 x 4 = 247,808 B at C = 16
+    ((1, 16384, 64), 1024),    # the 4 MiB routing limit: 263,168 B
+    ((1, 1 << 20, 1), 65536)])
+def test_gs_plan_device_path_for_panels_past_shared_memory(shape, rows):
+    e, m, r = shape
+    plan = lr.gs_plan(*shape, SMS)
+    assert plan.path == "device" and plan.cluster == 16 and plan.rows == rows
+    assert lr.gs_smem(True, rows, r, 16) > lr.GS_SMEM_MAX
+    assert plan.smem == lr.gs_smem(False, rows, r, 16) == 16 + 4 * (
+        2 * 17 * (r + 1) + 2 * r + 8)
+    assert plan.slab_bytes == 4 * rows * r
+
+
+def test_gs_plan_more_panels_than_sms_take_waves():
+    plan = lr.gs_plan(64, 1920, 64, SMS)
+    assert plan.cluster == 4 and plan.blocks == 256 > SMS
+    assert plan.active == SMS // 4 and plan.waves == 2
+    # with the card's count of resident clusters: 45 of 8 hold 64 panels
+    # in two waves, with fewer blocks per SM than 16
+    plan = lr.gs_plan(64, 1920, 64, SMS, active=_card_active(1920))
+    assert plan.cluster == 8 and plan.active == 45 and plan.waves == 2
+
+
+def test_gs_plan_takes_the_fewest_waves():
+    """Where the least cluster size leaves a second wave, a larger one that
+    keeps one wins; among one-wave sizes, the fewest blocks per SM, then the
+    one nearest 8."""
+    asked = []
+
+    def active(c, path, rows):
+        asked.append((c, path, rows))
+        return {4: 30, 8: 45, 16: 21}[c]
+    plan = lr.gs_plan(32, 1920, 64, SMS, active=active)
+    assert (plan.cluster, plan.rows, plan.waves, plan.active) == (8, 240, 1, 45)
+    assert asked == [(4, "shared", 480), (8, "shared", 240), (16, "shared", 120)]
+    # only C = 16 fits at m = 7680: two waves of 7
+    plan = lr.gs_plan(8, 7680, 64, SMS, active=lambda *a: 7)
+    assert (plan.cluster, plan.waves) == (16, 2)
+
+
+def test_gs_plan_refuses_a_cluster_that_is_never_resident():
+    with pytest.raises(RuntimeError, match="resident"):
+        lr.gs_plan(8, 7680, 64, SMS, active=lambda *a: 0)
+    # 4 and 16 are as near 8: the larger
+    plan = lr.gs_plan(8, 1920, 64, SMS, active=lambda c, *a: 0 if c == 8 else 9)
+    assert plan.cluster == 16 and plan.waves == 1
+
+
+@pytest.mark.parametrize("shape,cluster,path,rows", [
+    ((8, 7680, 64), 8, "device", 960), ((8, 7680, 64), 16, "shared", 480),
+    ((32, 1920, 64), 16, "shared", 120), ((32, 1920, 64), 1, "device", 1920),
+    ((1, 5, 3), 16, "shared", 1)])
+def test_gs_plan_forced_cluster(shape, cluster, path, rows):
+    plan = lr.gs_plan(*shape, SMS, cluster=cluster)
+    assert (plan.cluster, plan.path, plan.rows) == (cluster, path, rows)
+    assert plan.blocks == shape[0] * cluster
+
+
+@pytest.mark.parametrize("shape,cluster,path", [
+    ((8, 7680, 64), 16, "device"), ((8, 1920, 64), 8, "device"),
+    ((8, 1920, 64), 8, "shared"), ((1, 1000, 24), 1, "device")])
+def test_gs_plan_forced_path(shape, cluster, path):
+    plan = lr.gs_plan(*shape, SMS, cluster=cluster, path=path)
+    assert (plan.cluster, plan.path) == (cluster, path)
+    assert plan.smem == lr.gs_smem(path == "shared", plan.rows, shape[2], cluster)
+
+
+@pytest.mark.parametrize("shape,kwargs", [
+    ((8, 7680, 64), dict(cluster=8, path="shared")),   # 246,784 B of slab
+    ((8, 1920, 64), dict(path="device")),              # a path needs a size
+    ((8, 1920, 64), dict(cluster=8, path="global"))])
+def test_gs_plan_refuses_a_forced_path(shape, kwargs):
+    with pytest.raises(ValueError):
+        lr.gs_plan(*shape, SMS, **kwargs)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 17, 31, 32, 33, 100])
+def test_gs_plan_keeps_two_rows_a_block_while_growing(m):
+    plan = lr.gs_plan(1, m, 4, SMS)
+    assert plan.cluster == 1 or 2 * plan.cluster <= m
+    rows = _block_rows(plan, m)
+    assert sum(rows) == m and rows[0] == plan.rows == -(-m // plan.cluster)
+
+
+@pytest.mark.parametrize("num_e", [1, 2, 5, 8, 9, 33, 64, 200])
+@pytest.mark.parametrize("m", [8, 1000, 1920, 4096, 7680, 16384])
+@pytest.mark.parametrize("r", [1, 8, 24, 64, 128])
+def test_gs_plan_rules_hold(num_e, m, r):
+    plan = lr.gs_plan(num_e, m, r, SMS)
+    c = plan.cluster
+    assert c in lr.GS_CLUSTERS and plan.rows == -(-m // c)
+    assert plan.blocks == num_e * c and plan.ld == lr.gs_ld(plan.rows)
+    assert plan.ld % 8 == 4 and plan.ld >= plan.rows
+    assert plan.smem == lr.gs_smem(plan.path == "shared", plan.rows, r, c)
+    assert plan.smem <= lr.GS_SMEM_MAX
+    fits = [k for k in lr.GS_CLUSTERS
+            if lr.gs_smem(True, -(-m // k), r, k) <= lr.GS_SMEM_MAX]
+    assert (plan.path == "shared") == bool(fits)
+    least = fits[0] if fits else 1
+    assert c == least or (c > least and 2 * c <= m)
+    # no other size the plan may take has fewer waves of resident clusters
+    for k in lr.GS_CLUSTERS:
+        if k == least or (k > least and 2 * k <= m):
+            other = lr.gs_plan(num_e, m, r, SMS, cluster=k)
+            assert other.waves >= plan.waves
+
+
+@pytest.mark.parametrize("shape", [(0, 64, 8), (1, 0, 8), (1, 64, 0),
+                                   (-1, 64, 8), (2**30, 1920, 64),
+                                   (1, 2**26, 64), (1, 64, 40_000)])
+def test_gs_plan_refuses_a_shape(shape):
+    with pytest.raises(ValueError):
+        lr.gs_plan(*shape, SMS)
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 32])
+def test_gs_plan_refuses_a_cluster_size(cluster):
+    with pytest.raises(ValueError, match="cluster"):
+        lr.gs_plan(1, 64, 8, SMS, cluster=cluster)
+
+
+@pytest.mark.parametrize("rows,ld", [(1, 4), (4, 4), (5, 12), (8, 12),
+                                     (12, 12), (13, 20), (120, 124),
+                                     (240, 244), (480, 484), (1024, 1028)])
+def test_gs_ld_is_whole_chunks_at_4_mod_8(rows, ld):
+    """Whole 16-byte chunks of four rows per column, and an odd number of
+    them, so the 4-row x 8-column tiles of the transposing load and store
+    hit 32 banks: columns k = 0..7 start k ld mod 32 = 0, 4, ..., 28."""
+    assert lr.gs_ld(rows) == ld
+    assert sorted(k * ld % 32 for k in range(8)) == list(range(0, 32, 4))
+
+
+_GS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gram_schmidt_kernelILb1EEEvPKfPfS3_iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119gram_schmidt_kernelILb1EEEvPKfPfS3_iiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gram_schmidt_kernelILb0EEEvPKfPfS3_iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119gram_schmidt_kernelILb0EEEvPKfPfS3_iiif
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 38 registers, 412 bytes cmem[0]
+"""
+
+
+def test_parse_gs_ptxas_reads_each_instance():
+    got = lr.parse_gs_ptxas(_GS_LOG + _LOG)
+    assert got == {
+        "shared": {"registers": 40, "spill_stores": 0, "spill_loads": 0,
+                   "smem": 0},
+        "device": {"registers": 38, "spill_stores": 4, "spill_loads": 4,
+                   "smem": 0}}
+    # each reader sees only its own kernel's instances
+    assert set(lr.parse_factor_ptxas(_GS_LOG + _LOG)) == {
+        ("float32", False, True), ("bfloat16", True, False)}
