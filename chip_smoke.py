@@ -61,6 +61,19 @@ Phases, in order; any failure raises, so the exit code is not 0:
                ``ops.sampled_entropy_hist`` against the plain
                ``histogram_entropy``; the entropy probe on the card; the
                kernel timed against its bound
+  (i) faults   the fault channel and telemetry: four steps queued in one
+               ``run`` call at (c)'s widths with no recovery, with the
+               per-step loss read alone, and with the guard; then (c)'s
+               run for 9 steps with ``nan_grad@2,corrupt_payload@5``, the
+               guard and ``fallback_after=2`` into a JSONL registry (event
+               order, counters, finite weights, the fallback's bytes, the
+               JSONL ledgers against the trainer's, the report), guarded
+               and uncompressed step ms and peak memory beside (c)'s; a
+               depth-2 run rolled back through a torn checkpoint (``_6``
+               torn, restored from ``_3``), with seconds per save and
+               restore and bytes per checkpoint; and (e)'s small model
+               under ``nan_grad@1`` on the card against the CPU, raw (one
+               skip) and quant8 (none, as the reference)
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -86,8 +99,10 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -582,8 +597,10 @@ def check_pack(dev) -> list[dict]:
 
 
 # ------------------------------------------------------------------ trainers
-def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw"):
-    """A Trainer with the PowerSGD kernels on, AdamW at lr 1e-3."""
+def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw",
+             log_every=1, **tkw):
+    """A Trainer with the PowerSGD kernels on, AdamW at lr 1e-3; ``tkw``
+    goes to ``TrainerConfig`` (faults, recovery, metrics, checkpoints)."""
     from repro_torch.core import EDGCConfig, GDSConfig
     from repro_torch.core.dac import DACConfig
     from repro_torch.models.model import build_model
@@ -594,10 +611,10 @@ def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw"):
                       dac=DACConfig(window=window, adjust_limit=4),
                       num_stages=model_cfg.num_stages, use_kernels=True,
                       wire=wire)
-    tcfg = TrainerConfig(total_steps=steps, log_every=1, use_kernels=True,
-                         wire=wire,
+    tcfg = TrainerConfig(total_steps=steps, log_every=log_every,
+                         use_kernels=True, wire=wire,
                          adam=AdamConfig(lr=1e-3, warmup_steps=1,
-                                         total_steps=steps))
+                                         total_steps=steps), **tkw)
     return Trainer(build_model(model_cfg), edgc, tcfg, seed=0, device=dev)
 
 
@@ -1233,6 +1250,247 @@ def phase_histogram(report: dict, dev, sample: torch.Tensor) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- (i) faults
+def _reset_launches() -> tuple:
+    from repro_torch.kernels import lowrank as lr, pack
+    for k in lr.KERNELS + pack.KERNELS:
+        k.launches = 0
+    return lr.KERNELS + pack.KERNELS
+
+
+def _read_ms(cfg, dev, recovery) -> float:
+    """ms per step of four steps queued back to back in one ``run`` call
+    (one flush, at its end): what the recovery policy's per-step read of
+    the loss costs a loop that otherwise never waits for the device."""
+    from repro_torch.data.pipeline import SyntheticLM
+    tr = _trainer(cfg, "fixed", 64, 6, 50, dev, log_every=50,
+                  recovery=recovery)
+    batches = SyntheticLM(cfg.vocab_size, 1024, 8, seed=0).batches()
+    tr.run(batches, num_steps=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(batches, num_steps=4)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 4
+    del tr
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_faults(report: dict, dev) -> None:
+    """The fault channel and telemetry on the card: (i1) the guard, EF
+    reset and fallback at (c)'s widths with a JSONL registry and the
+    report; (i2) a rollback through a torn checkpoint; (i3) the small fp32
+    fault runs on the card against the CPU, raw and quant8."""
+    from repro_torch import tree
+    from repro_torch.configs.gpt2 import GPT2_2_5B, GPT2_FIDELITY
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import lowrank as lr, pack
+    from repro_torch.launch.report import build_report
+    from repro_torch.obs import (JsonlSink, MemorySink, MetricsRegistry,
+                                 read_jsonl)
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.faults import RecoveryConfig, parse_inject
+    out: dict = {}
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+
+    # (i0) the per-step read: no recovery / the read alone / read + guard
+    order = [("plain", None),
+             ("read", RecoveryConfig(guard_nonfinite=False, rollback=False)),
+             ("guard", RecoveryConfig(rollback=False)), ("plain", None)]
+    queued = [(name, _read_ms(cfg, dev, rc)) for name, rc in order]
+    out["queued_ms"] = queued
+    log(f"(i0) four steps queued in one run call, ms per step (depth 8, "
+        f"fixed r64, log_every 50): "
+        + ", ".join(f"{n} {ms:.1f}" for n, ms in queued))
+
+    # (i1) guard, EF reset, fallback at (c)'s widths; every device-to-host
+    # copy the trainer makes is counted (its flushes and per-step reads)
+    copies: list[int] = []
+    real_fetch = trainer_mod.fetch
+    trainer_mod.fetch = lambda ts: copies.append(len(ts)) or real_fetch(ts)
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        reg = MetricsRegistry([JsonlSink(jsonl)])
+        tr = _trainer(cfg, "fixed", 64, 9, 50, dev,
+                      faults=parse_inject("nan_grad@2,corrupt_payload@5"),
+                      recovery=RecoveryConfig(rollback=False, fallback_after=2),
+                      metrics=reg)
+        batches = SyntheticLM(cfg.vocab_size, 1024, 8, seed=0).batches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels = _reset_launches()
+        try:
+            step_ms = _timed_steps(tr, batches, 9)
+        finally:
+            trainer_mod.fetch = real_fetch
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated(dev)
+        reg.close()
+        records = read_jsonl(jsonl)
+    reads = sum(1 for n in copies if n == 2)
+    flushes = sum(1 for n in copies if n > 2)
+    rs = tr.recovery.as_dict()
+    seq = [(r["name"], r["step"]) for r in records if r["kind"] == "event"
+           and r["name"] in ("fault_injected", "guard_skip", "ef_reset",
+                             "recovered")]
+    last = lambda name: [r for r in records if r["name"] == name][-1]
+    lines = build_report(records)
+    guarded = statistics.median(step_ms[i] for i in (1, 3, 4))
+    fallback = statistics.median(step_ms[6:])
+    main_ms = statistics.median(report["main"]["step_ms"][1:])
+    main_peak = report["main"]["peak_bytes"]
+    hist = tr.history
+    out["guard"] = {"recovery": rs, "events": seq, "step_ms": step_ms,
+                    "guarded_ms": guarded, "fallback_ms": fallback,
+                    "main_step_ms": main_ms, "peak_bytes": peak,
+                    "main_peak_bytes": main_peak, "flush_copies": flushes,
+                    "step_reads": reads, "copies": copies,
+                    "launches": launches, "records": len(records),
+                    "loss": [h["loss"] for h in hist], "report": lines}
+    log(f"(i1) guard + fallback: depth 8 fixed r64, nan_grad@2, "
+        f"corrupt_payload@5, fallback_after 2, 9 steps: recovery {rs}")
+    log(f"    events {seq}")
+    for h, ms in zip(hist, step_ms):
+        log(f"    step {h['step']} loss {h['loss']:.4f} {ms:.1f} ms bytes "
+            f"synced {h['bytes_synced']} full {h['bytes_full']}")
+    log(f"    guarded step (no fault; steps 1, 3, 4) {guarded:.1f} ms against "
+        f"(c)'s unguarded {main_ms:.1f} ms; uncompressed step after the "
+        f"fallback (steps 6-8) {fallback:.1f} ms")
+    log(f"    peak memory {peak / 2**30:.2f} GiB against (c)'s "
+        f"{main_peak / 2**30:.2f} GiB; device-to-host copies: {flushes} "
+        f"flushes and {reads} per-step recovery reads; {len(records)} "
+        f"records; launches {launches}")
+    for line in lines:
+        log(f"    report | {line}")
+    want = [("fault_injected", 2), ("guard_skip", 2), ("ef_reset", 2),
+            ("recovered", 3), ("fault_injected", 5), ("guard_skip", 5),
+            ("ef_reset", 5), ("recovered", 6)]
+    if seq != want:
+        raise AssertionError(f"event order {seq} != {want}")
+    if (rs["skipped_steps"], rs["ef_resets"], rs["anomalies"],
+            rs["fallback"]) != (2, 2, 2, True):
+        raise AssertionError(f"recovery after the guard run: {rs}")
+    if not all(torch.isfinite(p.float()).all()
+               for p in tree.leaves(tr.state["params"])):
+        raise AssertionError("a parameter went non-finite under the guard")
+    full = hist[-1]["bytes_full"] - hist[-2]["bytes_full"]
+    for a, b in zip(hist[5:], hist[6:]):
+        if b["bytes_synced"] - a["bytes_synced"] != full:
+            raise AssertionError(f"step {b['step']} after the fallback synced "
+                                 f"{b['bytes_synced'] - a['bytes_synced']} B, "
+                                 f"not the uncompressed {full}")
+    stage = [int(c) for c, _ in tr.stage_bytes()]
+    got = (last("bytes_synced")["value"], last("bytes_full")["value"],
+           last("stage_wire_bytes")["values"])
+    if got != (tr.bytes_synced, tr.bytes_full, stage):
+        raise AssertionError(f"JSONL ledgers {got} != the trainer's "
+                             f"{(tr.bytes_synced, tr.bytes_full, stage)}")
+    if "fault/recovery timeline:" not in lines:
+        raise AssertionError(f"the report lacks the timeline: {lines}")
+    if not all(launches[k.__name__] > 0 for k in lr.KERNELS):
+        raise AssertionError(f"a PowerSGD kernel never launched: {launches}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (i2) rollback through a torn checkpoint
+    small = dataclasses.replace(GPT2_2_5B, num_layers=2, num_stages=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = MemorySink()
+        tr = _trainer(small, "fixed", 64, 10, 50, dev, ckpt_every=3,
+                      ckpt_path=os.path.join(tmp, "st"),
+                      faults=parse_inject("torn_ckpt@4,nan_grad@6"),
+                      recovery=RecoveryConfig(guard_nonfinite=False,
+                                              ckpt_ring=2, fallback_after=99),
+                      metrics=MetricsRegistry([sink]))
+        saves, restores = [], []
+        save, restore = tr.save_checkpoint, tr.restore_checkpoint
+
+        def timed_save(path, step=None):
+            t0 = time.perf_counter()
+            save(path, step=step)
+            saves.append((os.path.basename(path), time.perf_counter() - t0,
+                          os.path.getsize(path + ".npz")
+                          + os.path.getsize(path + ".json")))
+
+        def timed_restore(path, load_recovery=True):
+            t0, outcome = time.perf_counter(), "torn"
+            try:
+                step = restore(path, load_recovery=load_recovery)
+                torch.cuda.synchronize()
+                outcome = "ok"
+                return step
+            finally:
+                restores.append((os.path.basename(path), outcome,
+                                 time.perf_counter() - t0))
+
+        tr.save_checkpoint, tr.restore_checkpoint = timed_save, timed_restore
+        kernels = _reset_launches()
+        t0 = time.perf_counter()
+        hist = tr.run(SyntheticLM(small.vocab_size, 1024, 8, seed=0).batches())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+    rs = tr.recovery.as_dict()
+    rollbacks = sink.events("rollback")
+    out["rollback"] = {"recovery": rs, "seconds": secs, "saves": saves,
+                       "restores": restores, "launches": launches,
+                       "rollback_events": rollbacks,
+                       "loss": [h["loss"] for h in hist],
+                       "global_step": tr._global_step}
+    log(f"(i2) rollback: depth 2 fixed r64, guard off, ckpt every 3, ring 2, "
+        f"torn_ckpt@4, nan_grad@6, 10 steps in {secs:.1f} s: recovery {rs}")
+    log(f"    saves (name, s, bytes) "
+        f"{[(n, round(t, 3), b) for n, t, b in saves]}")
+    log(f"    restores (name, outcome, s) "
+        f"{[(n, o, round(t, 3)) for n, o, t in restores]}; rollback events "
+        f"{[(e['step'], e['data']) for e in rollbacks]}; launches {launches}")
+    if rs["rollbacks"] != 1 or tr._global_step != 10:
+        raise AssertionError(f"rollback run: {rs}, step {tr._global_step}")
+    if [e["data"] for e in rollbacks] != [{"restored_step": 3}]:
+        raise AssertionError(f"rollback events {rollbacks}")
+    if [(n, o) for n, o, _ in restores] != [("st_6", "torn"), ("st_3", "ok")]:
+        raise AssertionError(f"restores {restores}")
+    if not math.isfinite(hist[-1]["loss"]):
+        raise AssertionError(f"final loss after the rollback {hist[-1]}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (i3) the small fp32 fault runs: card against CPU, raw and quant8
+    out["check"] = {}
+    for wire, skips in (("raw", 1), ("quant8", 0)):
+        runs = {}
+        for where in ("cpu", dev):
+            kernels = _reset_launches()
+            tr = _trainer(GPT2_FIDELITY, "fixed", 8, 3, 50, where, wire=wire,
+                          faults=parse_inject("nan_grad@1"),
+                          recovery=RecoveryConfig(rollback=False))
+            hist = tr.run(SyntheticLM(GPT2_FIDELITY.vocab_size, 64, 4,
+                                      seed=1).batches())
+            runs[str(where)] = (tr.recovery.as_dict(),
+                                [h["loss"] for h in hist],
+                                {k.__name__: k.launches for k in kernels})
+        (cpu_rs, cpu, _), (gpu_rs, gpu, launches) = runs["cpu"], runs[str(dev)]
+        gap = max(abs(a - b) for a, b in zip(cpu, gpu))
+        out["check"][wire] = {"cpu": runs["cpu"][:2], "gpu": runs[str(dev)][:2],
+                              "max_gap": gap, "launches": launches}
+        log(f"(i3) gpt2-fidelity fp32 wire={wire}, nan_grad@1, 3 steps: card "
+            f"{gpu_rs} loss {gpu}; cpu {cpu_rs} loss {cpu}; max gap "
+            f"{gap:.2e} (tol 5e-3); card launches {launches}")
+        ema_gap = abs(gpu_rs.pop("loss_ema") - cpu_rs.pop("loss_ema"))
+        if gpu_rs != cpu_rs or gpu_rs["skipped_steps"] != skips:
+            raise AssertionError(f"wire={wire}: card {gpu_rs} != cpu {cpu_rs} "
+                                 f"or not {skips} skipped")
+        if not (gap < 5e-3 and ema_gap < 5e-3):
+            raise AssertionError(f"wire={wire}: the card's fault run strays "
+                                 f"from the CPU's ({gap}, {ema_gap})")
+        used = lr.KERNELS + (pack.KERNELS if wire != "raw" else ())
+        if not all(launches[k.__name__] > 0 for k in used):
+            raise AssertionError(f"wire={wire}: a kernel never launched on the "
+                                 f"card: {launches}")
+    report["faults"] = out
+
+
 # ----------------------------------------------------------------- the lines
 def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
@@ -1355,6 +1613,7 @@ def main() -> int:
     phase_attention(report, dev)
     phase_histogram(report, dev, grad_sample)
     del grad_sample
+    phase_faults(report, dev)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches)
     if args.out:

@@ -13,9 +13,8 @@ The trainer drives it every iteration:
 
 All controller state is host-side Python; the only device work it requests
 is the alpha-gated scalar entropy. Port of ``repro/core/controller.py``
-without the recovery fallback and the pipeline overlap feedback (later
-slices, ROADMAP); the analytic comm model reads ``EDGCConfig.hw`` (H100
-SXM by default).
+without the pipeline overlap feedback (ROADMAP Queue 1 item 8); the
+analytic comm model reads ``EDGCConfig.hw`` (H100 SXM by default).
 """
 from __future__ import annotations
 
@@ -146,6 +145,7 @@ class EDGCController:
         self._window_h: list[float] = []
         self._history: list[tuple[int, float]] = []     # (step, entropy)
         self._rank_history: list[tuple[int, list[int]]] = []
+        self._fallback = False   # recovery: pin to uncompressed sync
         self._plan = self._initial_plan()
 
     # ------------------------------------------------------------------ plans
@@ -169,6 +169,24 @@ class EDGCController:
     def in_warmup(self) -> bool:
         return self.cfg.policy == "edgc" and not self.dac.warmed_up
 
+    @property
+    def in_fallback(self) -> bool:
+        return self._fallback
+
+    def force_fallback(self) -> bool:
+        """Recovery policy: pin the plan to uncompressed sync permanently.
+
+        Called by the trainer after repeated anomalies (non-finite steps,
+        loss spikes): if aggressive compression is the suspected cause, the
+        safe terminal state is a plain all-reduce. Window ends stop
+        producing plans; the flag survives checkpoints. Returns True iff
+        the plan changed (the trainer then re-lays out its state).
+        """
+        self._fallback = True
+        changed = self._plan != NO_COMPRESSION
+        self._plan = NO_COMPRESSION
+        return changed
+
     # ------------------------------------------------------------------ hooks
     def wants_entropy(self, step: int) -> bool:
         """The ISR (alpha) gate — the trainer dispatches an entropy-OFF
@@ -185,7 +203,7 @@ class EDGCController:
 
     def on_window_end(self, step: int) -> bool:
         """Called every ``window`` steps. Returns True iff the plan changed."""
-        if self.cfg.policy != "edgc" or not self._window_h:
+        if self._fallback or self.cfg.policy != "edgc" or not self._window_h:
             self._window_h.clear()
             return False
         h_mean = float(np.mean(self._window_h))
@@ -231,7 +249,7 @@ class EDGCController:
             "rank_history": [[int(s), [int(r) for r in rs]]
                              for s, rs in self._rank_history],
             "plan": [[p, int(r)] for p, r in self._plan.ranks],
-            "fallback": False,
+            "fallback": bool(self._fallback),
         }
 
     def load_state_dict(self, sd: dict[str, Any]) -> None:
@@ -239,10 +257,6 @@ class EDGCController:
             raise ValueError(
                 f"checkpoint controller policy {sd.get('policy')!r} != "
                 f"configured {self.cfg.policy!r}")
-        if sd.get("fallback", False):
-            raise NotImplementedError(
-                "the checkpoint pinned the uncompressed recovery fallback, "
-                "which the port does not have yet (ROADMAP Queue 1 item 5b)")
         self.dac.warmed_up = bool(sd["dac"]["warmed_up"])
         self.dac.r_stage1 = int(sd["dac"]["r_stage1"])
         self.dac.window_index = int(sd["dac"]["window_index"])
@@ -257,6 +271,7 @@ class EDGCController:
                               for s, rs in sd["rank_history"]]
         self._plan = CompressionPlan(
             ranks=tuple((p, int(r)) for p, r in sd["plan"]))
+        self._fallback = bool(sd.get("fallback", False))
 
     # ------------------------------------------------------------- reporting
     @property

@@ -108,6 +108,9 @@ def quantize(x: torch.Tensor, codec: ChunkCodec):
     Symmetric per-group quantization: scale = max|x| / qmax over each
     ``codec.group`` slice (an all-zero group gets scale 1), round half to
     even, clip to [-qmax, qmax], offset by +qmax so the codes are unsigned.
+    A NaN element codes as 0, as XLA's float-to-int cast makes it on every
+    device (a CPU cast here would give INT_MIN, whose sign bit lands in
+    another slot of the packed word); a NaN group's scale is 1.
     """
     n = x.shape[0]
     grouped = _grouped(x.to(F32), codec.group)
@@ -115,7 +118,8 @@ def quantize(x: torch.Tensor, codec: ChunkCodec):
     scale = torch.where(amax > 0, amax / codec.qmax,
                         torch.ones((), dtype=F32, device=x.device))
     q = torch.clamp(torch.round(grouped / scale), -codec.qmax, codec.qmax)
-    codes = (q + codec.qmax).to(torch.int32).reshape(-1)[:n]
+    codes = torch.nan_to_num(q + codec.qmax, nan=0.0)
+    codes = codes.to(torch.int32).reshape(-1)[:n]
     return codes, scale[:, 0]
 
 

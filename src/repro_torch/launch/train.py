@@ -10,19 +10,30 @@ Runs on CUDA unless ``--device`` names another device:
       --variant reduced --policy fixed --steps 12 --wire quant8 \\
       --ckpt-every 6 --ckpt-path ckpt/run --device cpu
 
+``--inject`` schedules faults and ``--recover`` arms the recovery
+policies; ``--metrics-dir`` writes the run's telemetry, which
+``python -m repro_torch.launch.report <dir>`` summarizes:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 \\
+      --variant reduced --policy fixed --steps 12 --inject nan_grad@3 \\
+      --recover --metrics-dir runs/faults --device cpu
+
 The flags are the reference launcher's flat ones, plus ``--device``.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import EDGCConfig, GDSConfig, SyncConfig
 from repro_torch.core.dac import DACConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models.model import build_model
+from repro_torch.obs import profiler_session
 from repro_torch.optim.adam import AdamConfig
 from repro_torch.pipeline import PipelineConfig
+from repro_torch.train.faults import RecoveryConfig, parse_inject
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -48,14 +59,42 @@ def main(argv=None) -> list[dict]:
                          "feedback; 'entropy' picks the bit width per window "
                          "from the controller's entropy reading (quant8 "
                          "until the first one)")
+    ap.add_argument("--inject", default=None,
+                    help="comma-separated fault specs kind[:arg]@N (step); "
+                         "kinds: nan_grad, corrupt_payload, torn_ckpt "
+                         "(pod_drop/pod_join@rN parse, for the elastic "
+                         "loop). e.g. 'nan_grad@40,torn_ckpt@20'")
+    ap.add_argument("--recover", action="store_true",
+                    help="arm the recovery policies: non-finite step guard "
+                         "+ error-feedback reset, loss-spike rollback to "
+                         "the checkpoint ring, uncompressed-sync fallback "
+                         "after repeated anomalies")
+    ap.add_argument("--spike-factor", type=float, default=4.0,
+                    help="loss > factor * EMA counts as an anomaly")
+    ap.add_argument("--max-rollbacks", type=int, default=3)
+    ap.add_argument("--fallback-after", type=int, default=4,
+                    help="anomalies before pinning uncompressed sync")
     ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="checkpoint cadence in steps (0 = none)")
+                    help="checkpoint cadence in steps (rollback needs > 0)")
     ap.add_argument("--ckpt-path", default="ckpt/state")
+    ap.add_argument("--metrics-dir", default=None,
+                    help="write structured telemetry (scalars/series/events) "
+                         "as JSONL to <dir>/metrics.jsonl; read it back with "
+                         "python -m repro_torch.launch.report <dir>")
+    ap.add_argument("--profile", default=None, metavar="LOGDIR",
+                    help="wrap the run in a torch.profiler session and write "
+                         "its Chrome trace to LOGDIR/trace.json")
+    ap.add_argument("--out", default=None,
+                    help="write the history and comm savings as JSON here")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
+    faults = parse_inject(args.inject) if args.inject else None
+    recovery = RecoveryConfig(
+        spike_factor=args.spike_factor, max_rollbacks=args.max_rollbacks,
+        fallback_after=args.fallback_after) if args.recover else None
     cfg = get_config(args.arch, args.variant)
     num_stages = args.stages or cfg.num_stages
     model = build_model(cfg)
@@ -70,7 +109,8 @@ def main(argv=None) -> list[dict]:
     tcfg = TrainerConfig(
         total_steps=args.steps, log_every=max(1, args.steps // 20),
         ckpt_every=args.ckpt_every, ckpt_path=args.ckpt_path,
-        pipeline=pipe_cfg, sync=sync_cfg,
+        recovery=recovery, faults=faults, pipeline=pipe_cfg, sync=sync_cfg,
+        metrics_dir=args.metrics_dir,
         adam=AdamConfig(lr=args.lr, warmup_steps=max(10, args.steps // 10),
                         total_steps=args.steps),
     )
@@ -79,7 +119,8 @@ def main(argv=None) -> list[dict]:
           f"policy={args.policy}, {trainer.controller.describe()}")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        batch_size=args.batch, seed=args.seed)
-    hist = trainer.run(data.batches())
+    with profiler_session(bool(args.profile), args.profile or "profile"):
+        hist = trainer.run(data.batches())
     for h in hist:
         print(f"step {h['step']:5d} loss {h['loss']:.4f} H {h['entropy']:+.3f} "
               f"ranks {h['ranks']} comm-saved "
@@ -89,6 +130,14 @@ def main(argv=None) -> list[dict]:
         print(f"wire coding ({args.wire}): {trainer.bytes_synced}/"
               f"{trainer.bytes_wire_raw} coded/raw payload bytes "
               f"({trainer.bytes_synced / trainer.bytes_wire_raw:.2%})")
+    trainer.metrics.close()
+    if trainer.recovery is not None:
+        print(f"recovery: {trainer.recovery.as_dict()}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"history": hist, "arch": cfg.name,
+                       "policy": args.policy,
+                       "comm_savings": trainer.comm_savings()}, f, indent=1)
     return hist
 
 

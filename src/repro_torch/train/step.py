@@ -4,8 +4,14 @@ One step: loss and gradients on this worker's batch shard, the DP sync
 through the :class:`SyncExecutor` (compressed factor means for planned
 leaves, plain means for the rest), the GDS entropy of the synced
 gradients when the alpha gate asks for it, and an AdamW update. The
-pipelined branch is ROADMAP Queue 1 item 8; the fault channel
-(``guard_nonfinite``/``_inject``) waits with it.
+pipelined branch is ROADMAP Queue 1 item 8.
+
+The fault channel: a batch may carry an ``_inject`` flag tensor (the
+trainer adds it on every step once a ``nan_grad`` fault is scheduled);
+where any element is > 0 the gradients become NaN before the sync,
+selected on the device with no host sync. ``guard_nonfinite`` computes
+the whole update and keeps the old state leaf-wise where the loss or the
+synced gradients' norm is not finite, reporting ``metrics["skipped"]``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ class TrainStepConfig:
     gds: GDSConfig = GDSConfig()
     measure_entropy: bool = True
     remat: bool = True             # checkpoint the whole loss function
+    guard_nonfinite: bool = False  # recovery: skip non-finite updates
     pipeline: object = None
     sync: object = None
     adam: adam.AdamConfig = dataclasses.field(default_factory=adam.AdamConfig)
@@ -44,8 +51,8 @@ class TrainStepConfig:
     def __init__(self, mode: str = "dp_tp",
                  policy_plan: CompressionPlan = CompressionPlan(ranks=()),
                  gds: GDSConfig | None = None, measure_entropy: bool = True,
-                 remat: bool = True, pipeline=None, sync=None, adam=None,
-                 **legacy) -> None:
+                 remat: bool = True, guard_nonfinite: bool = False,
+                 pipeline=None, sync=None, adam=None, **legacy) -> None:
         pipeline, sync = resolve_embedded(pipeline, sync, legacy,
                                           where="TrainStepConfig")
         if adam is None:
@@ -57,6 +64,7 @@ class TrainStepConfig:
         set_("gds", gds if gds is not None else GDSConfig())
         set_("measure_entropy", measure_entropy)
         set_("remat", remat)
+        set_("guard_nonfinite", guard_nonfinite)
         set_("pipeline", pipeline)
         set_("sync", sync)
         set_("adam", adam)
@@ -73,7 +81,8 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     state = {params, opt_m, opt_v, opt_step, comp}; metrics = {loss,
-    entropy, ef_norm, lr, grad_norm}, all 0-d tensors left on the device.
+    entropy, ef_norm, lr, grad_norm} (and ``skipped`` under
+    ``guard_nonfinite``), all 0-d tensors left on the device.
     ``comp`` holds one LowRankState per shape group and, under a coded
     wire, a raw fp32 ``ef:<path>`` residual per flat-bucket member; the
     sync returns both, and ``ef_norm`` counts the PowerSGD residuals only,
@@ -91,6 +100,8 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
     loss_fn = model.loss_fn
 
     def step(state, batch):
+        batch = dict(batch)
+        inject = batch.pop("_inject", None)
         params = tree.tree_map(lambda p: p.detach().requires_grad_(True),
                                state["params"])
         with torch.enable_grad():
@@ -100,15 +111,38 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
             else:
                 loss, mets = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, tree.leaves(params))
+        if inject is not None:
+            bad = torch.amax(inject) > 0
+            grads = [g.masked_fill(bad, float("nan")) for g in grads]
         grads = tree.unflatten(params, grads)
         loss = pmean(loss.detach())
-        synced, comp = sync_exec.sync(grads, state["comp"], pmean)
+        comp_in = state["comp"]
+        synced, comp = sync_exec.sync(grads, comp_in, pmean)
         entropy = (grads_entropy(synced, cfg.gds) if cfg.measure_entropy
                    else torch.zeros((), device=loss.device))
         opt_state = adam.AdamState(state["opt_step"], state["opt_m"],
                                    state["opt_v"])
-        new_params, opt_state, opt_mets = adam.update(
-            state["params"], synced, opt_state, cfg.adam)
+        skipped = None
+        if cfg.guard_nonfinite:
+            # A non-finite loss or synced-gradient norm (NaN injection, a
+            # corrupted compressor payload, divergence) must reach neither
+            # the optimizer nor the compressor's warm-start/EF state: the
+            # whole update is computed, then the old state kept leaf-wise.
+            gnorm = adam.global_norm(synced)
+            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+            new_params, new_opt, opt_mets = adam.update(
+                state["params"], synced, opt_state, cfg.adam, gnorm=gnorm)
+            keep = lambda new, old: tree.tree_map(
+                lambda a, b: torch.where(ok, a, b, out=a), new, old)
+            new_params = keep(new_params, state["params"])
+            opt_state = adam.AdamState(
+                step=keep(new_opt.step, opt_state.step),
+                m=keep(new_opt.m, opt_state.m), v=keep(new_opt.v, opt_state.v))
+            comp = keep(comp, comp_in)
+            skipped = 1.0 - ok.to(torch.float32)
+        else:
+            new_params, opt_state, opt_mets = adam.update(
+                state["params"], synced, opt_state, cfg.adam)
         ef_norm = torch.sqrt(pmean(powersgd.ef_norm_sq(comp).to(loss.device)))
         new_state = {"params": new_params, "opt_m": opt_state.m,
                      "opt_v": opt_state.v, "opt_step": opt_state.step,
@@ -117,6 +151,8 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
                    **opt_mets,
                    **{k: pmean(v.detach()) for k, v in mets.items()
                       if k != "loss"}}
+        if skipped is not None:
+            metrics["skipped"] = skipped
         return new_state, metrics
 
     return step

@@ -7,17 +7,22 @@ Port of the flat path of ``repro/train/trainer.py``:
   * resolves the wire codec (``SyncConfig.wire``) and, in entropy mode,
     re-picks its bit width at window ends,
   * accounts the exact DP-sync wire bytes per step, coded and raw,
+  * emits structured telemetry (``repro_torch.obs.MetricsRegistry``),
+  * injects scheduled faults and runs the recovery policy (non-finite
+    guard + EF reset, rollback through a checkpoint ring, uncompressed
+    fallback),
   * saves and restores checkpoints.
 
 Data parallelism is one process per worker under ``torch.distributed``
 (initialised by the caller): each worker takes its contiguous slice of the
 global batch, as the reference's ``data`` mesh axis shards it. The
-pipelined executor, faults/recovery and telemetry are later slices
-(ROADMAP Queue 1).
+pipelined executor is a later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from typing import Any, Iterator
 
@@ -34,15 +39,19 @@ from repro_torch.core.powersgd import fold_in, resize_rank
 from repro_torch.dist.collectives import (dp_all_gather, dp_barrier, dp_rank,
                                           dp_world_size)
 from repro_torch.models.model import Model, param_count
+from repro_torch.obs.metrics import JsonlSink, MetricsRegistry, fetch
 from repro_torch.optim import adam
 from repro_torch.pipeline.config import PIPELINE_FIELDS
 from repro_torch.pipeline.sync import stage_wire_bytes
 from repro_torch.train import checkpoint as ckpt_mod
+from repro_torch.train.faults import (FaultPlan, RecoveryState,
+                                      poison_lowrank_state, truncate_file)
 from repro_torch.train.step import TrainStepConfig, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer", "resolve_device"]
 
-_METRIC_KEYS = ("loss", "entropy", "grad_norm", "lr")
+# the step metrics a flush reads (``skipped`` only under the guard)
+_METRIC_KEYS = ("loss", "entropy", "grad_norm", "lr", "ef_norm", "skipped")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,15 +81,20 @@ class TrainerConfig:
     min_compress_dim: int = 64
     measure_entropy: bool = True
     remat: bool = False
+    recovery: Any = None            # train.faults.RecoveryConfig
+    faults: Any = None              # train.faults.FaultPlan (injection)
     pipeline: Any = None
     sync: Any = None
+    metrics: Any = None             # obs.MetricsRegistry (or a tagged view)
+    metrics_dir: str | None = None  # JSONL sink at <dir>/metrics.jsonl
     adam: adam.AdamConfig = dataclasses.field(default_factory=adam.AdamConfig)
 
     def __init__(self, total_steps: int = 1000, log_every: int = 50,
                  ckpt_every: int = 0, ckpt_path: str = "ckpt/state",
                  min_compress_dim: int = 64, measure_entropy: bool = True,
-                 remat: bool = False, pipeline=None, sync=None, adam=None,
-                 **legacy) -> None:
+                 remat: bool = False, recovery=None, faults=None,
+                 pipeline=None, sync=None, metrics=None, metrics_dir=None,
+                 adam=None, **legacy) -> None:
         pipeline, sync = resolve_embedded(pipeline, sync, legacy,
                                           where="TrainerConfig")
         self.total_steps = total_steps
@@ -90,8 +104,12 @@ class TrainerConfig:
         self.min_compress_dim = min_compress_dim
         self.measure_entropy = measure_entropy
         self.remat = remat
+        self.recovery = recovery
+        self.faults = faults
         self.pipeline = pipeline
         self.sync = sync
+        self.metrics = metrics
+        self.metrics_dir = metrics_dir
         if adam is None:
             from repro_torch.optim.adam import AdamConfig
             adam = AdamConfig()
@@ -160,6 +178,42 @@ class Trainer:
         self._last_entropy = 0.0        # most recent alpha-gated reading
         self._global_step = 0
 
+        # ----- telemetry: tcfg.metrics wins (a shared registry or a tagged
+        # view); else metrics_dir attaches a JSONL sink; else a registry
+        # with no sink, so the loop never needs a null check
+        if tcfg.metrics is not None:
+            self.metrics = tcfg.metrics
+        elif tcfg.metrics_dir:
+            self.metrics = MetricsRegistry(
+                [JsonlSink(os.path.join(tcfg.metrics_dir, "metrics.jsonl"))])
+        else:
+            self.metrics = MetricsRegistry()
+        self.metrics.event(
+            "run_meta", step=0,
+            model=model.config.name, family=model.config.family,
+            policy=edgc_cfg.policy, n_params=int(self.n_params),
+            world=self.world, pipelined=False,
+            num_stages=int(edgc_cfg.num_stages), schedule=pcfg.schedule,
+            num_microbatches=int(pcfg.num_microbatches or pcfg.num_stages),
+            stash_policy=pcfg.stash_policy, overlap_sync=pcfg.overlap_sync,
+            window=int(edgc_cfg.dac.window), log_every=int(tcfg.log_every),
+            total_steps=int(tcfg.total_steps))
+
+        # ----- fault injection and the recovery policy
+        self.faults = tcfg.faults if tcfg.faults is not None else FaultPlan()
+        self.recovery = (RecoveryState() if tcfg.recovery is not None
+                         else None)
+        self._guard = bool(tcfg.recovery is not None
+                           and tcfg.recovery.guard_nonfinite)
+        self._ckpt_ring: list[tuple[str, int]] = []  # newest last
+        self._tear_next_ckpt = False                 # torn_ckpt fault armed
+        self._last_step_ok = True                    # recovered-event edge
+        self._ema_seen = 0                           # spike-detector warmup
+        # Faults are one-shot (transient): a rollback that replays past a
+        # fired event's step must not re-inject it, or a deterministic
+        # fault would defeat every retry.
+        self._fired_faults: set[int] = set()
+
     # ------------------------------------------------------------------ setup
     def _get_step(self, measure_entropy: bool):
         """Step function for the current plan and entropy gate."""
@@ -169,8 +223,8 @@ class Trainer:
             scfg = TrainStepConfig(
                 mode="dp_tp", policy_plan=plan, gds=self.edgc_cfg.gds,
                 measure_entropy=measure_entropy, remat=self.tcfg.remat,
-                pipeline=self.pipeline_cfg, sync=self.sync_cfg,
-                adam=self.tcfg.adam)
+                guard_nonfinite=self._guard, pipeline=self.pipeline_cfg,
+                sync=self.sync_cfg, adam=self.tcfg.adam)
             self._step_cache[key] = make_train_step(self.model, scfg)
         return self._step_cache[key]
 
@@ -244,10 +298,17 @@ class Trainer:
         """Run ``num_steps`` (default: remaining up to total_steps).
 
         Can be called repeatedly; the global step counter persists. Device
-        metrics are read in one batch at flush points (log steps, window
-        ends, run end), never inside the step loop.
+        metrics are read in one batched copy at flush points (log steps,
+        window ends, checkpoints, run end), never inside the step loop,
+        with one documented exception: with ``tcfg.recovery`` set, the
+        host reads each step's loss (and guard flag) to decide. A guarded
+        skip (non-finite update) triggers an EF reset, a non-finite or
+        spiking loss rolls back to the newest intact checkpoint in the ring
+        (bounded retries and a re-arm backoff), and repeated anomalies pin
+        the controller to uncompressed sync.
         """
         tcfg, ctrl = self.tcfg, self.controller
+        rcfg, rs = tcfg.recovery, self.recovery
         comp_bytes, raw_bytes, full_bytes = self._price_plan()
         stage_b = self.stage_bytes()
         window = self.edgc_cfg.dac.window
@@ -255,17 +316,96 @@ class Trainer:
         start = self._global_step
         end = min(tcfg.total_steps, start + (num_steps if num_steps is not None
                                              else tcfg.total_steps - start))
+        inject_nan_faults = self.faults.has("nan_grad")
         pending: list[tuple] = []
-        for step_idx in range(start, end):
+        step_idx = start
+        while step_idx < end:
             batch = self._device_batch(next(batches))
+            fired_now = [(i, ev) for i, ev in enumerate(self.faults.events)
+                         if not ev.on_round and ev.at == step_idx
+                         and i not in self._fired_faults]
+            self._fired_faults.update(i for i, _ in fired_now)
+            for _, ev in fired_now:
+                self.metrics.event("fault_injected", step=step_idx,
+                                   kind=ev.kind, at=int(ev.at))
+                if ev.kind == "corrupt_payload":
+                    self._poison_comp_state()
+                elif ev.kind == "torn_ckpt":
+                    self._tear_next_ckpt = True
+            if inject_nan_faults:
+                # one batch structure for every step once any nan_grad is
+                # scheduled: the flag is zero except at the fault's step
+                flag = float(any(ev.kind == "nan_grad" for _, ev in fired_now))
+                bsz = next(iter(batch.values())).shape[0]
+                batch["_inject"] = torch.full((bsz,), flag, device=self.device)
             measure = tcfg.measure_entropy and ctrl.wants_entropy(step_idx)
             self.state, mets = self._get_step(measure)(self.state, batch)
             self.bytes_synced += comp_bytes
             self.bytes_wire_raw += raw_bytes
             self.bytes_full += full_bytes
-            pending.append((step_idx, measure, mets, self.bytes_synced,
-                            self.bytes_wire_raw, self.bytes_full, stage_b,
+
+            step_ok = True
+            if rs is not None:
+                loss, skipped = self._read_step(mets)
+                if skipped:
+                    # The guard refused the update; the compressor's warm
+                    # start and EF may still hold the garbage that caused
+                    # it (a corrupted payload), so reset them.
+                    rs.skipped_steps += 1
+                    rs.anomalies += 1
+                    self.metrics.event("guard_skip", step=step_idx, loss=loss)
+                    self._reset_comp_state()
+                    rs.ef_resets += 1
+                    self.metrics.counter("ef_resets", step=step_idx)
+                    self.metrics.event("ef_reset", step=step_idx)
+                    step_ok = False
+                elif not math.isfinite(loss):
+                    rs.anomalies += 1
+                    step_ok = False
+                    rolled = self._maybe_rollback()
+                    if rolled is not None:
+                        self.metrics.event("rollback", step=step_idx,
+                                           restored_step=int(rolled))
+                        self._maybe_fallback(ctrl)
+                        comp_bytes, raw_bytes, full_bytes = self._price_plan()
+                        stage_b = self.stage_bytes()
+                        step_idx = rolled
+                        continue
+                else:
+                    armed = (self._ema_seen >= rcfg.spike_warmup
+                             and step_idx >= rs.backoff_until)
+                    if (armed and rs.loss_ema is not None and rcfg.rollback
+                            and loss > rcfg.spike_factor
+                            * max(rs.loss_ema, 1e-8)):
+                        rs.anomalies += 1
+                        rolled = self._maybe_rollback()
+                        if rolled is not None:
+                            self.metrics.event("rollback", step=step_idx,
+                                               restored_step=int(rolled),
+                                               spike_loss=loss)
+                            self._maybe_fallback(ctrl)
+                            comp_bytes, raw_bytes, full_bytes = \
+                                self._price_plan()
+                            stage_b = self.stage_bytes()
+                            step_idx = rolled
+                            continue
+                    rs.loss_ema = (loss if rs.loss_ema is None else
+                                   rcfg.ema_decay * rs.loss_ema
+                                   + (1 - rcfg.ema_decay) * loss)
+                    self._ema_seen += 1
+                if self._maybe_fallback(ctrl):
+                    comp_bytes, raw_bytes, full_bytes = self._price_plan()
+                    stage_b = self.stage_bytes()
+                if step_ok and not self._last_step_ok:
+                    self.metrics.event("recovered", step=step_idx)
+                self._last_step_ok = step_ok
+
+            # a step the guard refused feeds no entropy to the DAC
+            pending.append((step_idx, measure and step_ok, mets,
+                            self.bytes_synced, self.bytes_wire_raw,
+                            self.bytes_full, stage_b,
                             ctrl.dac.current_ranks() if not ctrl.in_warmup else [],
+                            rs.as_dict() if rs is not None else None,
                             time.time() - t0))
             at_window = (step_idx + 1) % window == 0
             logged = (step_idx % tcfg.log_every == 0
@@ -279,28 +419,52 @@ class Trainer:
                 changed = ctrl.on_window_end(step_idx)
                 if changed:
                     self._apply_plan_change()
+                    self.metrics.event("plan_change", step=step_idx,
+                                       ranks=ctrl.dac.current_ranks())
                 # entropy-mode coding re-picks its width on the same cadence
-                if self._refresh_codec() or changed:
+                if self._refresh_codec():
+                    changed = True
+                    self.metrics.event("wire_codec", step=step_idx,
+                                       bits=int(self._codec.bits),
+                                       entropy=self._last_entropy)
+                if changed:
                     comp_bytes, raw_bytes, full_bytes = self._price_plan()
                     stage_b = self.stage_bytes()
             if at_ckpt:
-                self.save_checkpoint(f"{tcfg.ckpt_path}_{step_idx + 1}",
-                                     step=step_idx + 1)
+                path = f"{tcfg.ckpt_path}_{step_idx + 1}"
+                self.save_checkpoint(path, step=step_idx + 1)
+                self.metrics.event("checkpoint", step=step_idx, path=path)
+                if self._tear_next_ckpt:
+                    # torn_ckpt fault: a crash mid-write, simulated after
+                    # the (atomic) save by truncating the archive in place
+                    if self.rank == 0:
+                        truncate_file(path + ".npz")
+                    dp_barrier()
+                    self._tear_next_ckpt = False
+                self._ring_push(path, step_idx + 1)
+            step_idx += 1
         self._flush_pending(pending)
         self._global_step = end
         return self.history
 
+    def _read_step(self, mets: dict) -> tuple[float, bool]:
+        """The step's loss and guard verdict, in one device-to-host copy
+        (the recovery policy's per-step read)."""
+        if "skipped" not in mets:
+            return fetch([mets["loss"]])[0], False
+        loss, skipped = fetch([mets["loss"], mets["skipped"]])
+        return loss, skipped > 0.5
+
     def _flush_pending(self, pending: list[tuple]) -> None:
         """One device->host copy of the buffered metrics, then in-order host
-        processing (controller entropy feed, history records)."""
-        if not pending:
-            return
-        host = torch.stack([torch.stack([m[k].detach().float().reshape(())
-                                         for k in _METRIC_KEYS])
-                            for _, _, m, *_ in pending]).cpu().tolist()
-        for (s_i, meas, _, b_syn, b_raw, b_full, st_b, ranks, wall), vals in zip(
-                pending, host):
-            vals = dict(zip(_METRIC_KEYS, vals))
+        processing (controller entropy feed, history records, telemetry)
+        and a registry flush."""
+        names = [[k for k in _METRIC_KEYS if k in m] for _, _, m, *_ in pending]
+        host = iter(fetch([m[k] for (_, _, m, *_), ks in zip(pending, names)
+                           for k in ks]))
+        for (s_i, meas, _, b_syn, b_raw, b_full, st_b, ranks, rec_rs,
+             wall), ks in zip(pending, names):
+            vals = {k: next(host) for k in ks}
             if meas:
                 self._last_entropy = vals["entropy"]
                 self.controller.on_entropy(s_i, self._last_entropy)
@@ -314,8 +478,105 @@ class Trainer:
                 }
                 if b_raw != b_syn:      # wire coding is on
                     rec["bytes_wire_raw"] = b_raw
+                if rec_rs is not None:
+                    rec["recovery"] = rec_rs
                 self.history.append(rec)
+                self._emit_step_telemetry(s_i, vals, b_syn, b_raw, b_full,
+                                          st_b, ranks, wall)
         pending.clear()
+        self.metrics.flush()
+
+    def _emit_step_telemetry(self, s_i: int, vals: dict, b_syn: int,
+                             b_raw: int, b_full: int, st_b, ranks,
+                             wall: float) -> None:
+        """One logged step's structured records (values already on host)."""
+        reg = self.metrics
+        reg.scalar("loss", vals["loss"], s_i)
+        reg.scalar("entropy", self._last_entropy, s_i)
+        reg.scalar("grad_norm", vals["grad_norm"], s_i)
+        reg.scalar("lr", vals["lr"], s_i)
+        reg.scalar("ef_norm", vals["ef_norm"], s_i)
+        reg.scalar("bytes_synced", int(b_syn), s_i)
+        reg.scalar("bytes_full", int(b_full), s_i)
+        if b_syn:
+            reg.scalar("compression_ratio", b_full / b_syn, s_i)
+        if self.sync_cfg.wire != "raw":
+            # coded vs raw payload bytes: the measured wire-format
+            # reduction, orthogonal to the rank-compression ratio above
+            reg.scalar("wire_bytes_coded", int(b_syn), s_i)
+            reg.scalar("wire_bytes_raw", int(b_raw), s_i)
+            if b_raw:
+                reg.scalar("wire_reduction", b_syn / b_raw, s_i)
+            if self._codec is not None:
+                reg.scalar("wire_bits", int(self._codec.bits), s_i)
+        reg.scalar("wall_s", wall, s_i)
+        reg.series("stage_wire_bytes", [int(c) for c, _ in st_b], s_i)
+        reg.series("stage_wire_bytes_full", [int(f) for _, f in st_b], s_i)
+        if ranks:
+            reg.series("dac_applied_ranks", [int(r) for r in ranks], s_i)
+            cqm = self.controller.cqm
+            if cqm.anchored:
+                reg.series("cqm_error",
+                           [float(cqm.error_at(int(r))) for r in ranks], s_i)
+
+    # ------------------------------------------------------------- recovery
+    def _ring_push(self, path: str, step: int) -> None:
+        keep = (self.tcfg.recovery.ckpt_ring
+                if self.tcfg.recovery is not None else 3)
+        self._ckpt_ring.append((path, step))
+        del self._ckpt_ring[:-keep]
+
+    def _maybe_rollback(self) -> int | None:
+        """Try the ring newest-to-oldest; returns the restored step or None.
+
+        A torn newest checkpoint (``CheckpointError``) falls through to the
+        next older one: the atomic save and its nonce make this safe.
+        """
+        rcfg, rs = self.tcfg.recovery, self.recovery
+        if not (rcfg.rollback and rs.rollbacks < rcfg.max_rollbacks):
+            return None
+        while self._ckpt_ring:
+            path, _ = self._ckpt_ring[-1]
+            try:
+                restored = self.restore_checkpoint(path, load_recovery=False)
+            except ckpt_mod.CheckpointError:
+                self._ckpt_ring.pop()
+                continue
+            rs.rollbacks += 1
+            rs.backoff_until = restored + rcfg.backoff_steps
+            rs.loss_ema = None          # re-warm the spike detector
+            self._ema_seen = 0
+            return restored
+        return None
+
+    def _maybe_fallback(self, ctrl) -> bool:
+        """After ``fallback_after`` anomalies, pin to uncompressed sync."""
+        rcfg, rs = self.tcfg.recovery, self.recovery
+        if rs.fallback or rs.anomalies < rcfg.fallback_after:
+            return False
+        rs.fallback = True
+        if ctrl.force_fallback():
+            self._apply_plan_change()
+            return True
+        return False
+
+    def _reset_comp_state(self) -> None:
+        """Fresh compressor state under the current plan (EF reset), on
+        this trainer's device, with the coded wire's ``ef:`` residuals.
+
+        Wholesale re-init rather than surgical repair: after a corrupted
+        payload no row can be trusted, and the warm-start Q must be
+        identical across workers anyway (the seed is).
+        """
+        fresh = init_compressor_state(self.state["params"],
+                                      self.controller.plan, self._comp_seed,
+                                      layout=self._layout,
+                                      wire_ef=self._codec is not None)
+        self.state = dict(self.state, comp=fresh)
+
+    def _poison_comp_state(self) -> None:
+        """corrupt_payload fault: NaN-poison the compressor state in place."""
+        poison_lowrank_state(self.state["comp"])
 
     # --------------------------------------------------------- checkpointing
     def _checkpoint_like(self, gather: bool) -> dict:
@@ -340,12 +601,15 @@ class Trainer:
             "bytes_wire_raw": int(self.bytes_wire_raw),
             "bytes_full": int(self.bytes_full),
             "controller": self.controller.state_dict(),
+            "metrics": self.metrics.state_dict(),
         }
+        if self.recovery is not None:
+            extra["recovery"] = self.recovery.as_dict()
         if self.rank == 0:
             ckpt_mod.save(path, state, extra=extra)
         dp_barrier()
 
-    def restore_checkpoint(self, path: str) -> int:
+    def restore_checkpoint(self, path: str, load_recovery: bool = True) -> int:
         """Restore the device tree + control plane; returns the global step.
 
         The controller state (and with it the plan) comes FIRST, the
@@ -353,11 +617,22 @@ class Trainer:
         arrays loaded into it, onto this trainer's device. Entropy-mode
         coding re-derives its reference and bit width from the restored
         entropy history.
+
+        ``load_recovery=False`` (an in-run rollback) keeps the live recovery
+        counters, which must not rewind their own retry budget, and the
+        live telemetry cursor: what was emitted is history, not state.
         """
         extra = ckpt_mod.read_extra(path)
         if "controller" in extra:
             self.controller.load_state_dict(extra["controller"])
             self._apply_plan_change()     # reshape comp state to the plan
+        if load_recovery and self.recovery is not None and "recovery" in extra:
+            self.recovery = RecoveryState.from_dict(extra["recovery"])
+        if (load_recovery and "metrics" in extra
+                and isinstance(self.metrics, MetricsRegistry)):
+            # a resumed run appends to its series instead of restarting at
+            # step 0; a tagged view leaves the cursor to its owner
+            self.metrics.load_state_dict(extra["metrics"])
         self.bytes_synced = int(extra.get("bytes_synced", 0))
         self.bytes_wire_raw = int(extra.get("bytes_wire_raw", 0))
         self.bytes_full = int(extra.get("bytes_full", 0))

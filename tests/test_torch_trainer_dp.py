@@ -126,3 +126,108 @@ def test_two_gloo_workers_equal_one_worker_on_the_whole_batch(tmp_path):
     for a, b in zip(two["params"], one_params):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-3,
                                    atol=1e-4)
+
+
+# ------------------------------------- recovery under two workers, the CLI
+_FAULT_WORKER = textwrap.dedent("""
+    import json, sys
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.core import EDGCConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import ModelConfig, build_model
+    from repro_torch.obs import MemorySink, MetricsRegistry
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.faults import RecoveryConfig, parse_inject
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    rank, port, out, ckpt = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                             sys.argv[4])
+    model_kw, data_kw = json.loads(sys.argv[5])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    steps = 10
+    sink = MemorySink()
+    edgc = EDGCConfig(policy="fixed", fixed_rank=8, num_stages=4,
+                      total_iterations=steps)
+    tcfg = TrainerConfig(
+        total_steps=steps, log_every=1, ckpt_every=3, ckpt_path=ckpt,
+        faults=parse_inject("torn_ckpt@4,nan_grad@6"),
+        recovery=RecoveryConfig(guard_nonfinite=False, ckpt_ring=2,
+                                fallback_after=99),
+        metrics=MetricsRegistry([sink]),
+        adam=AdamConfig(lr=1e-3, warmup_steps=1, total_steps=steps))
+    tr = Trainer(build_model(ModelConfig(**model_kw)), edgc, tcfg, seed=0,
+                 device="cpu")
+    hist = tr.run(SyntheticLM(**data_kw).batches())
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump({"recovery": tr.recovery.as_dict(),
+                   "loss": [h["loss"] for h in hist],
+                   "events": [(e["name"], e["step"], e["data"])
+                              for e in sink.events()],
+                   "step": tr._global_step,
+                   "params": [p.tolist()
+                              for p in tree.leaves(tr.state["params"])]}, f)
+    dist.destroy_process_group()
+""")
+
+
+def test_two_gloo_workers_roll_back_through_a_torn_checkpoint_alike(tmp_path):
+    """Guard off, two workers: the save at ``_6`` is torn (worker 0 writes
+    and tears it), the NaN of step 6 reaches the weights, and both workers
+    read the pmean'd NaN loss at step 7, roll back past ``_6`` to ``_3``
+    and replay to the end with the same counters and weights."""
+    out = tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _FAULT_WORKER, str(r), str(port), str(out),
+         str(tmp_path / "st"), json.dumps([MODEL, DATA])], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    runs = [json.loads((tmp_path / f"out.{r}").read_text()) for r in range(2)]
+    for run in runs:
+        assert run["recovery"]["rollbacks"] == 1 and run["step"] == 10
+        assert ["rollback", 7, {"restored_step": 3}] in run["events"]
+        assert np.isfinite(run["loss"][-1])
+    assert runs[0]["recovery"] == runs[1]["recovery"]
+    assert runs[0]["events"] == runs[1]["events"]
+    assert runs[0]["loss"] == runs[1]["loss"]
+    for a, b in zip(runs[0]["params"], runs[1]["params"]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_launch_train_with_faults_then_report(tmp_path):
+    """The command-line path: a run with an injected NaN gradient and the
+    recovery policy writes its telemetry; the report command prints the
+    guard skip in its timeline."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    mdir = tmp_path / "run"
+    train = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2",
+         "--variant", "reduced", "--policy", "fixed", "--steps", "6",
+         "--window", "2", "--batch", "2", "--seq", "16",
+         "--inject", "nan_grad@3", "--recover", "--metrics-dir", str(mdir),
+         "--out", str(tmp_path / "out.json"), "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert train.returncode == 0, train.stderr
+    assert "recovery: {'skipped_steps': 1, 'ef_resets': 1" in train.stdout
+    assert len(json.loads((tmp_path / "out.json").read_text())["history"]) == 6
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report", str(mdir),
+         "--csv", str(tmp_path / "m.csv")],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert rep.returncode == 0, rep.stderr
+    lines = rep.stdout.splitlines()
+    assert "fault/recovery timeline:" in lines
+    assert "  step 3: guard_skip" in "\n".join(lines)
+    assert "counter ef_resets: 1" in lines
+    assert (tmp_path / "m.csv").exists()

@@ -11,6 +11,7 @@ bit for bit; the coded sync agrees at the fp32 bar of
 one stated exception on coded factor payloads (``_Replay``).
 """
 import ctypes
+import dataclasses
 import math
 
 import jax
@@ -19,23 +20,40 @@ import numpy as np
 import pytest
 import torch
 
+from jax.sharding import AxisType, Mesh
+
 from repro.configs.gpt2 import GPT2_FIDELITY as REF_GPT2_FIDELITY
+from repro.core import EDGCConfig as RefEDGCConfig
+from repro.core import SyncConfig as RefSyncConfig
 from repro.core import bucketing as ref_bucketing
+from repro.core import comm_model as ref_comm
 from repro.core import compressor as ref_comp
 from repro.core import powersgd as ref_psgd
 from repro.core import wire as ref_wire
+from repro.data.pipeline import SyntheticLM as RefSyntheticLM
 from repro.kernels import ops as ref_ops
+from repro.models.model import ModelConfig as RefModelConfig
 from repro.models.model import build_model as ref_build_model
+from repro.optim.adam import AdamConfig as RefAdamConfig
 from repro.pipeline.sync import stage_wire_bytes as ref_stage_wire_bytes
+from repro.train.faults import RecoveryConfig as RefRecoveryConfig
+from repro.train.faults import parse_inject as ref_parse_inject
+from repro.train.trainer import Trainer as RefTrainer
+from repro.train.trainer import TrainerConfig as RefTrainerConfig
 
 from repro_torch import interop, tree
 from repro_torch.configs.gpt2 import GPT2_FIDELITY
-from repro_torch.core import bucketing, compressor, powersgd, wire
+from repro_torch.core import EDGCConfig, bucketing, compressor, powersgd, wire
+from repro_torch.core.comm_model import HardwareSpec
 from repro_torch.core.config import SyncConfig
 from repro_torch.core.sync_executor import SyncExecutor
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels import pack
-from repro_torch.models.model import build_model
+from repro_torch.models.model import ModelConfig, build_model
+from repro_torch.optim.adam import AdamConfig
 from repro_torch.pipeline.sync import stage_wire_bytes
+from repro_torch.train.faults import RecoveryConfig, parse_inject
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 RTOL, ATOL = 1e-5, 1e-6
 MODES = ["raw", "quant8", "quant4", "entropy"]
@@ -216,6 +234,33 @@ def test_quantize_and_roundtrip_match_reference(mode, name):
     np.testing.assert_array_equal(rt.numpy(), deq.numpy())
     if name == "zeros":
         assert (scales.numpy() == 1.0).all() and (rt.numpy() == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["quant8", "quant4"])
+@pytest.mark.parametrize("nan_at", [(0,), (517,), (0, 517), (3, 7, 1023)],
+                         ids=lambda t: "nan@" + "+".join(map(str, t)))
+def test_nan_payload_codes_as_the_reference(mode, nan_at):
+    """A NaN element codes as 0, as XLA's float-to-int cast makes it. A
+    CPU cast to int32 gives INT_MIN, and its sign bit lands in the top
+    slot of the packed word (element 3 at 8 bits, 7 at 4 bits), which the
+    roundtrip then decodes as the wrong value there. Codes, scales, words
+    and the roundtrip agree with the reference bit for bit, NaN positions
+    equal."""
+    x = np.linspace(-1.0, 1.0, 1024 + 300).astype(np.float32)
+    x[list(nan_at)] = np.nan
+    codec, ref_codec = wire.resolve_codec(mode), ref_wire.resolve_codec(mode)
+    codes, scales = wire.quantize(torch.from_numpy(x), codec)
+    ref_codes, ref_scales = ref_wire.quantize(jnp.asarray(x), ref_codec)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(ref_codes))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(ref_scales))
+    assert (codes.numpy()[list(nan_at)] == 0).all()
+    np.testing.assert_array_equal(
+        _u32(pack.pack_words(codes, codec.bits)),
+        _u32(ref_ops.pack_bits(ref_codes, ref_codec.bits)))
+    rt = wire.roundtrip(torch.from_numpy(x), codec)
+    want = np.asarray(ref_wire.roundtrip(jnp.asarray(x), ref_codec))
+    np.testing.assert_array_equal(rt.numpy(), want)
+    assert np.isfinite(rt.numpy()).all()     # the coded payload is finite
 
 
 def test_roundtrip_arr_and_coded_psum_keep_shape_and_dtype():
@@ -515,3 +560,67 @@ def test_quant8_payload_bound_is_the_ledger():
             assert wire.coded_bytes(n, codec) == 4 * (words.numel()
                                                       + scales.numel())
             assert scales.numel() == math.ceil(n / codec.group)
+
+
+# ------------------------------------------------- the guard under a coding
+def _fault_pair(wire_mode: str, steps: int):
+    """(reference, port) trainers on a 2-layer model with a NaN gradient at
+    step 3, the guard on and rollback off; the port starts from the
+    reference's state. The reference runs on a 1 x 1 Auto-axis mesh."""
+    model = dict(name="el", family="dense", num_layers=2, d_model=128,
+                 num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=512)
+    kw = dict(policy="fixed", fixed_rank=8, total_iterations=steps)
+    tkw = dict(total_steps=steps, log_every=1)
+    rsync, psync = RefSyncConfig(wire=wire_mode), SyncConfig(wire=wire_mode)
+    ref = RefTrainer(
+        ref_build_model(RefModelConfig(**model)),
+        Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"),
+             axis_types=(AxisType.Auto,) * 2),
+        RefEDGCConfig(sync=rsync, **kw),
+        RefTrainerConfig(faults=ref_parse_inject("nan_grad@3"),
+                         recovery=RefRecoveryConfig(rollback=False),
+                         sync=rsync, adam=RefAdamConfig(lr=1e-3),
+                         **tkw), seed=0)
+    port = Trainer(
+        build_model(ModelConfig(**model)),
+        EDGCConfig(sync=psync,
+                   hw=HardwareSpec(**dataclasses.asdict(ref_comm.TPU_V5E)),
+                   **kw),
+        TrainerConfig(faults=parse_inject("nan_grad@3"),
+                      recovery=RecoveryConfig(rollback=False), sync=psync,
+                      adam=AdamConfig(lr=1e-3), **tkw),
+        seed=0, device="cpu")
+    port.state = interop.from_reference(jax.device_get(ref.state))
+    return ref, port
+
+
+@pytest.mark.parametrize("wire_mode,skips", [("raw", 1), ("quant8", 0)])
+def test_coded_wire_hides_a_nan_gradient_from_the_guard_as_the_reference(
+        wire_mode, skips):
+    """A defect of the reference that the port shares, on purpose: under a
+    coded wire the non-finite guard never trips. ``quantize`` takes scale
+    1 for a NaN group (``amax > 0`` is false) and casts its NaN codes to
+    0, so the payload every worker receives is finite (-qmax per element)
+    and the NaN stays only in the wire's EF residual. Under the raw wire
+    the same fault is skipped. Both packages give the same recovery
+    counters (the EMA within 5e-3)."""
+    steps = 6
+    ref, port = _fault_pair(wire_mode, steps)
+    rd = RefSyntheticLM(vocab_size=512, seq_len=64, batch_size=4,
+                        seed=0).batches()
+    pd = SyntheticLM(vocab_size=512, seq_len=64, batch_size=4,
+                     seed=0).batches()
+    for _ in range(steps):
+        resets = ref.recovery.ef_resets
+        ref.run(rd, num_steps=1)
+        port.run(pd, num_steps=1)
+        if ref.recovery.ef_resets != resets:   # fresh jax.random warm starts
+            port.state["comp"] = interop.from_reference(
+                {"comp": jax.device_get(ref.state["comp"])})["comp"]
+    got, want = port.recovery.as_dict(), ref.recovery.as_dict()
+    assert want["skipped_steps"] == want["ef_resets"] == skips
+    assert got.pop("loss_ema") == pytest.approx(want.pop("loss_ema"),
+                                                rel=5e-3)
+    assert got == want
+    for a, b in zip(port.history, ref.history):
+        assert abs(a["loss"] - b["loss"]) < 5e-3, (a, b)
