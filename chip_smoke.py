@@ -15,7 +15,8 @@ Phases, in order; any failure raises, so the exit code is not 0:
                spills, the same resident blocks per SM); the same numbers
                for both ``gram_schmidt_kernel`` instances (no spills)
   (b) kernels  each PowerSGD kernel against its plain PyTorch version on
-               the main path's shape groups (and a ragged shape, and bf16),
+               the main path's shape groups, (j)'s per-stage groups, a
+               ragged shape, and bf16,
                two calls bit-equal, with kernel (host-clock loop and device
                time), plain, library-call and bound times; for P and Q also
                TFLOP/s, GB/s and bound share per group and per step, the
@@ -74,6 +75,27 @@ Phases, in order; any failure raises, so the exit code is not 0:
                restore and bytes per checkpoint; and (e)'s small model
                under ``nan_grad@1`` on the card against the CPU, raw (one
                skip) and quant8 (none, as the reference)
+  (j) pipeline the pipelined executor with all S = 4 stage programs on the
+               card (``LocalPipe``): (j1) (c)'s model and batch through
+               ``Trainer(..., pipe=4)``, M = 4 microbatches of 2 x 1024,
+               1F1B, replay, 4 steps, each loss held to (c)'s (the first
+               within 2e-3, every one within 5e-2) and the bytes synced
+               equal; step ms, peak memory per step and a profiled step's
+               device-busy share; (j2) two steps each under (gpipe,
+               replay), (1f1b, full) and (1f1b, every_k at k = 1, so
+               its stash ring runs), held the same way, their peaks
+               beside ``peak_activation_bytes``; (j3) edgc at depth 4
+               (one layer per stage), window 4: a non-decreasing rank
+               vector of S entries, per-stage bytes equal to 2 r (m + n)
+               per compressed matrix worked out from the shapes and the
+               stage ranks, the
+               stage-stacked compressor state resized; (j4) (e)'s small
+               model at S = 4 on the card against the CPU, raw and
+               quant8; (j5) ``launch.train --pipe 2 --trace`` and
+               ``launch.report --trace`` on the card, both traces holding
+               one span per tick-table entry. One card runs the stages one
+               after another: it shows the executor's work, not the
+               pipeline's overlap or its bubble
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -87,14 +109,17 @@ kernels, (f) quant8 for the pack kernels. The flash entries give one call
 at gpt2-2.5b widths (one layer's attention) and ``hist_counts`` one pooled
 sample; their launches are counted in (g) and (h), the drives of their
 entry points (the training step does not call them: the model keeps its
-plain-torch ``blockwise_attention``, as the reference's does). The last
-line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits 2
+plain-torch ``blockwise_attention``, as the reference's does). The
+PowerSGD and pack entries add ``launches_pipelined``, their launches on
+the pipelined paths of (j1) and (j4) quant8. The last line is ``{"ok":
+true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -113,6 +138,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 MAIN_GROUPS = [(32, 1920, 1920, 64), (8, 1920, 7680, 64), (8, 7680, 1920, 64)]
+# (j)'s per-stage shape groups: depth 8 over S = 4 stages, 2 layers each
+PIPE_GROUPS = [(8, 1920, 1920, 64), (2, 1920, 7680, 64), (2, 7680, 1920, 64)]
 RAGGED = (3, 1000, 1030, 40)
 # Gram-Schmidt panels (E, m, r) off the main path: ragged m (no cluster size
 # divides it), r = 1, and the device-memory path (r = 128 at m = 7680, and
@@ -434,6 +461,7 @@ def _check_orthonormal(u: torch.Tensor, plain: torch.Tensor) -> None:
 def phase_kernels(report: dict, dev) -> None:
     rows = []
     shapes = [(s, torch.float32, True) for s in MAIN_GROUPS]
+    shapes += [(s, torch.float32, False) for s in PIPE_GROUPS]
     shapes += [(RAGGED, torch.float32, False), (RAGGED, torch.bfloat16, False)]
     jobs = [(s, dtype, main, lambda s=s, dtype=dtype: _cases(*s, dtype, dev))
             for s, dtype, main in shapes]
@@ -445,9 +473,14 @@ def phase_kernels(report: dict, dev) -> None:
         cases = make()
         for name, c in cases.items():
             rows.append(check_kernel(name, c, shape, dtype, main))
+            rows[-1]["pipe_path"] = shape in PIPE_GROUPS
         del cases
         torch.cuda.empty_cache()
     report["kernel_rows"] = rows
+    pipe = [r for r in rows if r["pipe_path"]]
+    log(f"(b) (j)'s per-stage groups {PIPE_GROUPS}: {len(pipe)} kernel calls "
+        f"held to their plain versions, worst "
+        f"{max(r['rel_err'] / r['tol'] for r in pipe):.3f} of the bar")
     for name in ("lowrank_p", "lowrank_q", "gram_schmidt"):
         main = [r for r in rows if r["kernel"] == name and r["main_path"]]
         step = {key: sum(r[key] for r in main)
@@ -598,9 +631,11 @@ def check_pack(dev) -> list[dict]:
 
 # ------------------------------------------------------------------ trainers
 def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw",
-             log_every=1, **tkw):
+             log_every=1, pipe=None, **tkw):
     """A Trainer with the PowerSGD kernels on, AdamW at lr 1e-3; ``tkw``
-    goes to ``TrainerConfig`` (faults, recovery, metrics, checkpoints)."""
+    goes to ``TrainerConfig`` (faults, recovery, metrics, checkpoints, the
+    pipeline's schedule and stash policy); ``pipe`` runs that many stages
+    through the pipelined executor."""
     from repro_torch.core import EDGCConfig, GDSConfig
     from repro_torch.core.dac import DACConfig
     from repro_torch.models.model import build_model
@@ -615,7 +650,8 @@ def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw",
                          use_kernels=True, wire=wire,
                          adam=AdamConfig(lr=1e-3, warmup_steps=1,
                                          total_steps=steps), **tkw)
-    return Trainer(build_model(model_cfg), edgc, tcfg, seed=0, device=dev)
+    return Trainer(build_model(model_cfg), edgc, tcfg, seed=0, device=dev,
+                   pipe=pipe)
 
 
 def _timed_steps(trainer, batches, steps: int) -> list[float]:
@@ -677,6 +713,7 @@ def phase_main(report: dict, dev, profile: bool) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [h["loss"] for h in tr.history]
     report["main"] = {"loss": losses, "step_ms": step_ms, "peak_bytes": peak,
+                      "bytes_synced": [h["bytes_synced"] for h in tr.history],
                       "launches": launches, "groups": groups,
                       "n_params": tr.n_params, "payloads": _payloads(tr)}
     for h, ms in zip(tr.history, step_ms):
@@ -1491,8 +1528,270 @@ def phase_faults(report: dict, dev) -> None:
     report["faults"] = out
 
 
+# ------------------------------------------------------------- (j) pipeline
+# (j2): (schedule, stash policy, stash_every) beside (j1)'s (1f1b, replay);
+# with 2 units per stage, every_k stashes only at k = 1
+PIPE_CASES = [("gpipe", "replay", 2), ("1f1b", "full", 2),
+              ("1f1b", "every_k", 1)]
+PIPE_M = 4                     # microbatches: 2 x 1024 each of (c)'s batch
+
+
+def _pipe_run(cfg, dev, main: dict, schedule: str, stash: str, steps: int,
+              profile: bool, **tkw) -> dict:
+    """(c)'s run through the pipelined executor: S stages on this card
+    (``LocalPipe``), M = 4, ``steps`` timed steps, each loss held to
+    ``main``'s, (c)'s (the first within 2e-3, every one within 5e-2), and
+    the bytes synced equal; the stages' shape groups are (b)'s
+    ``PIPE_GROUPS``; the PowerSGD kernels counted from zero. ``tkw`` goes
+    to ``TrainerConfig``."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import lowrank as lr
+    from repro_torch.pipeline import schedule as sched
+    from repro_torch.pipeline.schedule import boundary_nbytes
+    S = cfg.num_stages
+    _release()
+    before = torch.cuda.memory_allocated(dev)
+    tr = _trainer(cfg, "fixed", 64, 5, 50, dev, pipe=S, schedule=schedule,
+                  num_microbatches=PIPE_M, stash_policy=stash, **tkw)
+    groups = sorted({(g.stack_size, g.m, g.n, g.rank)
+                     for lay in tr._splans.layouts for g in lay.groups})
+    if groups != sorted(PIPE_GROUPS):
+        raise AssertionError(f"per-stage groups {groups} != (b)'s "
+                             f"{PIPE_GROUPS}")
+    batches = SyntheticLM(cfg.vocab_size, 1024, 8, seed=0).batches()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    kernels = _reset_launches()
+    step_ms, step_peaks = [], []
+    for _ in range(steps):
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms += _timed_steps(tr, batches, 1)
+        step_peaks.append(torch.cuda.max_memory_allocated(dev))
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = max(step_peaks)
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    gaps = [abs(a - b) for a, b in zip(losses, main["loss"])]
+    mb = {"tokens": torch.empty((8 // PIPE_M, 1024))}
+    n_units = tr._part.num_units()
+    every = tr.pipeline_cfg.stash_every
+    predicted = sched.peak_activation_bytes(
+        schedule, S, PIPE_M, stash, boundary_bytes=boundary_nbytes(tr._part, mb),
+        n_units=n_units, stash_every=every)
+    row = {"schedule": schedule, "stash": stash, "loss": losses,
+           "gaps": gaps, "step_ms": step_ms, "peak_bytes": peak,
+           "start_bytes": start, "step_peak_bytes": step_peaks,
+           "before_trainer_bytes": before,
+           "launches": launches, "n_units": n_units,
+           "segments": sched.stash_segments(stash, n_units, every),
+           "predicted_activation_bytes": predicted,
+           "bytes_synced": [h["bytes_synced"] for h in hist]}
+    if profile:
+        row["profile"] = profile_step(tr, batches,
+                                      statistics.median(step_ms[1:]))
+    log(f"    {schedule}/{stash} (segments {row['segments']}): losses "
+        f"{[round(x, 4) for x in losses]}, gaps to (c) "
+        f"{[f'{g:.1e}' for g in gaps]}; step ms "
+        f"{[round(x, 1) for x in step_ms]}; peak {peak / 2**30:.2f} GiB "
+        f"(per step {[round(x / 2**30, 2) for x in step_peaks]}; allocated "
+        f"before the trainer {before / 2**30:.2f}, with its state "
+        f"{start / 2**30:.2f}); "
+        f"ledger's saved activations per stage {predicted} B; launches "
+        f"{launches}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{schedule}/{stash}: losses {losses}")
+    if not (gaps[0] < 2e-3 and max(gaps) < 5e-2):
+        raise AssertionError(f"{schedule}/{stash}: losses {losses} stray from "
+                             f"(c)'s {main['loss']}")
+    if row["bytes_synced"] != main["bytes_synced"][:steps]:
+        raise AssertionError(f"{schedule}/{stash}: bytes synced "
+                             f"{row['bytes_synced']} != (c)'s")
+    if not all(launches[k.__name__] > 0 for k in lr.KERNELS):
+        raise AssertionError(f"a PowerSGD kernel never launched on the "
+                             f"pipelined path: {launches}")
+    del tr
+    _release()
+    return row
+
+
+def _release() -> None:
+    """Free what earlier runs left: unreachable objects first (a dropped
+    trainer can wait for the collector), then the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(report: dict, dev) -> dict:
+    """The pipelined executor on the card: (j1) (c)'s model at S = 4, M = 4
+    through ``LocalPipe``, 1F1B, replay, 4 steps and one profiled; (j2)
+    two steps under the other schedule and stash policies; (j3) edgc at
+    depth 4 (one layer per stage), window 4; (j4) (e)'s small model at
+    S = 4 on the card against the CPU, raw and quant8; (j5) the command
+    line with ``--pipe 2 --trace`` and the report's ``--trace``. Returns
+    the kernels' launches on the pipelined paths: (j1) for PowerSGD, (j4)
+    quant8 for pack."""
+    from repro_torch.configs.gpt2 import GPT2_2_5B, GPT2_FIDELITY
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import lowrank as lr, pack
+    from repro_torch.obs import MemorySink, MetricsRegistry
+    from repro_torch.obs.trace import (expected_span_count, load_trace,
+                                       validate_trace)
+    out: dict = {}
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    S = cfg.num_stages
+    log(f"(j) pipeline: {cfg.name} widths, depth {cfg.num_layers}, S={S} "
+        f"stages {cfg.stage_sizes()}, M={PIPE_M} (microbatch "
+        f"{8 // PIPE_M} x 1024), LocalPipe on one card, fixed r64, kernels "
+        f"on; one card runs the stages one after another (no overlap)")
+    # (j1) the main pipelined path
+    log("(j1) 1f1b/replay, 4 steps and one profiled")
+    out["main"] = _pipe_run(cfg, dev, report["main"], "1f1b", "replay", 4,
+                            profile=True)
+    prof = out["main"]["profile"]
+    main_ms = statistics.median(report["main"]["step_ms"][1:])
+    pipe_ms = statistics.median(out["main"]["step_ms"][1:])
+    log(f"    step {pipe_ms:.1f} ms against (c)'s flat {main_ms:.1f} ms "
+        f"({pipe_ms / main_ms:.3f}x); device busy {prof['busy_ms']:.1f} ms, "
+        f"idle share {1 - prof['busy_ms'] / prof['step_ms']:.3f}; peak "
+        f"{out['main']['peak_bytes'] / 2**30:.2f} GiB against (c)'s "
+        f"{report['main']['peak_bytes'] / 2**30:.2f} GiB")
+    # (j2) the other schedule and stash policies, 2 steps each
+    log("(j2) the other schedule and stash policies, 2 steps each")
+    out["policies"] = [_pipe_run(cfg, dev, report["main"], sch, st, 2,
+                                 profile=False, stash_every=every)
+                       for sch, st, every in PIPE_CASES]
+
+    # (j3) edgc: Algorithm 2's stage-aligned ranks on the pipelined trainer
+    small = dataclasses.replace(GPT2_2_5B, num_layers=4)
+    sink = MemorySink()
+    tr = _trainer(small, "edgc", 64, 12, 4, dev, pipe=S,
+                  num_microbatches=PIPE_M,
+                  metrics=MetricsRegistry([sink]))
+    t0 = time.perf_counter()
+    # 11 of 12 steps: the last re-plan (step 7) is the plan steps 8-10 ran
+    hist = tr.run(SyntheticLM(small.vocab_size, 1024, 8, seed=0).batches(),
+                  num_steps=11)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ranks = list(tr.controller.rank_history[-1][1]) \
+        if tr.controller.rank_history else []
+    plan = tr.controller.plan.as_dict()
+    stage_b = tr.stage_bytes()
+    # bf16 wire: 2 r (m + n) bytes per matrix of a compressed leaf at its
+    # stage's rank (capped at half its smaller side), 2 per element else
+    by_hand = [0] * S
+    for l in tr.leaves:
+        s = min(l.stage, S - 1)
+        if l.path in plan:
+            *lead, m, n = l.shape
+            r = max(1, min(ranks[s], min(m, n) // 2))
+            by_hand[s] += 2 * r * (m + n) * math.prod(lead)
+        else:
+            by_hand[s] += 2 * math.prod(l.shape)
+    replans = [e for e in sink.events() if e["name"] == "plan_change"]
+    q_ranks = sorted({int(v.q.shape[-1]) for v in tr.state["comp"].values()
+                      if hasattr(v, "q")})
+    out["edgc"] = {"ranks": ranks, "stage_bytes": stage_b,
+                   "by_hand": by_hand, "replans": len(replans),
+                   "q_ranks": q_ranks, "seconds": secs,
+                   "loss": [h["loss"] for h in hist],
+                   "stage_entropy": tr._last_stage_entropy}
+    log(f"(j3) edgc depth 4 (one layer per stage), window 4, 11 of 12 steps "
+        f"in {secs:.1f} s: applied ranks {ranks}; {len(replans)} re-plans; "
+        f"compressor Q ranks {q_ranks}; stage bytes {stage_b}; by hand "
+        f"{by_hand}; stage entropy {tr._last_stage_entropy}")
+    if len(ranks) != S or ranks != sorted(ranks):
+        raise AssertionError(f"applied rank vector {ranks} is not {S} "
+                             "non-decreasing entries")
+    if [c for c, _ in stage_b] != by_hand or hist[-1]["stage_bytes"] != stage_b:
+        raise AssertionError(f"stage bytes {stage_b} / {hist[-1]['stage_bytes']}"
+                             f" != stage_wire_bytes of the plan {by_hand}")
+    for path, r in plan.items():
+        leaf = next(l for l in tr.leaves if l.path == path)
+        want = max(1, min(ranks[min(leaf.stage, S - 1)],
+                          min(leaf.shape[-2:]) // 2))
+        if r != want:
+            raise AssertionError(f"{path}: rank {r}, stage rank gives {want}")
+    if not replans or q_ranks != sorted({r for _, r in
+                                         tr.controller.plan.ranks}):
+        raise AssertionError(f"no re-plan resized the compressor state: "
+                             f"{len(replans)} plan changes, Q ranks {q_ranks}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("the pipelined edgc run gave a non-finite loss")
+    del tr
+    _release()
+
+    # (j4) (e)'s small fp32 model at S = 4: card against CPU
+    out["check"] = {}
+    pipe_launches = {}
+    for wire in ("raw", "quant8"):
+        runs = {}
+        for where in ("cpu", dev):
+            kernels = _reset_launches()
+            tr = _trainer(GPT2_FIDELITY, "fixed", 8, 3, 50, where, wire=wire,
+                          pipe=GPT2_FIDELITY.num_stages)
+            h = tr.run(SyntheticLM(GPT2_FIDELITY.vocab_size, 64, 4,
+                                   seed=1).batches())
+            runs[str(where)] = ([x["loss"] for x in h],
+                                {k.__name__: k.launches for k in kernels})
+        (cpu, _), (gpu, launches) = runs["cpu"], runs[str(dev)]
+        gap = max(abs(a - b) for a, b in zip(cpu, gpu))
+        out["check"][wire] = {"cpu_loss": cpu, "gpu_loss": gpu,
+                              "max_gap": gap, "launches": launches}
+        log(f"(j4) gpt2-fidelity fp32 S=4 wire={wire}, 3 steps: card {gpu} "
+            f"cpu {cpu} max gap {gap:.2e} (tol 5e-3); card launches "
+            f"{launches}")
+        if not gap < 5e-3 or not all(math.isfinite(x) for x in gpu):
+            raise AssertionError(f"wire={wire}: the card's pipelined kernel "
+                                 "path disagrees with the CPU")
+        used = lr.KERNELS + (pack.KERNELS if wire != "raw" else ())
+        if not all(launches[k.__name__] > 0 for k in used):
+            raise AssertionError(f"wire={wire}: a kernel never launched on "
+                                 f"the pipelined card run: {launches}")
+        if wire == "quant8":
+            pipe_launches.update({k.__name__: launches[k.__name__]
+                                  for k in pack.KERNELS})
+    pipe_launches.update({k.__name__: out["main"]["launches"][k.__name__]
+                          for k in lr.KERNELS})
+
+    # (j5) the command line: --pipe 2 --trace, then the report's --trace
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        trace_a, trace_b = os.path.join(tmp, "a.json"), os.path.join(tmp, "b.json")
+        runs = os.path.join(tmp, "runs")
+        t0 = time.perf_counter()
+        cmds = [[sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 "gpt2", "--variant", "reduced", "--policy", "fixed",
+                 "--pipe", "2", "--micro", "2", "--steps", "4", "--batch",
+                 "4", "--seq", "64", "--use-kernels", "--trace", trace_a,
+                 "--metrics-dir", runs],
+                [sys.executable, "-m", "repro_torch.launch.report", runs,
+                 "--trace", trace_b]]
+        logs = [subprocess.run(c, env=env, capture_output=True, text=True,
+                               check=True, timeout=300).stdout for c in cmds]
+        secs = time.perf_counter() - t0
+        stats = [validate_trace(load_trace(t)) for t in (trace_a, trace_b)]
+    want = expected_span_count("1f1b", 2, 2)
+    got = [st["by_cat"].get("forward", 0) + st["by_cat"].get("backward", 0)
+           for st in stats]
+    out["cli"] = {"stats": stats, "expected_spans": want, "seconds": secs,
+                  "train_tail": logs[0].splitlines()[-3:],
+                  "report": logs[1].splitlines()}
+    log(f"(j5) launch.train --pipe 2 --trace on the card, then "
+        f"launch.report --trace, {secs:.1f} s: F/B spans {got} (tick table "
+        f"{want}), tracks {[st['tracks'] for st in stats]}")
+    for line in logs[1].splitlines():
+        log(f"    report | {line}")
+    if got != [want, want] or "pipeline: S=2 M=2 1f1b" not in logs[1]:
+        raise AssertionError(f"trace spans {got} != {want} or the report "
+                             "lacks the pipeline line")
+    report["pipeline"] = out
+    return pipe_launches
+
+
 # ----------------------------------------------------------------- the lines
-def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
+def kernels_line(report: dict, launches: dict, pack_launches: dict,
+                 pipe_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -1508,7 +1807,8 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
                                     if r["kernel"] == name),
                  "ms": total("ms"), "plain_ms": total("plain_ms"),
                  "bound_ms": total("bound_ms"), "bound_by": bound_by,
-                 "library_ms": total("library_ms")}
+                 "library_ms": total("library_ms"),
+                 "launches_pipelined": pipe_launches[wrapper]}
         entry["device_ms"] = total("device_ms")
         if name == "gram_schmidt":
             # the column chain: cluster size, device ms per column and
@@ -1539,6 +1839,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict) -> dict:
         out.append({"name": name, "route": "cuda", "source": PACK_SOURCE,
                     "replaces": PACK_REPLACES[name],
                     "launches": pack_launches[name],
+                    "launches_pipelined": pipe_launches[name],
                     "max_abs_err": float(max(c[name] for c in
                                              report["pack_checks"])),
                     "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -1614,8 +1915,9 @@ def main() -> int:
     phase_histogram(report, dev, grad_sample)
     del grad_sample
     phase_faults(report, dev)
+    pipe_launches = phase_pipeline(report, dev)
     report["seconds"] = time.perf_counter() - t0
-    line = kernels_line(report, launches, pack_launches)
+    line = kernels_line(report, launches, pack_launches, pipe_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

@@ -92,20 +92,37 @@ def _sampled_leaves(grads, cfg: GDSConfig) -> list[torch.Tensor]:
             for l in tree.leaves(grads) if l.numel() > 16]
 
 
-def sample_moments(grads, cfg: GDSConfig = GDSConfig()):
+def sample_moments(grads, cfg: GDSConfig = GDSConfig(), lead_mask=None):
     """(count, sum, sum-of-squares) of the pooled beta-sample of a tree.
 
     Sufficient statistics for the Gaussian estimator, and additive across
-    partial trees.
+    partial trees: the pipelined step computes them per stage and sums
+    over the stages.
+
+    ``lead_mask`` (a boolean (Lmax,) live-unit vector for a stage-stacked
+    tree whose leaves all lead with that dim) excludes zero-padded slots:
+    the mask broadcasts over each leaf, is sampled at the same positions
+    as the values, and only live samples count. Without it a ragged
+    stage would pool its pad zeros and bias sigma low.
     """
-    samples = _sampled_leaves(grads, cfg)
-    if not samples:
+    leaves = [l for l in tree.leaves(grads) if l.numel() > 16]
+    if not leaves:
         z = torch.zeros(())
         return z, z, z
-    n = torch.tensor(float(sum(s.shape[0] for s in samples)),
-                     device=samples[0].device)
-    s1 = sum(torch.sum(s) for s in samples)
-    s2 = sum(torch.sum(s * s) for s in samples)
+    samples = [strided_sample(l, cfg.beta).float() for l in leaves]
+    if lead_mask is None:
+        n = torch.tensor(float(sum(s.shape[0] for s in samples)),
+                         device=samples[0].device)
+        s1 = sum(torch.sum(s) for s in samples)
+        s2 = sum(torch.sum(s * s) for s in samples)
+        return n, s1, s2
+    mask = torch.as_tensor(np.asarray(lead_mask), dtype=torch.float32,
+                           device=samples[0].device)
+    masks = [strided_sample(mask.reshape((-1,) + (1,) * (l.ndim - 1))
+                            .expand(l.shape), cfg.beta) for l in leaves]
+    n = sum(torch.sum(m) for m in masks)
+    s1 = sum(torch.sum(s * m) for s, m in zip(samples, masks))
+    s2 = sum(torch.sum(s * s * m) for s, m in zip(samples, masks))
     return n, s1, s2
 
 

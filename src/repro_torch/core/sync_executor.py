@@ -1,9 +1,15 @@
 """SyncExecutor — the one entry point for DP gradient synchronization.
 
-Port of ``repro/core/sync_executor.py``, flat mode: the whole gradient
-tree synced under one CompressionPlan by ``compressor.sync_grads``. The
-per-stage modes belong to the pipelined executor (ROADMAP Queue 1 item 8)
-and raise.
+Port of ``repro/core/sync_executor.py``. Modes:
+
+  flat                   ``sync(grads, comp, psum_mean)``: the whole
+                         gradient tree under one CompressionPlan.
+  per-stage              ``sync(stage_grads, comp, psum_mean,
+                         shared_grads=..., my_stage=...)``: the schedule
+                         of the stage's own plan, run after the pipeline
+                         drains (``pipeline/sync.stage_sync_grads``).
+  per-stage-overlapped   the sync launched inside the drain ticks: not
+                         ported yet (ROADMAP Queue 1 item 8b), it raises.
 """
 from __future__ import annotations
 
@@ -19,23 +25,27 @@ PsumFn = Callable[[Any], Any]
 
 
 class SyncExecutor:
-    """Facade over the DP-sync executors (flat mode ported)."""
+    """Facade over the flat and per-stage DP-sync executors."""
 
     def __init__(self, cfg: SyncConfig | None = None, mode: str = "flat", *,
-                 plan: CompressionPlan | None = None) -> None:
+                 plan: CompressionPlan | None = None, splans=None) -> None:
         if mode not in COMM_MODES:
             raise ValueError(f"unknown CommMode {mode!r} "
                              f"(want one of {COMM_MODES})")
-        if mode != "flat":
+        if mode == "per-stage-overlapped":
             raise NotImplementedError(
-                f"mode={mode!r} needs the pipelined executor, not ported yet "
-                "(ROADMAP Queue 1 item 8)")
-        if plan is None:
+                "mode='per-stage-overlapped' (sync chunks launched inside "
+                "the pipeline's drain ticks) is not ported yet (ROADMAP "
+                "Queue 1 item 8b)")
+        if mode == "flat" and plan is None:
             raise ValueError("mode='flat' requires a CompressionPlan")
+        if mode != "flat" and splans is None:
+            raise ValueError(f"mode={mode!r} requires StagePlans")
         self.cfg = cfg or SyncConfig()
         self.codec = self.resolve_codec(self.cfg)
         self.mode = mode
         self.plan = plan
+        self.splans = splans
 
     @staticmethod
     def resolve_codec(cfg: SyncConfig):
@@ -56,10 +66,25 @@ class SyncExecutor:
                              "executor (SyncConfig.bucketed must not be False)")
         return codec
 
-    def sync(self, grads: Any, comp_state: dict, psum_mean: PsumFn):
-        """Returns (synced grads, new compressor state)."""
-        return sync_grads(grads, comp_state, self.plan, psum_mean,
-                          use_kernels=self.cfg.use_kernels,
-                          bucketed=self.cfg.bucketed,
-                          bucket_bytes=self.cfg.bucket_bytes,
-                          codec=self.codec)
+    def sync(self, grads: Any, comp_state: dict, psum_mean: PsumFn, *,
+             shared_grads: Any = None, my_stage: int | None = None):
+        """flat: returns (synced grads, new compressor state). per-stage:
+        ``grads`` is one stage's tree, ``my_stage`` its index; returns
+        (synced_stage, synced_shared, new_state), ``synced_shared`` None
+        when no ``shared_grads`` are given."""
+        if self.mode == "flat":
+            return sync_grads(grads, comp_state, self.plan, psum_mean,
+                              use_kernels=self.cfg.use_kernels,
+                              bucketed=self.cfg.bucketed,
+                              bucket_bytes=self.cfg.bucket_bytes,
+                              codec=self.codec)
+        from repro_torch.pipeline.sync import stage_sync_grads
+        return stage_sync_grads(grads, shared_grads, comp_state, self.splans,
+                                psum_mean, my_stage,
+                                use_kernels=self.cfg.use_kernels,
+                                codec=self.codec)
+
+    def sync_shared(self, shared_grads: Any, psum_mean: PsumFn):
+        """Flat-bucket sync of the shared leaves (never compressed)."""
+        from repro_torch.pipeline.sync import sync_shared_grads
+        return sync_shared_grads(shared_grads, psum_mean)

@@ -9,7 +9,12 @@ The reference gives every compressor leaf a leading per-worker replica
 dim; the port keeps one worker's state per process, so replica 0 is taken.
 Compressor entries are ``LowRankState`` pairs (q, err), or, under a coded
 wire, raw ``ef:<path>`` residuals, which come across as fp32 tensors.
-Only numpy is read here: nothing of JAX is imported.
+
+The pipelined reference trainer's state (``stage_params`` with leaves
+(S, Lmax, ...), ``shared_params``, ``opt_m``/``opt_v`` as ``{"stage",
+"shared"}``, ``opt_step`` and ``comp`` with leaves (S, W, ...)) converts
+the same way; its compressor leaves keep the stage dim and take worker
+0's slice. Only numpy is read here: nothing of JAX is imported.
 """
 from __future__ import annotations
 
@@ -34,23 +39,27 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 
 
 def from_reference(state_np: dict[str, Any], device="cpu") -> dict[str, Any]:
+    conv = lambda t: tree.tree_map(lambda a: to_tensor(a, device), t)
     out: dict[str, Any] = {}
-    for key in ("params", "opt_m", "opt_v"):
+    for key in ("params", "opt_m", "opt_v", "stage_params", "shared_params"):
         if key in state_np:
-            out[key] = tree.tree_map(lambda a: to_tensor(a, device),
-                                     state_np[key])
+            out[key] = conv(state_np[key])
     if "opt_step" in state_np:
         out["opt_step"] = to_tensor(np.asarray(state_np["opt_step"], np.int32),
                                     device)
     if "comp" in state_np:
-        out["comp"] = {key: _comp_entry(st, device)
+        # flat: (W, ...) leaves; pipelined: (S, W, ...), worker after stage
+        worker = ((lambda a: np.asarray(a)[:, 0])
+                  if "stage_params" in state_np
+                  else (lambda a: np.asarray(a)[0]))
+        out["comp"] = {key: _comp_entry(st, worker, device)
                        for key, st in state_np["comp"].items()}
     return out
 
 
-def _comp_entry(st, device):
+def _comp_entry(st, worker, device):
     if isinstance(st, tuple):
         q, err = st
-        return LowRankState(q=to_tensor(np.asarray(q)[0], device),
-                            err=to_tensor(np.asarray(err)[0], device))
-    return to_tensor(np.asarray(st, np.float32)[0], device)
+        return LowRankState(q=to_tensor(worker(q), device),
+                            err=to_tensor(worker(err), device))
+    return to_tensor(np.asarray(worker(st), np.float32), device)

@@ -9,9 +9,12 @@ records the trainer's ``MetricsRegistry`` emitted:
     python -m repro_torch.launch.report runs/obs_run
     python -m repro_torch.launch.report runs/obs_run --csv m.csv
 
-The pipeline lines (bubble fraction, overlap plan) and ``--trace`` come
-with the pipeline's port (ROADMAP Queue 1 item 8); ``--trace`` refuses
-until then.
+A pipelined run adds its schedule line and the schedule-ideal bubble
+fraction (and an overlap plan's line, where the run has one); ``--trace
+PATH`` re-emits a Chrome trace of the run's schedule with its ticks scaled
+to the measured step time:
+
+    python -m repro_torch.launch.report runs/pipe --trace runs/pipe/trace.json
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ import argparse
 import os
 
 from repro_torch.obs.metrics import read_jsonl, write_csv
+from repro_torch.obs.trace import (tick_trace_events, validate_trace,
+                                   write_chrome_trace)
+from repro_torch.pipeline.schedule import bubble_fraction, simulate_schedule
 
 __all__ = ["build_report", "main"]
 
@@ -63,6 +69,24 @@ def build_report(records: list[dict]) -> list[str]:
         lines.append(f"run: {d.get('model')} ({d.get('family')}) "
                      f"policy={d.get('policy')} world={d.get('world')} "
                      f"steps={d.get('total_steps')}")
+        if d.get("pipelined"):
+            S, M = d.get("num_stages"), d.get("num_microbatches")
+            lines.append(f"pipeline: S={S} M={M} {d.get('schedule')} "
+                         f"stash={d.get('stash_policy')} "
+                         f"overlap_sync={d.get('overlap_sync')}")
+            try:
+                lines.append(
+                    f"bubble fraction: {bubble_fraction(S, M):.3f} "
+                    f"((S-1)/(M+S-1), schedule-ideal)")
+            except Exception:
+                pass
+    plan = next((e for e in _events(records, "overlap_plan")), None)
+    if plan is not None:
+        d = plan.get("data", {})
+        lines.append(f"overlap plan: in-loop {d.get('in_loop_chunks')} "
+                     f"residual {d.get('residual_chunks')} chunks, "
+                     f"slack util {d.get('slack_utilization', 0):.2f}, "
+                     f"feasible={d.get('feasible')}")
 
     for name, label in (("loss", "loss"), ("entropy", "entropy"),
                         ("ef_norm", "EF norm"), ("grad_norm", "grad norm")):
@@ -146,8 +170,24 @@ def _emit_trace(records: list[dict], path: str) -> None:
     meta = next((e for e in _events(records, "run_meta")), None)
     if meta is None or not meta.get("data", {}).get("pipelined"):
         raise SystemExit("--trace needs a run_meta event from a pipelined run")
-    raise SystemExit("--trace: the pipeline tick tracer is not ported yet "
-                     "(ROADMAP Queue 1 item 8)")
+    d = meta["data"]
+    S, M = int(d["num_stages"]), int(d["num_microbatches"])
+    schedule = d.get("schedule", "1f1b")
+    walls = _scalars(records, "wall_s")
+    sim = simulate_schedule(schedule, S, M)
+    if len(walls) >= 2:
+        dt = (walls[-1][1] - walls[0][1]) / max(1, walls[-1][0] - walls[0][0])
+        scale = dt / float(sim["makespan"])
+    else:
+        scale = 1e-3
+    events = tick_trace_events(schedule, S, M, t_f=scale, t_b=scale,
+                               time_unit_us=1e6)
+    write_chrome_trace(path, events,
+                       metadata={"source": "report", "schedule": schedule,
+                                 "num_stages": S, "num_microbatches": M})
+    stats = validate_trace({"traceEvents": events})
+    print(f"trace: {path} ({stats['spans']} spans, "
+          f"{stats['tracks']} tracks)")
 
 
 def main(argv=None) -> None:
@@ -156,8 +196,8 @@ def main(argv=None) -> None:
     ap.add_argument("run", help="run directory (containing metrics.jsonl) "
                                 "or a .jsonl path")
     ap.add_argument("--trace", default=None,
-                    help="re-emit a Chrome trace JSON of a pipelined run "
-                         "(refuses until the pipeline is ported)")
+                    help="re-emit a Chrome trace JSON from the run's "
+                         "schedule shape and measured step time")
     ap.add_argument("--csv", default=None,
                     help="export scalar/series/counter records as CSV")
     args = ap.parse_args(argv)

@@ -18,11 +18,25 @@ policies; ``--metrics-dir`` writes the run's telemetry, which
       --variant reduced --policy fixed --steps 12 --inject nan_grad@3 \\
       --recover --metrics-dir runs/faults --device cpu
 
-The flags are the reference launcher's flat ones, plus ``--device``.
+``--pipe S`` partitions the model into S stages and runs the pipelined
+executor (GPipe or 1F1B, ``--stash`` policy) with all S stage programs in
+this process on the chosen device; ``--trace`` writes the schedule as a
+Chrome trace, its ticks scaled to the measured step time:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 \\
+      --variant reduced --policy edgc --pipe 4 --micro 4 --steps 12 \\
+      --window 4 --batch 4 --seq 32 --trace runs/pipe/trace.json \\
+      --metrics-dir runs/pipe --device cpu
+
+The flags are the reference launcher's, but for the elastic outer loop
+(``--outer-*``, ``--pods``, ``--rounds``) and the mesh shape, plus
+``--device``. ``--overlap`` and ``--chunk-bytes`` (the sync interleaved
+with the drain ticks) refuse until that is ported.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 from repro_torch.configs import ARCHS, get_config
@@ -30,9 +44,12 @@ from repro_torch.core import EDGCConfig, GDSConfig, SyncConfig
 from repro_torch.core.dac import DACConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models.model import build_model
-from repro_torch.obs import profiler_session
+from repro_torch.obs import (load_trace, profiler_session, tick_trace_events,
+                             validate_trace, write_chrome_trace)
 from repro_torch.optim.adam import AdamConfig
 from repro_torch.pipeline import PipelineConfig
+from repro_torch.pipeline.partition import pipeline_supported
+from repro_torch.pipeline.schedule import simulate_schedule
 from repro_torch.train.faults import RecoveryConfig, parse_inject
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -50,6 +67,27 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--stages", type=int, default=0, help="0 = config default")
+    ap.add_argument("--pipe", type=int, default=0,
+                    help="pipeline stages: partition the model into this "
+                         "many stages and run the pipelined (GPipe/1F1B) "
+                         "executor, every stage in this process")
+    ap.add_argument("--schedule", default="1f1b", choices=["gpipe", "1f1b"])
+    ap.add_argument("--micro", type=int, default=0,
+                    help="microbatches per step (0 -> num_stages)")
+    ap.add_argument("--stash", default="replay",
+                    choices=["replay", "full", "every_k"],
+                    help="pipeline activation stashing: replay re-derives "
+                         "each stage's forward in its backward; full/every_k "
+                         "stash inter-unit carries into a second ring and "
+                         "replay only the un-stashed segments")
+    ap.add_argument("--stash-every", type=int, default=2,
+                    help="k for --stash every_k")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlap each stage's DP sync with the pipeline "
+                         "drain (not ported yet: refuses)")
+    ap.add_argument("--chunk-bytes", type=int, default=0,
+                    help="split flat sync buckets into transfer chunks for "
+                         "overlap scheduling (not ported yet: refuses)")
     ap.add_argument("--use-kernels", action="store_true",
                     help="run the PowerSGD products through the Hopper kernels")
     ap.add_argument("--wire", default="raw",
@@ -81,6 +119,11 @@ def main(argv=None) -> list[dict]:
                     help="write structured telemetry (scalars/series/events) "
                          "as JSONL to <dir>/metrics.jsonl; read it back with "
                          "python -m repro_torch.launch.report <dir>")
+    ap.add_argument("--trace", default=None,
+                    help="emit a Chrome trace-event JSON of the pipeline "
+                         "schedule (Perfetto-loadable) to this path, with "
+                         "tick durations scaled to the measured mean step "
+                         "time (pipelined runs only)")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
                     help="wrap the run in a torch.profiler session and write "
                          "its Chrome trace to LOGDIR/trace.json")
@@ -95,10 +138,32 @@ def main(argv=None) -> list[dict]:
     recovery = RecoveryConfig(
         spike_factor=args.spike_factor, max_rollbacks=args.max_rollbacks,
         fallback_after=args.fallback_after) if args.recover else None
+    if args.overlap or args.chunk_bytes:
+        raise SystemExit("--overlap/--chunk-bytes: the sync interleaved with "
+                         "the pipeline's drain ticks is not ported yet "
+                         "(ROADMAP Queue 1 item 8b)")
+    if args.trace and not args.pipe:
+        raise SystemExit("--trace requires --pipe: the tick tracer renders "
+                         "the pipeline schedule")
     cfg = get_config(args.arch, args.variant)
-    num_stages = args.stages or cfg.num_stages
+    if args.pipe:
+        if args.stages and args.stages != args.pipe:
+            raise SystemExit(f"--pipe {args.pipe} conflicts with --stages "
+                             f"{args.stages}: the pipe size IS the stage "
+                             "count")
+        num_stages = args.pipe
+        cfg = dataclasses.replace(cfg, num_stages=num_stages)
+        reason = pipeline_supported(cfg, num_stages)
+        if reason is not None:
+            raise SystemExit(f"--pipe {args.pipe} unsupported for "
+                             f"{cfg.name}: {reason}")
+    else:
+        num_stages = args.stages or cfg.num_stages
     model = build_model(cfg)
-    pipe_cfg = PipelineConfig(num_stages=num_stages)
+    pipe_cfg = PipelineConfig(
+        num_stages=num_stages, schedule=args.schedule,
+        num_microbatches=args.micro, stash_policy=args.stash,
+        stash_every=args.stash_every)
     sync_cfg = SyncConfig(use_kernels=args.use_kernels, wire=args.wire)
     edgc = EDGCConfig(
         policy=args.policy, fixed_rank=args.rank, total_iterations=args.steps,
@@ -114,9 +179,12 @@ def main(argv=None) -> list[dict]:
         adam=AdamConfig(lr=args.lr, warmup_steps=max(10, args.steps // 10),
                         total_steps=args.steps),
     )
-    trainer = Trainer(model, edgc, tcfg, seed=args.seed, device=args.device)
+    trainer = Trainer(model, edgc, tcfg, seed=args.seed, device=args.device,
+                      pipe=args.pipe or None)
+    pipe_tag = (f", pipe={args.pipe} ({args.schedule}, stash={args.stash})"
+                if args.pipe else "")
     print(f"{cfg.name}: {trainer.n_params/1e6:.1f}M params on {trainer.device}, "
-          f"policy={args.policy}, {trainer.controller.describe()}")
+          f"policy={args.policy}{pipe_tag}, {trainer.controller.describe()}")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        batch_size=args.batch, seed=args.seed)
     with profiler_session(bool(args.profile), args.profile or "profile"):
@@ -130,6 +198,28 @@ def main(argv=None) -> list[dict]:
         print(f"wire coding ({args.wire}): {trainer.bytes_synced}/"
               f"{trainer.bytes_wire_raw} coded/raw payload bytes "
               f"({trainer.bytes_synced / trainer.bytes_wire_raw:.2%})")
+    if args.trace:
+        S, M = args.pipe, (args.micro or args.pipe)
+        sim = simulate_schedule(args.schedule, S, M)
+        # scale the unit-tick spans so the trace's makespan matches the
+        # measured mean step wall time (first -> last history record)
+        if len(hist) >= 2 and hist[-1]["step"] > hist[0]["step"]:
+            mean_step_s = ((hist[-1]["wall_s"] - hist[0]["wall_s"])
+                           / (hist[-1]["step"] - hist[0]["step"]))
+        else:
+            mean_step_s = float(sim["makespan"])
+        scale = mean_step_s / float(sim["makespan"])
+        events = tick_trace_events(
+            args.schedule, S, M, t_f=scale, t_b=scale,
+            stash_policy=args.stash, n_units=trainer._part.num_units(),
+            stash_every=args.stash_every, time_unit_us=1e6)
+        write_chrome_trace(args.trace, events, metadata={
+            "arch": cfg.name, "schedule": args.schedule, "S": S, "M": M,
+            "mean_step_s": mean_step_s})
+        summary = validate_trace(load_trace(args.trace))
+        print(f"trace: {args.trace} — {summary['spans']} spans on "
+              f"{summary['tracks']} stage tracks, "
+              f"{summary['end_us']/1e6:.3f}s span horizon")
     trainer.metrics.close()
     if trainer.recovery is not None:
         print(f"recovery: {trainer.recovery.as_dict()}")

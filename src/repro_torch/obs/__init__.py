@@ -4,8 +4,8 @@
   scalar/series/counter/event emitters and pluggable sinks (JSONL file,
   in-memory for tests, CSV export). Device values reach the host in one
   batched copy at flush boundaries only.
-- ``repro_torch.obs.trace`` — the ``--profile`` ``torch.profiler`` hook.
-  The pipeline tick tracer comes with the pipeline (ROADMAP item 8).
+- ``repro_torch.obs.trace`` — the pipeline tick tracer (tick tables ->
+  Chrome trace-event JSON) and the ``--profile`` ``torch.profiler`` hook.
 - ``repro_torch.launch.report`` — CLI rendering a run's JSONL telemetry as
   a text summary.
 """
@@ -17,7 +17,14 @@ from repro_torch.obs.metrics import (  # noqa: F401
     read_jsonl,
     write_csv,
 )
-from repro_torch.obs.trace import profiler_session  # noqa: F401
+from repro_torch.obs.trace import (  # noqa: F401
+    expected_span_count,
+    load_trace,
+    profiler_session,
+    tick_trace_events,
+    validate_trace,
+    write_chrome_trace,
+)
 
 __all__ = [
     "JsonlSink",
@@ -27,4 +34,9 @@ __all__ = [
     "read_jsonl",
     "write_csv",
     "profiler_session",
+    "tick_trace_events",
+    "write_chrome_trace",
+    "load_trace",
+    "validate_trace",
+    "expected_span_count",
 ]

@@ -1,6 +1,13 @@
-"""Pipeline surface of the port: the config and the per-stage byte ledger.
+"""Pipeline parallelism of the port (ROADMAP Queue 1 item 8a).
 
-The pipelined executor itself is not ported yet (ROADMAP Queue 1 item 8).
+- ``config``: :class:`PipelineConfig`, the pipeline-execution knobs.
+- ``schedule``: the GPipe / 1F1B tick tables and their analytics.
+- ``adapters`` / ``partition``: the family's stage adapter (dense).
+- ``sync``: the per-stage DP sync and its compressor state.
+- ``executor``: the pipelined train step and its transports
+  (``LocalPipe``, ``DistPipe``).
+
+The sync overlapped with the drain ticks is item 8b.
 """
 from .config import PIPELINE_FIELDS, PipelineConfig
 

@@ -1,8 +1,8 @@
 """PipelineConfig — the one home for pipeline-execution knobs.
 
-Port of ``repro/pipeline/config.py``. Only the flat path is ported so far,
-so the trainer pins ``num_stages`` to 1 for execution; the DAC still sees
-the model's virtual stage count through ``EDGCConfig.pipeline``.
+Port of ``repro/pipeline/config.py``. A trainer given ``pipe=S`` runs
+``num_stages`` = S stages; without it the stage count the DAC sees stays
+virtual and execution runs one stage (the flat step).
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 One step: loss and gradients on this worker's batch shard, the DP sync
 through the :class:`SyncExecutor` (compressed factor means for planned
 leaves, plain means for the rest), the GDS entropy of the synced
-gradients when the alpha gate asks for it, and an AdamW update. The
-pipelined branch is ROADMAP Queue 1 item 8.
+gradients when the alpha gate asks for it, and an AdamW update.
+``cfg.num_stages > 1``, or a pipe transport, routes to the pipelined step
+(``repro_torch.pipeline.executor``).
 
 The fault channel: a batch may carry an ``_inject`` flag tensor (the
 trainer adds it on every step once a ``nan_grad`` fault is scheduled);
@@ -77,7 +78,8 @@ for _name in SYNC_FIELDS:
 del _name
 
 
-def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
+def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
+                    pipe=None):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     state = {params, opt_m, opt_v, opt_step, comp}; metrics = {loss,
@@ -88,10 +90,14 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None):
     sync returns both, and ``ef_norm`` counts the PowerSGD residuals only,
     as the reference does.
     ``psum_mean`` defaults to the mean over the ``torch.distributed`` world.
+
+    ``cfg.num_stages > 1`` or a ``pipe`` transport (``LocalPipe``,
+    ``DistPipe``) returns the pipelined step instead, with the
+    stage-partitioned state of ``pipeline.executor``.
     """
-    if cfg.num_stages > 1:
-        raise NotImplementedError("the pipelined train step is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    if cfg.num_stages > 1 or pipe is not None:
+        from repro_torch.pipeline.executor import make_pipeline_train_step
+        return make_pipeline_train_step(model, cfg, psum_mean, pipe)
     if cfg.mode != "dp_tp":
         raise NotImplementedError(f"mode={cfg.mode!r}: only the flat dp_tp "
                                   "step is ported")

@@ -15,8 +15,14 @@ Port of the flat path of ``repro/train/trainer.py``:
 
 Data parallelism is one process per worker under ``torch.distributed``
 (initialised by the caller): each worker takes its contiguous slice of the
-global batch, as the reference's ``data`` mesh axis shards it. The
-pipelined executor is a later slice (ROADMAP Queue 1 item 8).
+global batch, as the reference's ``data`` mesh axis shards it.
+
+``pipe=S`` is the counterpart of the reference's mesh with a ``pipe`` axis:
+the state is partitioned into S stages (``pipeline.partition``) and each
+step runs the pipelined executor with all S stage programs in this process
+(``pipeline.executor.LocalPipe``), each stage synced at its own rank.
+Without it, ``num_stages`` > 1 stays virtual: the DAC emits per-stage
+ranks and the flat step runs.
 """
 from __future__ import annotations
 
@@ -41,8 +47,8 @@ from repro_torch.dist.collectives import (dp_all_gather, dp_barrier, dp_rank,
 from repro_torch.models.model import Model, param_count
 from repro_torch.obs.metrics import JsonlSink, MetricsRegistry, fetch
 from repro_torch.optim import adam
+from repro_torch.pipeline import sync as psync
 from repro_torch.pipeline.config import PIPELINE_FIELDS
-from repro_torch.pipeline.sync import stage_wire_bytes
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.faults import (FaultPlan, RecoveryState,
                                       poison_lowrank_state, truncate_file)
@@ -50,8 +56,10 @@ from repro_torch.train.step import TrainStepConfig, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer", "resolve_device"]
 
-# the step metrics a flush reads (``skipped`` only under the guard)
-_METRIC_KEYS = ("loss", "entropy", "grad_norm", "lr", "ef_norm", "skipped")
+# the step metrics a flush reads (``skipped`` only under the guard,
+# ``stage_entropy`` only on the pipelined step)
+_METRIC_KEYS = ("loss", "entropy", "grad_norm", "lr", "ef_norm", "skipped",
+                "stage_entropy")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -126,7 +134,8 @@ del _name
 
 class Trainer:
     def __init__(self, model: Model, edgc_cfg: EDGCConfig,
-                 tcfg: TrainerConfig, seed: int = 0, device=None) -> None:
+                 tcfg: TrainerConfig, seed: int = 0, device=None,
+                 pipe: int | None = None) -> None:
         self.device = resolve_device(device)
         self.model = model
         self.edgc_cfg = edgc_cfg
@@ -144,14 +153,25 @@ class Trainer:
         self.rank = dp_rank()
         self.controller = EDGCController(edgc_cfg, self.leaves, world=self.world)
 
-        # Only the flat executor is ported: the stage count the DAC sees
-        # stays virtual, execution runs one stage.
+        # pipe=S runs S stages; without it the stage count the DAC sees
+        # stays virtual and execution runs one stage
+        self.pipelined = pipe is not None
+        if self.pipelined and pipe != edgc_cfg.num_stages:
+            raise ValueError(f"pipe={pipe} != num_stages="
+                             f"{edgc_cfg.num_stages}")
         pcfg = tcfg.pipeline
-        if pcfg.num_stages != 1:
-            pcfg = dataclasses.replace(pcfg, num_stages=1)
+        s_exec = edgc_cfg.num_stages if self.pipelined else 1
+        if pcfg.num_stages != s_exec:
+            pcfg = dataclasses.replace(pcfg, num_stages=s_exec)
         self.pipeline_cfg = pcfg
+        if self.pipelined and pcfg.overlap_sync:
+            raise NotImplementedError(
+                "overlap_sync (the sync interleaved with the drain ticks) is "
+                "not ported yet (ROADMAP Queue 1 item 8b)")
+        # the pipelined sync is always the per-stage bucketed executor
         self._bucketed = tcfg.sync.bucketed is not False
-        self.sync_cfg = dataclasses.replace(tcfg.sync, bucketed=self._bucketed)
+        self.sync_cfg = dataclasses.replace(
+            tcfg.sync, bucketed=None if self.pipelined else self._bucketed)
 
         # Entropy mode re-picks the codec at window ends against the run's
         # first reading; until a reading exists it codes at quant8.
@@ -160,15 +180,21 @@ class Trainer:
         self.sync_cfg = dataclasses.replace(self.sync_cfg, codec=self._codec)
 
         self._comp_seed = fold_in(seed, 123)
-        ost = adam.init(params, tcfg.adam)
-        self._layout = (make_bucket_layout(self.leaves, self.controller.plan,
-                                           self.sync_cfg.bucket_bytes)
-                        if self._bucketed else None)
-        comp = init_compressor_state(params, self.controller.plan,
-                                     fold_in(seed, 99), layout=self._layout,
-                                     wire_ef=self._codec is not None)
-        self.state = {"params": params, "opt_m": ost.m, "opt_v": ost.v,
-                      "opt_step": ost.step, "comp": comp}
+        self._transport = None
+        if self.pipelined:
+            self._init_pipelined_state(params, fold_in(seed, 99), tcfg.adam)
+        else:
+            ost = adam.init(params, tcfg.adam)
+            self._layout = (make_bucket_layout(self.leaves,
+                                               self.controller.plan,
+                                               self.sync_cfg.bucket_bytes)
+                            if self._bucketed else None)
+            comp = init_compressor_state(params, self.controller.plan,
+                                         fold_in(seed, 99),
+                                         layout=self._layout,
+                                         wire_ef=self._codec is not None)
+            self.state = {"params": params, "opt_m": ost.m, "opt_v": ost.v,
+                          "opt_step": ost.step, "comp": comp}
 
         self._step_cache: dict[Any, Any] = {}
         self.history: list[dict] = []
@@ -176,6 +202,7 @@ class Trainer:
         self.bytes_wire_raw = 0         # the same payloads priced uncoded
         self.bytes_full = 0             # what no-compression would have moved
         self._last_entropy = 0.0        # most recent alpha-gated reading
+        self._last_stage_entropy = None  # per-stage hold (pipelined only)
         self._global_step = 0
 
         # ----- telemetry: tcfg.metrics wins (a shared registry or a tagged
@@ -192,7 +219,7 @@ class Trainer:
             "run_meta", step=0,
             model=model.config.name, family=model.config.family,
             policy=edgc_cfg.policy, n_params=int(self.n_params),
-            world=self.world, pipelined=False,
+            world=self.world, pipelined=self.pipelined,
             num_stages=int(edgc_cfg.num_stages), schedule=pcfg.schedule,
             num_microbatches=int(pcfg.num_microbatches or pcfg.num_stages),
             stash_policy=pcfg.stash_policy, overlap_sync=pcfg.overlap_sync,
@@ -204,7 +231,14 @@ class Trainer:
         self.recovery = (RecoveryState() if tcfg.recovery is not None
                          else None)
         self._guard = bool(tcfg.recovery is not None
-                           and tcfg.recovery.guard_nonfinite)
+                           and tcfg.recovery.guard_nonfinite
+                           and not self.pipelined)
+        if self.pipelined and (self.faults.has("nan_grad")
+                               or self.faults.has("corrupt_payload")):
+            raise ValueError("nan_grad/corrupt_payload fault injection "
+                             "requires the flat (non-pipelined) trainer: "
+                             "the pipelined step has no guard/injection "
+                             "channel yet")
         self._ckpt_ring: list[tuple[str, int]] = []  # newest last
         self._tear_next_ckpt = False                 # torn_ckpt fault armed
         self._last_step_ok = True                    # recovered-event edge
@@ -213,6 +247,38 @@ class Trainer:
         # fired event's step must not re-inject it, or a deterministic
         # fault would defeat every retry.
         self._fired_faults: set[int] = set()
+
+    def _init_pipelined_state(self, params, comp_seed: int, acfg) -> None:
+        """The stage-partitioned state: the family's adapter owns the
+        layout (stacked stage keys, ragged padding, leaf paths)."""
+        from repro_torch.pipeline import partition as ppart
+        from repro_torch.pipeline.executor import LocalPipe
+        S = self.edgc_cfg.num_stages
+        reason = ppart.pipeline_supported(self.model.config, S)
+        if reason is not None:
+            raise ValueError(f"pipeline trainer unsupported: {reason}")
+        self._part = ppart.make_partition(self.model, S,
+                                          remat=self.tcfg.remat)
+        self._transport = LocalPipe(S)
+        stage_p, shared_p = self._part.partition_params(params)
+        ost = adam.init({"stage": stage_p, "shared": shared_p}, acfg)
+        self._splans = self._stage_plans(stage_p)
+        comp = psync.init_pipeline_comp_state(
+            params, self.controller.plan, comp_seed, self._splans,
+            wire_ef=self._codec is not None, device=self.device)
+        self.state = {
+            "stage_params": stage_p, "shared_params": shared_p,
+            "opt_m": ost.m, "opt_v": ost.v, "opt_step": ost.step,
+            "comp": comp,
+        }
+
+    def _stage_plans(self, stage_p):
+        return psync.make_stage_plans(
+            self.controller.plan, self.edgc_cfg.num_stages,
+            psync.stage_local_leaves(stage_p),
+            bucket_bytes=self.sync_cfg.bucket_bytes,
+            chunk_bytes=self.pipeline_cfg.chunk_bytes,
+            local_path=self._part.local_leaf_path)
 
     # ------------------------------------------------------------------ setup
     def _get_step(self, measure_entropy: bool):
@@ -225,7 +291,8 @@ class Trainer:
                 measure_entropy=measure_entropy, remat=self.tcfg.remat,
                 guard_nonfinite=self._guard, pipeline=self.pipeline_cfg,
                 sync=self.sync_cfg, adam=self.tcfg.adam)
-            self._step_cache[key] = make_train_step(self.model, scfg)
+            self._step_cache[key] = make_train_step(self.model, scfg,
+                                                    pipe=self._transport)
         return self._step_cache[key]
 
     def _device_batch(self, batch: dict) -> dict:
@@ -276,7 +343,13 @@ class Trainer:
         """Resize/extend compressor state to the new plan."""
         plan = self.controller.plan
         comp = self.state["comp"]
-        if self._bucketed:
+        if self.pipelined:
+            new_splans = self._stage_plans(self.state["stage_params"])
+            fresh = psync.resize_pipeline_comp_state(
+                comp, self._splans, new_splans, self._comp_seed,
+                device=self.device)
+            self._splans = new_splans
+        elif self._bucketed:
             new_layout = make_bucket_layout(self.leaves, plan,
                                             self.sync_cfg.bucket_bytes)
             fresh = resize_compressor_state(
@@ -467,6 +540,8 @@ class Trainer:
             vals = {k: next(host) for k in ks}
             if meas:
                 self._last_entropy = vals["entropy"]
+                if "stage_entropy" in vals:
+                    self._last_stage_entropy = list(vals["stage_entropy"])
                 self.controller.on_entropy(s_i, self._last_entropy)
             if s_i % self.tcfg.log_every == 0 or s_i == self.tcfg.total_steps - 1:
                 rec = {
@@ -518,6 +593,9 @@ class Trainer:
             if cqm.anchored:
                 reg.series("cqm_error",
                            [float(cqm.error_at(int(r))) for r in ranks], s_i)
+        if self._last_stage_entropy is not None:
+            # the same zero-order hold as the pooled reading
+            reg.series("stage_entropy", list(self._last_stage_entropy), s_i)
 
     # ------------------------------------------------------------- recovery
     def _ring_push(self, path: str, step: int) -> None:
@@ -568,6 +646,8 @@ class Trainer:
         payload no row can be trusted, and the warm-start Q must be
         identical across workers anyway (the seed is).
         """
+        if self.pipelined:
+            raise RuntimeError("EF reset requires the flat trainer")
         fresh = init_compressor_state(self.state["params"],
                                       self.controller.plan, self._comp_seed,
                                       layout=self._layout,
@@ -581,11 +661,20 @@ class Trainer:
     # --------------------------------------------------------- checkpointing
     def _checkpoint_like(self, gather: bool) -> dict:
         """The state as the reference lays it out: each compressor leaf with
-        a leading per-worker dim. ``gather`` collects every worker's leaves
-        (a collective); otherwise the leaves are shape-only stand-ins."""
-        lead = (dp_all_gather if gather else
-                (lambda t: t[None].expand((self.world,) + tuple(t.shape))))
-        return dict(self.state, comp=tree.tree_map(lead, self.state["comp"]))
+        a per-worker dim, leading (flat) or after the stage dim (pipelined:
+        (S, W, ...)). ``gather`` collects every worker's leaves (a
+        collective); otherwise the leaves are shape-only stand-ins."""
+        comp = self.state["comp"]
+        if self.pipelined:
+            comp = (tree.tree_map(lambda t: dp_all_gather(t).movedim(0, 1),
+                                  comp) if gather else
+                    psync.replicate_pipeline_comp_state(comp, self.world))
+        else:
+            lead = (dp_all_gather if gather else
+                    (lambda t: t[None].expand((self.world,)
+                                              + tuple(t.shape))))
+            comp = tree.tree_map(lead, comp)
+        return dict(self.state, comp=comp)
 
     def save_checkpoint(self, path: str, step: int | None = None) -> None:
         """The device tree + the host control plane (controller/DAC/CQM).
@@ -642,15 +731,16 @@ class Trainer:
         self._wire_ref_entropy = None
         self._refresh_codec()
         restored, _ = ckpt_mod.restore(path, self._checkpoint_like(gather=False))
-        restored["comp"] = tree.tree_map(lambda t: t[self.rank].contiguous(),
-                                         restored["comp"])
+        mine = ((lambda t: t[:, self.rank].contiguous()) if self.pipelined
+                else (lambda t: t[self.rank].contiguous()))
+        restored["comp"] = tree.tree_map(mine, restored["comp"])
         self.state = restored
         return self._global_step
 
     # --------------------------------------------------------------- summary
     def stage_bytes(self) -> list[tuple[int, int]]:
         """Per-stage (compressed, full) DP-sync bytes under the current plan."""
-        return stage_wire_bytes(self.leaves, self.controller.plan,
+        return psync.stage_wire_bytes(self.leaves, self.controller.plan,
                                 max(1, self.edgc_cfg.num_stages),
                                 codec=self._codec)
 

@@ -23,7 +23,9 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_port_has_files():
     assert len(PORT_FILES) > 20
     for module in ("obs/metrics.py", "obs/trace.py", "train/faults.py",
-                   "launch/report.py"):
+                   "launch/report.py", "pipeline/schedule.py",
+                   "pipeline/adapters.py", "pipeline/partition.py",
+                   "pipeline/sync.py", "pipeline/executor.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 
