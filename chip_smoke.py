@@ -96,6 +96,21 @@ Phases, in order; any failure raises, so the exit code is not 0:
                one span per tick-table entry. One card runs the stages one
                after another: it shows the executor's work, not the
                pipeline's overlap or its bubble
+  (k) overlap  the overlapped per-stage sync (``overlap_sync``, flat
+               buckets split at ``K_CHUNK_BYTES``): (k1) (j1)'s run twice,
+               each run's losses, final weights and compressor state equal
+               to (j1)'s bit for bit, each stage's in-loop and residual
+               chunk launches equal to ``plan_overlap``'s (in-loop counts
+               [0, 1, 2, 3]), the PowerSGD launches equal to (j1)'s, step
+               ms, peak memory and a profiled step's device-busy time
+               beside (j1)'s, and the share of the side stream's kernel
+               time that ran while the compute stream ran a kernel; (k2)
+               (j3)'s edgc run with overlap: the DAC holds the planner's
+               slack, the ``overlap_plan`` event is feasible at every
+               stage, the applied ranks beside (j3)'s; (k3) ``launch.train
+               --pipe 2 --overlap --chunk-bytes --trace`` on the card, its
+               SYNC spans equal to the plan's in-loop launches and its
+               sync-residual spans to the residual
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -111,7 +126,9 @@ sample; their launches are counted in (g) and (h), the drives of their
 entry points (the training step does not call them: the model keeps its
 plain-torch ``blockwise_attention``, as the reference's does). The
 PowerSGD and pack entries add ``launches_pipelined``, their launches on
-the pipelined paths of (j1) and (j4) quant8. The last line is ``{"ok":
+the pipelined paths of (j1) and (j4) quant8; the PowerSGD entries add
+``launches_overlapped``, their launches on (k1)'s first run. The last
+line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
 """
@@ -760,10 +777,12 @@ def _payloads(trainer) -> list[int]:
     return out
 
 
-def profile_step(trainer, batches, step_ms: float, top: int = 25) -> dict:
+def profile_step(trainer, batches, step_ms: float, top: int = 25,
+                 streams: bool = False) -> dict:
     """One more main-path step under torch.profiler: device time by kernel,
     and the device's idle share of an unprofiled step of ``step_ms`` (the
-    profiler's own host cost stretches the profiled step)."""
+    profiler's own host cost stretches the profiled step); with
+    ``streams``, the kernel time by CUDA stream (``stream_overlap``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -782,8 +801,58 @@ def profile_step(trainer, batches, step_ms: float, top: int = 25) -> dict:
         f"{1 - busy_ms / step_ms:.3f}")
     for key, ms, count in rows[:top]:
         log(f"      {ms:9.3f} ms {count:6d}x  {key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "step_ms": step_ms,
-            "by_kernel": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows]}
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "step_ms": step_ms,
+           "by_kernel": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows]}
+    if streams:
+        out["streams"] = stream_overlap(prof)
+        st = out["streams"]
+        log(f"    by stream: kernel ms {st['by_stream_ms']}; device busy "
+            f"(union of kernel intervals) {st['busy_union_ms']:.1f} ms; "
+            f"kernels off the compute stream {st['side_ms']:.3f} ms, "
+            f"{st['side_overlapped_ms']:.3f} ms of it while a compute-stream "
+            f"kernel ran")
+    return out
+
+
+def _union(spans: list[tuple[float, float]]) -> list[tuple[float, float]]:
+    out: list[list[float]] = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def stream_overlap(prof) -> dict:
+    """Kernel time by CUDA stream, from the profiler's trace: the compute
+    stream is the one with the most kernel time; the kernels of the other
+    streams (the overlapped sync's side stream) and how much of their time
+    fell inside the compute stream's kernel intervals; the device-busy
+    time as the union of every kernel's interval (ms)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans: dict[str, list[tuple[float, float]]] = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            stream = str(e.get("args", {}).get("stream", e.get("tid")))
+            spans.setdefault(stream, []).append((e["ts"], e["ts"] + e["dur"]))
+    if not spans:
+        raise AssertionError("the profiler's trace holds no kernel")
+    total = {k: sum(b - a for a, b in v) / 1e3 for k, v in spans.items()}
+    compute = max(total, key=total.get)
+    busy = _union(spans[compute])
+    side = [iv for k, v in spans.items() if k != compute for iv in v]
+    overlapped = sum(max(0.0, min(b, d) - max(a, c))
+                     for a, b in side for c, d in busy)
+    every = _union([iv for v in spans.values() for iv in v])
+    return {"by_stream_ms": total, "compute_stream": compute,
+            "side_ms": sum(b - a for a, b in side) / 1e3,
+            "side_overlapped_ms": overlapped / 1e3,
+            "busy_union_ms": sum(b - a for a, b in every) / 1e3}
 
 
 def phase_control(report: dict, dev) -> None:
@@ -1537,13 +1606,15 @@ PIPE_M = 4                     # microbatches: 2 x 1024 each of (c)'s batch
 
 
 def _pipe_run(cfg, dev, main: dict, schedule: str, stash: str, steps: int,
-              profile: bool, **tkw) -> dict:
+              profile: bool, keep: dict | None = None, **tkw) -> dict:
     """(c)'s run through the pipelined executor: S stages on this card
     (``LocalPipe``), M = 4, ``steps`` timed steps, each loss held to
     ``main``'s, (c)'s (the first within 2e-3, every one within 5e-2), and
     the bytes synced equal; the stages' shape groups are (b)'s
     ``PIPE_GROUPS``; the PowerSGD kernels counted from zero. ``tkw`` goes
-    to ``TrainerConfig``."""
+    to ``TrainerConfig``. ``keep`` receives host copies of the final
+    weights and compressor state (``state``), the overlap plan and each
+    step variant's last sync launches."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import lowrank as lr
     from repro_torch.pipeline import schedule as sched
@@ -1570,6 +1641,14 @@ def _pipe_run(cfg, dev, main: dict, schedule: str, stash: str, steps: int,
     launches = {k.__name__: k.launches for k in kernels}
     peak = max(step_peaks)
     hist = tr.history
+    if keep is not None:
+        from repro_torch import tree
+        keep["state"] = [t.detach().cpu() for t in tree.leaves(
+            [tr.state["stage_params"], tr.state["shared_params"],
+             tr.state["comp"]])]
+        keep["plan"] = tr.overlap_plan
+        keep["sync_launches"] = [st.sync_launches
+                                 for st in tr._step_cache.values()]
     losses = [h["loss"] for h in hist]
     gaps = [abs(a - b) for a, b in zip(losses, main["loss"])]
     mb = {"tokens": torch.empty((8 // PIPE_M, 1024))}
@@ -1588,7 +1667,8 @@ def _pipe_run(cfg, dev, main: dict, schedule: str, stash: str, steps: int,
            "bytes_synced": [h["bytes_synced"] for h in hist]}
     if profile:
         row["profile"] = profile_step(tr, batches,
-                                      statistics.median(step_ms[1:]))
+                                      statistics.median(step_ms[1:]),
+                                      streams=True)
     log(f"    {schedule}/{stash} (segments {row['segments']}): losses "
         f"{[round(x, 4) for x in losses]}, gaps to (c) "
         f"{[f'{g:.1e}' for g in gaps]}; step ms "
@@ -1621,7 +1701,7 @@ def _release() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_pipeline(report: dict, dev) -> dict:
+def phase_pipeline(report: dict, dev, keep: dict) -> dict:
     """The pipelined executor on the card: (j1) (c)'s model at S = 4, M = 4
     through ``LocalPipe``, 1F1B, replay, 4 steps and one profiled; (j2)
     two steps under the other schedule and stash policies; (j3) edgc at
@@ -1629,7 +1709,7 @@ def phase_pipeline(report: dict, dev) -> dict:
     S = 4 on the card against the CPU, raw and quant8; (j5) the command
     line with ``--pipe 2 --trace`` and the report's ``--trace``. Returns
     the kernels' launches on the pipelined paths: (j1) for PowerSGD, (j4)
-    quant8 for pack."""
+    quant8 for pack. ``keep`` receives (j1)'s final state (``_pipe_run``)."""
     from repro_torch.configs.gpt2 import GPT2_2_5B, GPT2_FIDELITY
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import lowrank as lr, pack
@@ -1646,7 +1726,7 @@ def phase_pipeline(report: dict, dev) -> dict:
     # (j1) the main pipelined path
     log("(j1) 1f1b/replay, 4 steps and one profiled")
     out["main"] = _pipe_run(cfg, dev, report["main"], "1f1b", "replay", 4,
-                            profile=True)
+                            profile=True, keep=keep)
     prof = out["main"]["profile"]
     main_ms = statistics.median(report["main"]["step_ms"][1:])
     pipe_ms = statistics.median(out["main"]["step_ms"][1:])
@@ -1789,9 +1869,164 @@ def phase_pipeline(report: dict, dev) -> dict:
     return pipe_launches
 
 
+# -------------------------------------------------------- (k) overlapped sync
+# chunks of at most 32 KiB of fp32: each stage's flat bucket (the norms and
+# biases of its two layers, about 200 KB) splits into several
+K_CHUNK_BYTES = 1 << 15
+
+
+def _launch_counts(plan, launches) -> tuple[list[int], list[int]]:
+    """Per stage, the chunks launched in the loop and after it."""
+    S = plan.num_stages
+    return ([sum(len(ids) for t, s, ids in launches if t >= 0 and s == st)
+             for st in range(S)],
+            [sum(len(ids) for t, s, ids in launches if t < 0 and s == st)
+             for st in range(S)])
+
+
+def phase_overlap(report: dict, dev, j1_state: list) -> dict:
+    """The overlapped per-stage sync on the card (``LocalPipe``: the in-loop
+    chunks run on the step's side stream while the other stages compute):
+    (k1) (j1)'s run twice with ``overlap_sync``, each equal to (j1) bit for
+    bit and each launch where ``plan_overlap`` puts it; (k2) (j3)'s edgc
+    run with overlap, the DAC's slack and the plan's feasibility; (k3) the
+    command line with ``--overlap --trace``. Returns the PowerSGD kernels'
+    launches on (k1)'s first run."""
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import lowrank as lr
+    from repro_torch.obs import MemorySink, MetricsRegistry
+    from repro_torch.obs.metrics import read_jsonl
+    from repro_torch.obs.trace import load_trace, validate_trace
+    out: dict = {}
+    j = report["pipeline"]
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    S = cfg.num_stages
+    log(f"(k) overlapped sync: (j1)'s run with overlap_sync, chunks of at "
+        f"most {K_CHUNK_BYTES} B, the in-loop chunks on a side stream")
+    runs = []
+    for i in range(2):
+        keep: dict = {}
+        row = _pipe_run(cfg, dev, report["main"], "1f1b", "replay", 4,
+                        profile=i == 0, keep=keep, overlap_sync=True,
+                        chunk_bytes=K_CHUNK_BYTES)
+        plan = keep["plan"]
+        in_loop, residual = _launch_counts(plan, keep["sync_launches"][0])
+        planned = ([sum(len(ids) for _, ids in plan.launches[s])
+                    for s in range(S)],
+                   [len(plan.residual[s]) for s in range(S)])
+        same_launches = all(
+            sorted(v) == sorted(keep["sync_launches"][0])
+            for v in keep["sync_launches"])
+        equal = (row["loss"] == j["main"]["loss"]
+                 and len(keep["state"]) == len(j1_state)
+                 and all(torch.equal(a, b)
+                         for a, b in zip(keep["state"], j1_state)))
+        row.update(in_loop=in_loop, residual=residual, planned=planned,
+                   launch_ticks=[list(plan.launch_ticks(s)) for s in range(S)],
+                   equal_to_j1=equal)
+        log(f"(k1) run {i + 1}: losses equal to (j1)'s and final weights and "
+            f"compressor state bit-equal: {equal}; chunks per stage in the "
+            f"loop {in_loop} after it {residual} (plan {planned[0]} / "
+            f"{planned[1]}, launch ticks {row['launch_ticks']}); PowerSGD "
+            f"launches {row['launches']} ((j1) {j['main']['launches']})")
+        if not equal:
+            raise AssertionError(f"(k1) run {i + 1}: the overlapped run is not "
+                                 "bit-equal to (j1)")
+        if (in_loop, residual) != planned or in_loop != list(range(S))                 or not same_launches:
+            raise AssertionError(f"(k1): launches {in_loop}/{residual} != the "
+                                 f"plan's {planned} (or not [0..S-1])")
+        if row["launches"] != j["main"]["launches"]:
+            raise AssertionError(f"(k1): PowerSGD launches {row['launches']} "
+                                 f"!= (j1)'s {j['main']['launches']}")
+        runs.append(row)
+    del j1_state[:]
+    k1, j1 = runs[0], j["main"]
+    k_ms = statistics.median(k1["step_ms"][1:])
+    j_ms = statistics.median(j1["step_ms"][1:])
+    kp, jp = k1["profile"], j1["profile"]
+    log(f"    step {k_ms:.1f} ms (run 2 "
+        f"{statistics.median(runs[1]['step_ms'][1:]):.1f}) against (j1)'s "
+        f"{j_ms:.1f} ms ({k_ms / j_ms:.3f}x); device busy (kernel sum) "
+        f"{kp['busy_ms']:.1f} ms against {jp['busy_ms']:.1f}, (union) "
+        f"{kp['streams']['busy_union_ms']:.1f} against "
+        f"{jp['streams']['busy_union_ms']:.1f}; side-stream kernels "
+        f"{kp['streams']['side_ms']:.3f} ms, "
+        f"{kp['streams']['side_overlapped_ms']:.3f} ms of it overlapping "
+        f"compute; peak {k1['peak_bytes'] / 2**30:.2f} GiB against "
+        f"{j1['peak_bytes'] / 2**30:.2f} GiB")
+    out["main"] = runs
+
+    # (k2) edgc at depth 4, window 4, with overlap
+    small = dataclasses.replace(GPT2_2_5B, num_layers=4)
+    sink = MemorySink()
+    tr = _trainer(small, "edgc", 64, 12, 4, dev, pipe=S,
+                  num_microbatches=PIPE_M, overlap_sync=True,
+                  chunk_bytes=K_CHUNK_BYTES, metrics=MetricsRegistry([sink]))
+    t0 = time.perf_counter()
+    hist = tr.run(SyntheticLM(small.vocab_size, 1024, 8, seed=0).batches(),
+                  num_steps=11)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ranks = list(tr.controller.rank_history[-1][1]) \
+        if tr.controller.rank_history else []
+    event = next(e["data"] for e in sink.events() if e["name"] == "overlap_plan")
+    slack = tr.controller.dac.slack_seconds
+    t_mb = tr.controller.dac.t_micro_back
+    out["edgc"] = {"ranks": ranks, "j3_ranks": j["edgc"]["ranks"],
+                   "slack_seconds": slack, "overlap_plan": event,
+                   "seconds": secs, "loss": [h["loss"] for h in hist]}
+    log(f"(k2) edgc depth 4, window 4, overlap, 11 of 12 steps in {secs:.1f} "
+        f"s: applied ranks {ranks} against (j3)'s {j['edgc']['ranks']}; DAC "
+        f"slack {slack} s (t_micro_back {t_mb:.3e} s); overlap_plan {event}")
+    if slack is None or slack != [t * t_mb for t in tr.overlap_plan.slack_seconds]:
+        raise AssertionError(f"(k2): the DAC holds slack {slack}, not the "
+                             "plan's")
+    if not all(event["feasible"]) or len(ranks) != S \
+            or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"(k2): feasible {event['feasible']}, ranks "
+                             f"{ranks}")
+    del tr
+    _release()
+
+    # (k3) the command line: --pipe 2 --overlap --chunk-bytes --trace
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        trace, runs_dir = os.path.join(tmp, "t.json"), os.path.join(tmp, "runs")
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "gpt2", "--variant", "reduced", "--policy", "fixed", "--pipe",
+               "2", "--micro", "2", "--steps", "4", "--batch", "4", "--seq",
+               "64", "--use-kernels", "--overlap", "--chunk-bytes", "4096",
+               "--trace", trace, "--metrics-dir", runs_dir]
+        tail = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              check=True, timeout=300).stdout.splitlines()[-3:]
+        secs = time.perf_counter() - t0
+        events = load_trace(trace)["traceEvents"]
+        stats = validate_trace(load_trace(trace))
+        plan = next(r["data"] for r in read_jsonl(
+            os.path.join(runs_dir, "metrics.jsonl"))
+            if r.get("name") == "overlap_plan")
+    spans = {cat: [sum(1 for e in events if e.get("cat") == cat
+                       and e["tid"] == s) for s in range(2)]
+             for cat in ("sync", "sync-residual")}
+    out["cli"] = {"spans": spans, "plan": plan, "stats": stats,
+                  "seconds": secs, "train_tail": tail}
+    log(f"(k3) launch.train --pipe 2 --overlap --chunk-bytes 4096 --trace on "
+        f"the card, {secs:.1f} s: SYNC spans per stage {spans['sync']} "
+        f"(plan's in-loop {plan['in_loop']}), sync-residual "
+        f"{spans['sync-residual']} (plan's residual {plan['residual']})")
+    if spans["sync"] != plan["in_loop"] \
+            or spans["sync-residual"] != plan["residual"] \
+            or sum(plan["in_loop"]) == 0:
+        raise AssertionError(f"(k3): trace spans {spans} != the plan {plan}")
+    report["overlap"] = out
+    return runs[0]["launches"]
+
+
 # ----------------------------------------------------------------- the lines
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
-                 pipe_launches: dict) -> dict:
+                 pipe_launches: dict, overlap_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -1808,7 +2043,8 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "ms": total("ms"), "plain_ms": total("plain_ms"),
                  "bound_ms": total("bound_ms"), "bound_by": bound_by,
                  "library_ms": total("library_ms"),
-                 "launches_pipelined": pipe_launches[wrapper]}
+                 "launches_pipelined": pipe_launches[wrapper],
+                 "launches_overlapped": overlap_launches[wrapper]}
         entry["device_ms"] = total("device_ms")
         if name == "gram_schmidt":
             # the column chain: cluster size, device ms per column and
@@ -1915,9 +2151,12 @@ def main() -> int:
     phase_histogram(report, dev, grad_sample)
     del grad_sample
     phase_faults(report, dev)
-    pipe_launches = phase_pipeline(report, dev)
+    j1_state: dict = {}
+    pipe_launches = phase_pipeline(report, dev, j1_state)
+    overlap_launches = phase_overlap(report, dev, j1_state.pop("state"))
     report["seconds"] = time.perf_counter() - t0
-    line = kernels_line(report, launches, pack_launches, pipe_launches)
+    line = kernels_line(report, launches, pack_launches, pipe_launches,
+                        overlap_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

@@ -37,7 +37,7 @@ __all__ = [
     "DEFAULT_BUCKET_BYTES", "ShapeGroup", "FlatBucket", "BucketLayout",
     "SyncChunk", "make_bucket_layout", "layout_for_tree", "sync_chunks",
     "is_stacked_state", "init_flat_ef", "stack_state", "unstack_state",
-    "resize_stacked_state", "bucketed_sync_grads",
+    "resize_stacked_state", "bucketed_sync_grads", "sync_chunk_grads",
 ]
 
 PsumFn = Callable[[torch.Tensor], torch.Tensor]
@@ -103,12 +103,24 @@ class BucketLayout:
 
 @dataclasses.dataclass(frozen=True)
 class SyncChunk:
-    """One independently-launchable slice of a bucketed sync schedule."""
+    """One independently-launchable slice of a bucketed sync schedule.
+
+    Either one whole shape group (its factor collectives and error
+    feedback act on the full stack) or a member run of one flat bucket.
+    Chunks partition the layout's leaves, so running every chunk, in any
+    order, reproduces ``bucketed_sync_grads`` bit for bit: a mean of a
+    packed sub-run equals the matching slice of the whole bucket's mean.
+    """
 
     kind: str                           # "group" | "bucket"
     group: ShapeGroup | None = None
     members: tuple[Member, ...] = ()
     itemsizes: tuple[int, ...] = ()
+
+    @property
+    def member_paths(self) -> tuple[str, ...]:
+        src = self.group.members if self.kind == "group" else self.members
+        return tuple(path for path, _ in src)
 
     @property
     def num_collectives(self) -> int:
@@ -392,3 +404,25 @@ def bucketed_sync_grads(grads: Any, comp_state: dict[str, LowRankState],
         out.update(upd)
         new_state.update(ef_upd)
     return tree.unflatten(grads, [out[path] for path, _ in flat]), new_state
+
+
+@torch.no_grad()
+def sync_chunk_grads(grads_by_path: dict[str, torch.Tensor],
+                     comp_state: dict[str, LowRankState], chunk: SyncChunk,
+                     psum_mean: PsumFn, use_kernels: bool = False,
+                     codec: _wire.ChunkCodec | None = None):
+    """Execute one chunk of a layout's schedule (the overlap primitive).
+
+    ``grads_by_path`` needs only the chunk's members. Returns the synced
+    leaves by path and the state entries the chunk touched: ``{group key:
+    new state}`` for a group chunk, the coded run's ``ef:`` updates for a
+    flat run. These are the helpers ``bucketed_sync_grads`` runs, and
+    coding is per member, so the chunks of a layout partition its state.
+    """
+    if chunk.kind == "group":
+        upd, st = _sync_group(grads_by_path, chunk.group,
+                              comp_state[chunk.group.key], psum_mean,
+                              use_kernels=use_kernels, codec=codec)
+        return upd, {chunk.group.key: st}
+    return _sync_flat(grads_by_path, chunk.members, psum_mean, codec=codec,
+                      comp_state=comp_state)

@@ -12,9 +12,8 @@ The trainer drives it every iteration:
   * the trainer re-lays out the compressor state iff the plan changed.
 
 All controller state is host-side Python; the only device work it requests
-is the alpha-gated scalar entropy. Port of ``repro/core/controller.py``
-without the pipeline overlap feedback (ROADMAP Queue 1 item 8); the
-analytic comm model reads ``EDGCConfig.hw`` (H100 SXM by default).
+is the alpha-gated scalar entropy. Port of ``repro/core/controller.py``;
+the analytic comm model reads ``EDGCConfig.hw`` (H100 SXM by default).
 """
 from __future__ import annotations
 
@@ -186,6 +185,16 @@ class EDGCController:
         changed = self._plan != NO_COMPRESSION
         self._plan = NO_COMPRESSION
         return changed
+
+    def set_overlap_feedback(self, slack_seconds) -> None:
+        """Feed the overlap planner's per-stage Eq. 4 slack, in seconds.
+
+        The trainer calls this on a pipelined run with ``overlap_sync``;
+        the DAC then aligns ranks against the schedule's geometry and
+        lowers any stage whose comm would not fit its overlap budget
+        (``DAC._feasible_clamp``): Algorithm 2 trading rank for overlap.
+        """
+        self.dac.set_overlap(slack_seconds)
 
     # ------------------------------------------------------------------ hooks
     def wants_entropy(self, step: int) -> bool:

@@ -8,14 +8,18 @@ Port of ``repro/core/sync_executor.py``. Modes:
                          shared_grads=..., my_stage=...)``: the schedule
                          of the stage's own plan, run after the pipeline
                          drains (``pipeline/sync.stage_sync_grads``).
-  per-stage-overlapped   the sync launched inside the drain ticks: not
-                         ported yet (ROADMAP Queue 1 item 8b), it raises.
+  per-stage-overlapped   the same schedules split into
+                         :class:`~repro_torch.core.bucketing.SyncChunk`s
+                         that the pipelined executor launches inside its
+                         drain ticks (``chunks`` / ``run_chunks`` /
+                         ``sync_shared``); the chunks the launch plan left
+                         over run through ``run_chunks`` after the loop.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
-from . import wire
+from . import bucketing, wire
 from .compressor import CompressionPlan, sync_grads
 from .config import COMM_MODES, SyncConfig
 
@@ -25,18 +29,13 @@ PsumFn = Callable[[Any], Any]
 
 
 class SyncExecutor:
-    """Facade over the flat and per-stage DP-sync executors."""
+    """Facade over the flat, per-stage and overlapped DP-sync executors."""
 
     def __init__(self, cfg: SyncConfig | None = None, mode: str = "flat", *,
                  plan: CompressionPlan | None = None, splans=None) -> None:
         if mode not in COMM_MODES:
             raise ValueError(f"unknown CommMode {mode!r} "
                              f"(want one of {COMM_MODES})")
-        if mode == "per-stage-overlapped":
-            raise NotImplementedError(
-                "mode='per-stage-overlapped' (sync chunks launched inside "
-                "the pipeline's drain ticks) is not ported yet (ROADMAP "
-                "Queue 1 item 8b)")
         if mode == "flat" and plan is None:
             raise ValueError("mode='flat' requires a CompressionPlan")
         if mode != "flat" and splans is None:
@@ -68,10 +67,11 @@ class SyncExecutor:
 
     def sync(self, grads: Any, comp_state: dict, psum_mean: PsumFn, *,
              shared_grads: Any = None, my_stage: int | None = None):
-        """flat: returns (synced grads, new compressor state). per-stage:
-        ``grads`` is one stage's tree, ``my_stage`` its index; returns
-        (synced_stage, synced_shared, new_state), ``synced_shared`` None
-        when no ``shared_grads`` are given."""
+        """flat: returns (synced grads, new compressor state). per-stage
+        modes: ``grads`` is one stage's tree, ``my_stage`` its index;
+        returns (synced_stage, synced_shared, new_state), ``synced_shared``
+        None when no ``shared_grads`` are given (in the overlapped mode this
+        is the sync with no chunk launched early, equal to per-stage)."""
         if self.mode == "flat":
             return sync_grads(grads, comp_state, self.plan, psum_mean,
                               use_kernels=self.cfg.use_kernels,
@@ -83,6 +83,25 @@ class SyncExecutor:
                                 psum_mean, my_stage,
                                 use_kernels=self.cfg.use_kernels,
                                 codec=self.codec)
+
+    def chunks(self, d: int) -> tuple[bucketing.SyncChunk, ...]:
+        """Launchable chunks of distinct schedule ``d``."""
+        return bucketing.sync_chunks(self.splans.layouts[d])
+
+    def run_chunks(self, d: int, chunk_ids, grads_by_path: dict,
+                   comp_state: dict, psum_mean: PsumFn):
+        """Run a subset of schedule ``d``'s chunks for one stage.
+
+        ``grads_by_path`` maps stage-local leaf paths to gradients in the
+        parameter dtype (only the chunks' members are read). Returns
+        (synced leaves by path, the full compressor dict with schedule
+        ``d``'s touched keys replaced).
+        """
+        from repro_torch.pipeline.sync import stage_sync_chunks
+        return stage_sync_chunks(grads_by_path, comp_state, self.splans, d,
+                                 chunk_ids, psum_mean,
+                                 use_kernels=self.cfg.use_kernels,
+                                 codec=self.codec)
 
     def sync_shared(self, shared_grads: Any, psum_mean: PsumFn):
         """Flat-bucket sync of the shared leaves (never compressed)."""

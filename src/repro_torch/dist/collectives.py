@@ -4,6 +4,10 @@ Port of ``make_dp_pmean`` from ``repro/dist/collectives.py``. Each process
 is one data-parallel worker; the mean over workers is an all-reduce (SUM)
 divided by the world size. Without an initialised process group (or at
 world size 1) it is the identity, the reference's single-worker case.
+
+Every function takes an optional process ``group``: the data group of a
+``(pipe, data)`` mesh (``launch/mesh.py``), where each pipeline stage owns
+a DP group of its own. Without one they act on the default group.
 """
 from __future__ import annotations
 
@@ -18,42 +22,42 @@ __all__ = ["dp_world_size", "dp_rank", "make_dp_pmean", "dp_all_gather",
            "dp_barrier"]
 
 
-def dp_world_size() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+def dp_world_size(group=None) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
-def dp_rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+def dp_rank(group=None) -> int:
+    return dist.get_rank(group) if dist.is_initialized() else 0
 
 
-def make_dp_pmean() -> Callable[[Any], Any]:
+def make_dp_pmean(group=None) -> Callable[[Any], Any]:
     """Mean over the data-parallel workers of a tensor or a tree of them.
 
     The input is never written: each collective reduces a copy.
     """
-    world = dp_world_size()
+    world = dp_world_size(group)
     if world == 1:
         return lambda x: x
 
     def mean(t: torch.Tensor) -> torch.Tensor:
         out = t.detach().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out.div_(world)
 
     return lambda x: tree.tree_map(mean, x)
 
 
-def dp_all_gather(t: torch.Tensor) -> torch.Tensor:
+def dp_all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every worker's ``t`` stacked on a new leading dim, in rank order."""
-    world = dp_world_size()
+    world = dp_world_size(group)
     if world == 1:
         return t[None]
     parts = [torch.empty_like(t) for _ in range(world)]
-    dist.all_gather(parts, t.contiguous())
+    dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
 
 
-def dp_barrier() -> None:
+def dp_barrier(group=None) -> None:
     """Wait for every data-parallel worker (nothing to wait for alone)."""
-    if dp_world_size() > 1:
-        dist.barrier()
+    if dp_world_size(group) > 1:
+        dist.barrier(group=group)

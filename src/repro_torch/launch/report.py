@@ -83,6 +83,8 @@ def build_report(records: list[dict]) -> list[str]:
     plan = next((e for e in _events(records, "overlap_plan")), None)
     if plan is not None:
         d = plan.get("data", {})
+        # the reference's keys, which its trainer (and this one) does not
+        # write: the line prints None as the reference's does
         lines.append(f"overlap plan: in-loop {d.get('in_loop_chunks')} "
                      f"residual {d.get('residual_chunks')} chunks, "
                      f"slack util {d.get('slack_utilization', 0):.2f}, "

@@ -21,28 +21,43 @@ policies; ``--metrics-dir`` writes the run's telemetry, which
 ``--pipe S`` partitions the model into S stages and runs the pipelined
 executor (GPipe or 1F1B, ``--stash`` policy) with all S stage programs in
 this process on the chosen device; ``--trace`` writes the schedule as a
-Chrome trace, its ticks scaled to the measured step time:
+Chrome trace, its ticks scaled to the measured step time; ``--overlap``
+launches each stage's sync chunks (flat buckets split at ``--chunk-bytes``)
+in the drain ticks, and the trace shows them as SYNC spans:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 \\
       --variant reduced --policy edgc --pipe 4 --micro 4 --steps 12 \\
-      --window 4 --batch 4 --seq 32 --trace runs/pipe/trace.json \\
-      --metrics-dir runs/pipe --device cpu
+      --window 4 --batch 4 --seq 32 --overlap --chunk-bytes 65536 \\
+      --trace runs/pipe/trace.json --metrics-dir runs/pipe --device cpu
+
+In a world of ``pipe * data-mesh`` processes (``WORLD_SIZE`` and the other
+variables ``torch.distributed.run`` sets) each process hosts one stage of
+a ``(pipe, data)`` mesh; gloo on the CPU, NCCL with one card per process:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch gpt2 --variant reduced \\
+      --policy optimus --pipe 2 --data-mesh 2 --micro 4 --steps 6 \\
+      --batch 8 --seq 32 --overlap --chunk-bytes 65536 --device cpu
 
 The flags are the reference launcher's, but for the elastic outer loop
-(``--outer-*``, ``--pods``, ``--rounds``) and the mesh shape, plus
-``--device``. ``--overlap`` and ``--chunk-bytes`` (the sync interleaved
-with the drain ticks) refuse until that is ported.
+(``--outer-*``, ``--pods``, ``--rounds``) and ``--model-mesh``, plus
+``--device``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import EDGCConfig, GDSConfig, SyncConfig
 from repro_torch.core.dac import DACConfig
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import build_model
 from repro_torch.obs import (load_trace, profiler_session, tick_trace_events,
                              validate_trace, write_chrome_trace)
@@ -70,7 +85,8 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--pipe", type=int, default=0,
                     help="pipeline stages: partition the model into this "
                          "many stages and run the pipelined (GPipe/1F1B) "
-                         "executor, every stage in this process")
+                         "executor, every stage in this process (one stage "
+                         "per process in a world of pipe * data-mesh)")
     ap.add_argument("--schedule", default="1f1b", choices=["gpipe", "1f1b"])
     ap.add_argument("--micro", type=int, default=0,
                     help="microbatches per step (0 -> num_stages)")
@@ -84,10 +100,16 @@ def main(argv=None) -> list[dict]:
                     help="k for --stash every_k")
     ap.add_argument("--overlap", action="store_true",
                     help="overlap each stage's DP sync with the pipeline "
-                         "drain (not ported yet: refuses)")
+                         "drain: sync chunks launch inside the schedule's "
+                         "free back-of-drain ticks instead of after the "
+                         "loop (pipelined executor only)")
     ap.add_argument("--chunk-bytes", type=int, default=0,
-                    help="split flat sync buckets into transfer chunks for "
-                         "overlap scheduling (not ported yet: refuses)")
+                    help="split flat sync buckets into transfer chunks of "
+                         "at most this many bytes for overlap scheduling "
+                         "(0 = one chunk per bucket)")
+    ap.add_argument("--data-mesh", type=int, default=1,
+                    help="data-parallel workers per stage in a world of "
+                         "several processes")
     ap.add_argument("--use-kernels", action="store_true",
                     help="run the PowerSGD products through the Hopper kernels")
     ap.add_argument("--wire", default="raw",
@@ -138,10 +160,6 @@ def main(argv=None) -> list[dict]:
     recovery = RecoveryConfig(
         spike_factor=args.spike_factor, max_rollbacks=args.max_rollbacks,
         fallback_after=args.fallback_after) if args.recover else None
-    if args.overlap or args.chunk_bytes:
-        raise SystemExit("--overlap/--chunk-bytes: the sync interleaved with "
-                         "the pipeline's drain ticks is not ported yet "
-                         "(ROADMAP Queue 1 item 8b)")
     if args.trace and not args.pipe:
         raise SystemExit("--trace requires --pipe: the tick tracer renders "
                          "the pipeline schedule")
@@ -159,11 +177,13 @@ def main(argv=None) -> list[dict]:
                              f"{cfg.name}: {reason}")
     else:
         num_stages = args.stages or cfg.num_stages
+    mesh = _process_mesh(args)
     model = build_model(cfg)
     pipe_cfg = PipelineConfig(
         num_stages=num_stages, schedule=args.schedule,
         num_microbatches=args.micro, stash_policy=args.stash,
-        stash_every=args.stash_every)
+        stash_every=args.stash_every, overlap_sync=args.overlap,
+        chunk_bytes=args.chunk_bytes)
     sync_cfg = SyncConfig(use_kernels=args.use_kernels, wire=args.wire)
     edgc = EDGCConfig(
         policy=args.policy, fixed_rank=args.rank, total_iterations=args.steps,
@@ -180,25 +200,28 @@ def main(argv=None) -> list[dict]:
                         total_steps=args.steps),
     )
     trainer = Trainer(model, edgc, tcfg, seed=args.seed, device=args.device,
-                      pipe=args.pipe or None)
-    pipe_tag = (f", pipe={args.pipe} ({args.schedule}, stash={args.stash})"
+                      pipe=args.pipe or None, mesh=mesh)
+    # one process of a mesh speaks and writes the files
+    say = print if trainer._writer else (lambda *a, **k: None)
+    pipe_tag = (f", pipe={args.pipe} ({args.schedule}, stash={args.stash}"
+                f"{', overlapped sync' if args.overlap else ''})"
                 if args.pipe else "")
-    print(f"{cfg.name}: {trainer.n_params/1e6:.1f}M params on {trainer.device}, "
-          f"policy={args.policy}{pipe_tag}, {trainer.controller.describe()}")
+    say(f"{cfg.name}: {trainer.n_params/1e6:.1f}M params on {trainer.device}, "
+        f"policy={args.policy}{pipe_tag}, {trainer.controller.describe()}")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        batch_size=args.batch, seed=args.seed)
     with profiler_session(bool(args.profile), args.profile or "profile"):
         hist = trainer.run(data.batches())
     for h in hist:
-        print(f"step {h['step']:5d} loss {h['loss']:.4f} H {h['entropy']:+.3f} "
-              f"ranks {h['ranks']} comm-saved "
-              f"{1 - h['bytes_synced']/max(1, h['bytes_full']):.1%}")
-    print(f"final comm savings vs no-compression: {trainer.comm_savings():.2%}")
+        say(f"step {h['step']:5d} loss {h['loss']:.4f} H {h['entropy']:+.3f} "
+            f"ranks {h['ranks']} comm-saved "
+            f"{1 - h['bytes_synced']/max(1, h['bytes_full']):.1%}")
+    say(f"final comm savings vs no-compression: {trainer.comm_savings():.2%}")
     if args.wire != "raw" and trainer.bytes_wire_raw:
-        print(f"wire coding ({args.wire}): {trainer.bytes_synced}/"
-              f"{trainer.bytes_wire_raw} coded/raw payload bytes "
-              f"({trainer.bytes_synced / trainer.bytes_wire_raw:.2%})")
-    if args.trace:
+        say(f"wire coding ({args.wire}): {trainer.bytes_synced}/"
+            f"{trainer.bytes_wire_raw} coded/raw payload bytes "
+            f"({trainer.bytes_synced / trainer.bytes_wire_raw:.2%})")
+    if args.trace and trainer._writer:
         S, M = args.pipe, (args.micro or args.pipe)
         sim = simulate_schedule(args.schedule, S, M)
         # scale the unit-tick spans so the trace's makespan matches the
@@ -211,24 +234,49 @@ def main(argv=None) -> list[dict]:
         scale = mean_step_s / float(sim["makespan"])
         events = tick_trace_events(
             args.schedule, S, M, t_f=scale, t_b=scale,
-            stash_policy=args.stash, n_units=trainer._part.num_units(),
-            stash_every=args.stash_every, time_unit_us=1e6)
+            sync_plan=trainer.overlap_plan, stash_policy=args.stash,
+            n_units=trainer._part.num_units(), stash_every=args.stash_every,
+            time_unit_us=1e6)
         write_chrome_trace(args.trace, events, metadata={
             "arch": cfg.name, "schedule": args.schedule, "S": S, "M": M,
             "mean_step_s": mean_step_s})
         summary = validate_trace(load_trace(args.trace))
-        print(f"trace: {args.trace} — {summary['spans']} spans on "
-              f"{summary['tracks']} stage tracks, "
-              f"{summary['end_us']/1e6:.3f}s span horizon")
+        say(f"trace: {args.trace} — {summary['spans']} spans on "
+            f"{summary['tracks']} stage tracks, "
+            f"{summary['end_us']/1e6:.3f}s span horizon")
     trainer.metrics.close()
     if trainer.recovery is not None:
-        print(f"recovery: {trainer.recovery.as_dict()}")
-    if args.out:
+        say(f"recovery: {trainer.recovery.as_dict()}")
+    if args.out and trainer._writer:
         with open(args.out, "w") as f:
             json.dump({"history": hist, "arch": cfg.name,
                        "policy": args.policy,
                        "comm_savings": trainer.comm_savings()}, f, indent=1)
+    if mesh is not None:
+        dist.destroy_process_group()
     return hist
+
+
+def _process_mesh(args):
+    """The process mesh of a world of several processes (None alone): the
+    default group from the environment ``torch.distributed.run`` sets, gloo
+    on the CPU, NCCL with one card per process."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    want = max(1, args.pipe) * args.data_mesh
+    if world == 1 and args.data_mesh == 1:
+        return None          # every stage in this process (LocalPipe)
+    if world != want:
+        raise SystemExit(f"--pipe {args.pipe} --data-mesh {args.data_mesh} "
+                         f"needs {want} processes, the world has {world}")
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    if not cpu:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+    if not dist.is_initialized():
+        dist.init_process_group("gloo" if cpu else "nccl")
+    return make_host_mesh(pipe=args.pipe, data=args.data_mesh,
+                          device_type="cpu" if cpu else "cuda")
 
 
 if __name__ == "__main__":

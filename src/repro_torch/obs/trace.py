@@ -137,7 +137,7 @@ def _sync_events(plan: Any, spans: list[dict], makespan: float,
     """SYNC spans from an OverlapPlan.
 
     In-loop chunks chain sequentially from the stage's last backward end
-    (that is when the overlapped executor's ``lax.switch`` launches them),
+    (that is when the overlapped executor launches them),
     each sized to its share of the launch tick's ``t_b`` budget; residual
     chunks chain after the makespan under cat ``sync-residual``.
     """

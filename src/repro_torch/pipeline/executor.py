@@ -22,6 +22,21 @@ part and stage S-1's head part), the per-stage DP sync, the Gaussian
 entropy from moment vectors over S slots (shared leaves counted once, on
 stage 0), the global gradient norm, and AdamW on ``{"stage", "shared"}``.
 
+With ``overlap_sync`` the per-stage sync is split into the chunks of
+``bucketing.sync_chunks`` and launched in the drain: at each tick that
+``schedule.plan_overlap`` gives a hosted stage (always after its last
+backward), the stage casts those chunks' fp32 accumulators to the
+parameter dtype and runs them (``SyncExecutor.run_chunks``); the chunks
+the plan left over (all of stage 0's, whose slack is zero) run after the
+loop, and the synced leaves are reassembled in flatten order. The chunks
+of a layout partition it, so the result equals the monolithic sync bit
+for bit. On CUDA the in-loop chunks run on a side stream, which waits for
+an event recorded after the stage's last backward: the counterpart of the
+reference's asynchronous collectives, so that a stage's sync can run
+while other stages compute. The compute stream waits for the side stream
+at the end of the loop. ``step.sync_launches`` lists the last step's
+launches as ``(tick, stage, chunk ids)``, tick -1 after the loop.
+
 The pipe collectives come from a transport, as the DP mean comes from an
 injected ``psum_mean``:
 
@@ -242,10 +257,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
     if stash not in sched.STASH_POLICIES:
         raise ValueError(f"unknown stash policy {stash!r} "
                          f"(want one of {sched.STASH_POLICIES})")
-    if cfg.overlap_sync:
-        raise NotImplementedError(
-            "overlap_sync (sync chunks launched inside the drain ticks) is "
-            "not ported yet (ROADMAP Queue 1 item 8b)")
+    overlap = cfg.overlap_sync
     pipe = LocalPipe(S) if pipe is None else pipe
     if pipe.num_stages != S:
         raise ValueError(f"pipe transport has {pipe.num_stages} stages, "
@@ -266,6 +278,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
     R = sched.ring_slots(name, S, M)
     n_ticks = sched.tick_count(name, S, M)
     table = sched.slot_table(name, S, M)
+    last_b = sched.last_backward_tick(name, S, M)
     inv_M = 1.0 / M
     hosted = pipe.stages
     built: dict[str, Any] = {}
@@ -308,14 +321,29 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
         stage_p = state["stage_params"]
         shared_p = state["shared_params"]
         if "splans" not in built:
-            built["splans"] = psync.make_stage_plans(
+            splans = psync.make_stage_plans(
                 cfg.policy_plan, S, psync.stage_local_leaves(stage_p),
                 bucket_bytes=sync_cfg.bucket_bytes,
                 chunk_bytes=cfg.chunk_bytes,
                 local_path=part.local_leaf_path)
-            built["sync"] = SyncExecutor(sync_cfg, mode="per-stage",
-                                         splans=built["splans"])
+            built["splans"] = splans
+            built["sync"] = SyncExecutor(
+                sync_cfg,
+                mode="per-stage-overlapped" if overlap else "per-stage",
+                splans=splans)
+            # which drain tick launches which of a stage's chunks
+            launch_at: dict[int, dict[int, tuple[int, ...]]] = {}
+            if overlap:
+                oplan = sched.plan_overlap(name, S, M, splans)
+                for s_ in range(S):
+                    for t_, ids_ in oplan.launches[s_]:
+                        launch_at.setdefault(t_, {})[s_] = ids_
+                built["residual"] = oplan.residual
+                built["side"] = (torch.cuda.Stream(device)
+                                 if device.type == "cuda" else None)
+            built["launch_at"] = launch_at
         splans, sync_exec = built["splans"], built["sync"]
+        launch_at = built["launch_at"]
 
         # the leaves gradients are taken against: per unit of each hosted
         # stage (padded units included), and the shared tree
@@ -335,6 +363,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                      for acc in tree.leaves(gacc_s[s][key])]
             leaf_unit[s] = [i for i, _ in order]
             targets[s] = [acc[i] for i, acc in order]
+        del order
         shared = tree.tree_map(grad_leaf, shared_p)
         shared_leaves = tree.leaves(shared)
         gacc_sh: dict[int, list] = {s: [None] * len(shared_leaves)
@@ -405,6 +434,47 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
             if s > 0:
                 pipe.send_bwd(s, ct_carry)
 
+        comp = state["comp"]
+        paths = [p for p, _ in tree.flatten_with_path(gacc_s[hosted[0]])]
+        pdt = {p: a.dtype for p, a in
+               zip(paths, tree.leaves(stage_p))}
+        # overlapped sync, per hosted stage: the fp32 accumulators by path
+        # (taken at its first launch), the synced leaves and its slice of
+        # the compressor state; on CUDA the event after its last backward
+        side = built.get("side")
+        accs, parts, comps, done = {}, {}, {}, {}
+        launches: list[tuple[int, int, tuple[int, ...]]] = []
+
+        def run_chunks(t, s, ids):
+            """Stage s's chunks ``ids``: cast their members' accumulators
+            to the parameter dtype and sync them over the DP workers."""
+            if s not in accs:
+                accs[s] = dict(zip(paths, tree.leaves(gacc_s[s])))
+                parts[s] = {}
+                comps[s] = _slice_comp(comp, hosted.index(s))
+                # the stage's backward is done: drop its views into the
+                # accumulators, so that syncing a chunk frees its members'
+                for held in (units, unit_leaves, targets):
+                    held.pop(s, None)
+                gacc_s[s] = None
+            d = splans.d_of_stage[s]
+            chunks = sync_exec.chunks(d)
+            need = [p for ci in ids for p in chunks[ci].member_paths]
+            launches.append((t, s, tuple(ids)))
+            if side is None or t < 0:
+                gb = {p: accs[s].pop(p).to(pdt[p]) for p in need}
+                upd, comps[s] = sync_exec.run_chunks(d, ids, gb, comps[s],
+                                                     pmean)
+            else:
+                side.wait_event(done[s])
+                with torch.cuda.stream(side):
+                    for v in [accs[s][p] for p in need] + tree.leaves(comps[s]):
+                        v.record_stream(side)
+                    gb = {p: accs[s].pop(p).to(pdt[p]) for p in need}
+                    upd, comps[s] = sync_exec.run_chunks(d, ids, gb,
+                                                         comps[s], pmean)
+            parts[s].update(upd)
+
         for t in range(n_ticks):
             for s in hosted:
                 for kind, j in table[s][t]:
@@ -412,31 +482,52 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                         forward_tick(s, j)
                     else:
                         backward_tick(s, j)
+                if side is not None and t == last_b[s]:
+                    done[s] = torch.cuda.Event()
+                    done[s].record()
+            for s, ids in launch_at.get(t, {}).items():
+                if s in hosted:
+                    run_chunks(t, s, ids)
             pipe.deliver(expected(t), spec, device)
         # drop the views into the accumulators, so casting frees them
-        units = unit_leaves = targets = shared = shared_leaves = None
+        for held in (units, unit_leaves, targets):
+            held.clear()
+        shared = shared_leaves = None
 
         with torch.no_grad():
             loss = pmean(pipe.psum_pipe(loss_acc, loss_acc[hosted[0]]) * inv_M)
-            stage_grads = {s: tree.unflatten(
-                gacc_s[s], [g.to(p.dtype) for g, p in zip(
-                    tree.leaves(gacc_s[s]),
-                    tree.leaves(tree.tree_map(lambda a: a[k], stage_p)))])
-                for k, s in enumerate(hosted)}
-            del gacc_s
             shared_grads = tree.unflatten(shared_p, [
                 pipe.psum_pipe({s: gacc_sh[s][n] for s in hosted},
                                p).to(p.dtype)
                 for n, p in enumerate(tree.leaves(shared_p))])
             del gacc_sh
-
-            comp = state["comp"]
             synced_s, comp2 = {}, []
-            for k, s in enumerate(hosted):
-                synced_s[s], _, new_k = sync_exec.sync(
-                    stage_grads.pop(s), _slice_comp(comp, k), pmean,
-                    my_stage=s)
-                comp2.append(new_k)
+            if overlap:
+                if side is not None:
+                    # the side stream's outputs are read from here on
+                    compute = torch.cuda.current_stream(device)
+                    compute.wait_stream(side)
+                    for v in [x for s in parts for x in parts[s].values()] \
+                            + tree.leaves(comps):
+                        v.record_stream(compute)
+                for s in hosted:
+                    ids = built["residual"][s]
+                    if ids or s not in accs:
+                        run_chunks(-1, s, ids)
+                    synced_s[s] = tree.unflatten(
+                        stage_p, [parts[s].pop(p) for p in paths])
+                    comp2.append(comps.pop(s))
+                del accs, parts
+            else:
+                for k, s in enumerate(hosted):
+                    grads = tree.unflatten(gacc_s[s], [
+                        g.to(pdt[p]) for p, g in
+                        zip(paths, tree.leaves(gacc_s[s]))])
+                    gacc_s[s] = None
+                    synced_s[s], _, new_k = sync_exec.sync(
+                        grads, _slice_comp(comp, k), pmean, my_stage=s)
+                    comp2.append(new_k)
+            del gacc_s
             comp2 = _stack_comp(comp2) if comp2[0] else {}
             synced_sh = sync_exec.sync_shared(shared_grads, pmean)
             del shared_grads
@@ -499,6 +590,8 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
         metrics = {"loss": loss, "entropy": entropy,
                    "stage_entropy": stage_entropy, "ef_norm": ef_norm,
                    **opt_mets}
+        step.sync_launches = tuple(launches)
         return new_state, metrics
 
+    step.sync_launches = ()
     return step

@@ -44,6 +44,7 @@ __all__ = [
     "stage_local_leaves",
     "make_stage_plans",
     "stage_sync_grads",
+    "stage_sync_chunks",
     "sync_shared_grads",
     "stage_wire_bytes",
     "init_pipeline_comp_state",
@@ -190,6 +191,38 @@ def sync_shared_grads(shared_grads: Any, psum_mean: PsumFn) -> Any:
     synced_shared, _ = bucketing.bucketed_sync_grads(
         shared_grads, {}, shared_layout, psum_mean)
     return synced_shared
+
+
+def stage_sync_chunks(
+    grads_by_path: dict[str, torch.Tensor],
+    comp_state: dict,
+    splans: StagePlans,
+    d: int,
+    chunk_ids,
+    psum_mean: PsumFn,
+    use_kernels: bool = False,
+    codec=None,
+) -> tuple[dict[str, torch.Tensor], dict]:
+    """Run a subset of distinct schedule ``d``'s chunks (the overlap
+    primitive).
+
+    ``grads_by_path`` holds the stage's local gradients in the parameter
+    dtype; only the chunks' members are read. Returns (synced leaves by
+    local path, the full compressor dict with the touched ``p{d}:`` keys
+    replaced).
+    """
+    prefix = f"p{d}:"
+    sub = _sub_state(comp_state, prefix)
+    chunks = bucketing.sync_chunks(splans.layouts[d])
+    new_state = dict(comp_state)
+    updates: dict[str, torch.Tensor] = {}
+    for ci in chunk_ids:
+        upd, st = bucketing.sync_chunk_grads(
+            grads_by_path, sub, chunks[ci], psum_mean,
+            use_kernels=use_kernels, codec=codec)
+        updates.update(upd)
+        new_state.update({prefix + k: v for k, v in st.items()})
+    return updates, new_state
 
 
 # ----------------------------------------------------------------- accounting

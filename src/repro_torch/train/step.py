@@ -5,7 +5,10 @@ through the :class:`SyncExecutor` (compressed factor means for planned
 leaves, plain means for the rest), the GDS entropy of the synced
 gradients when the alpha gate asks for it, and an AdamW update.
 ``cfg.num_stages > 1``, or a pipe transport, routes to the pipelined step
-(``repro_torch.pipeline.executor``).
+(``repro_torch.pipeline.executor``), which reads the embedded
+``PipelineConfig``: schedule, microbatches, stash policy, and
+``overlap_sync`` with ``chunk_bytes`` (the per-stage sync split into
+chunks of at most that many bytes and launched in the drain ticks).
 
 The fault channel: a batch may carry an ``_inject`` flag tensor (the
 trainer adds it on every step once a ``nan_grad`` fault is scheduled);

@@ -19,10 +19,19 @@ global batch, as the reference's ``data`` mesh axis shards it.
 
 ``pipe=S`` is the counterpart of the reference's mesh with a ``pipe`` axis:
 the state is partitioned into S stages (``pipeline.partition``) and each
-step runs the pipelined executor with all S stage programs in this process
-(``pipeline.executor.LocalPipe``), each stage synced at its own rank.
-Without it, ``num_stages`` > 1 stays virtual: the DAC emits per-stage
-ranks and the flat step runs.
+step runs the pipelined executor, each stage synced at its own rank.
+Without a ``mesh`` all S stage programs run in this process
+(``pipeline.executor.LocalPipe``), with DP over the default group. With a
+``(pipe, data)`` mesh (``launch.mesh.make_host_mesh``) each process hosts
+one stage (``pipeline.executor.DistPipe`` over its pipe group) and holds
+that stage's slices of the state, with DP over its data group; a
+checkpoint gathers the reference's whole layout. Without ``pipe``,
+``num_stages`` > 1 stays virtual: the DAC emits per-stage ranks and the
+flat step runs.
+
+``overlap_sync`` (pipelined runs) launches each stage's sync chunks in the
+drain ticks ``pipeline.schedule.plan_overlap`` assigns and feeds the plan's
+Eq. 4 slack to the DAC, which aligns and clamps the stage ranks against it.
 """
 from __future__ import annotations
 
@@ -43,12 +52,14 @@ from repro_torch.core.config import SYNC_FIELDS, alias_property, resolve_embedde
 from repro_torch.core.sync_executor import SyncExecutor
 from repro_torch.core.powersgd import fold_in, resize_rank
 from repro_torch.dist.collectives import (dp_all_gather, dp_barrier, dp_rank,
-                                          dp_world_size)
+                                          dp_world_size, make_dp_pmean)
+from repro_torch.launch.mesh import pipe_size
 from repro_torch.models.model import Model, param_count
 from repro_torch.obs.metrics import JsonlSink, MetricsRegistry, fetch
 from repro_torch.optim import adam
 from repro_torch.pipeline import sync as psync
 from repro_torch.pipeline.config import PIPELINE_FIELDS
+from repro_torch.pipeline.schedule import plan_overlap
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.faults import (FaultPlan, RecoveryState,
                                       poison_lowrank_state, truncate_file)
@@ -135,7 +146,7 @@ del _name
 class Trainer:
     def __init__(self, model: Model, edgc_cfg: EDGCConfig,
                  tcfg: TrainerConfig, seed: int = 0, device=None,
-                 pipe: int | None = None) -> None:
+                 pipe: int | None = None, mesh=None) -> None:
         self.device = resolve_device(device)
         self.model = model
         self.edgc_cfg = edgc_cfg
@@ -149,8 +160,18 @@ class Trainer:
         self.leaves = classify_leaves(params, model.config.num_layers,
                                       edgc_cfg.num_stages,
                                       min_dim=tcfg.min_compress_dim)
-        self.world = dp_world_size()
-        self.rank = dp_rank()
+        # a mesh with a pipe axis hosts one stage per process: DP runs over
+        # the data group, the pipe collectives over the pipe group
+        self._dp_group = None if mesh is None else mesh.get_group("data")
+        self._pipe_group = None
+        if mesh is not None and "pipe" in mesh.mesh_dim_names:
+            if pipe_size(mesh) != pipe:
+                raise ValueError(f"mesh pipe axis size {pipe_size(mesh)} != "
+                                 f"pipe={pipe}")
+            self._pipe_group = mesh.get_group("pipe")
+        self.world = dp_world_size(self._dp_group)
+        self.rank = dp_rank(self._dp_group)
+        self._writer = dp_rank() == 0      # the process that writes files
         self.controller = EDGCController(edgc_cfg, self.leaves, world=self.world)
 
         # pipe=S runs S stages; without it the stage count the DAC sees
@@ -164,10 +185,6 @@ class Trainer:
         if pcfg.num_stages != s_exec:
             pcfg = dataclasses.replace(pcfg, num_stages=s_exec)
         self.pipeline_cfg = pcfg
-        if self.pipelined and pcfg.overlap_sync:
-            raise NotImplementedError(
-                "overlap_sync (the sync interleaved with the drain ticks) is "
-                "not ported yet (ROADMAP Queue 1 item 8b)")
         # the pipelined sync is always the per-stage bucketed executor
         self._bucketed = tcfg.sync.bucketed is not False
         self.sync_cfg = dataclasses.replace(
@@ -196,7 +213,20 @@ class Trainer:
             self.state = {"params": params, "opt_m": ost.m, "opt_v": ost.v,
                           "opt_step": ost.step, "comp": comp}
 
+        # overlapped per-stage sync: the DAC gets the schedule's Eq. 4
+        # slack, so Algorithm 2 aligns (and clamps) ranks against the
+        # geometry the overlap planner schedules
+        self.overlap_plan = None
+        if self.pipelined and pcfg.overlap_sync:
+            S = pcfg.num_stages
+            self.overlap_plan = plan_overlap(
+                pcfg.schedule, S, pcfg.num_microbatches or S, self._splans)
+            t_mb = self.controller.dac.t_micro_back
+            self.controller.set_overlap_feedback(
+                [t * t_mb for t in self.overlap_plan.slack_seconds])
+
         self._step_cache: dict[Any, Any] = {}
+        self.step_configs: dict[Any, TrainStepConfig] = {}
         self.history: list[dict] = []
         self.bytes_synced = 0           # exact DP wire bytes so far (coded)
         self.bytes_wire_raw = 0         # the same payloads priced uncoded
@@ -210,7 +240,7 @@ class Trainer:
         # with no sink, so the loop never needs a null check
         if tcfg.metrics is not None:
             self.metrics = tcfg.metrics
-        elif tcfg.metrics_dir:
+        elif tcfg.metrics_dir and self._writer:
             self.metrics = MetricsRegistry(
                 [JsonlSink(os.path.join(tcfg.metrics_dir, "metrics.jsonl"))])
         else:
@@ -225,6 +255,19 @@ class Trainer:
             stash_policy=pcfg.stash_policy, overlap_sync=pcfg.overlap_sync,
             window=int(edgc_cfg.dac.window), log_every=int(tcfg.log_every),
             total_steps=int(tcfg.total_steps))
+        if self.overlap_plan is not None:
+            op = self.overlap_plan
+            n_in = [sum(len(ids) for _, ids in op.launches[s])
+                    for s in range(op.num_stages)]
+            n_res = [len(op.residual[s]) for s in range(op.num_stages)]
+            total = sum(n_in) + sum(n_res)
+            self.metrics.event(
+                "overlap_plan", step=0,
+                in_loop=n_in, residual=n_res,
+                slack_seconds=list(op.slack_seconds),
+                est_sync_seconds=list(op.est_sync_seconds),
+                feasible=list(op.feasible),
+                slack_utilization=(sum(n_in) / total if total else 0.0))
 
         # ----- fault injection and the recovery policy
         self.faults = tcfg.faults if tcfg.faults is not None else FaultPlan()
@@ -252,14 +295,15 @@ class Trainer:
         """The stage-partitioned state: the family's adapter owns the
         layout (stacked stage keys, ragged padding, leaf paths)."""
         from repro_torch.pipeline import partition as ppart
-        from repro_torch.pipeline.executor import LocalPipe
+        from repro_torch.pipeline.executor import DistPipe, LocalPipe, host_state
         S = self.edgc_cfg.num_stages
         reason = ppart.pipeline_supported(self.model.config, S)
         if reason is not None:
             raise ValueError(f"pipeline trainer unsupported: {reason}")
         self._part = ppart.make_partition(self.model, S,
                                           remat=self.tcfg.remat)
-        self._transport = LocalPipe(S)
+        self._transport = (LocalPipe(S) if self._pipe_group is None
+                           else DistPipe(S, group=self._pipe_group))
         stage_p, shared_p = self._part.partition_params(params)
         ost = adam.init({"stage": stage_p, "shared": shared_p}, acfg)
         self._splans = self._stage_plans(stage_p)
@@ -271,6 +315,8 @@ class Trainer:
             "opt_m": ost.m, "opt_v": ost.v, "opt_step": ost.step,
             "comp": comp,
         }
+        if self._pipe_group is not None:
+            self.state = host_state(self.state, self._transport.stages)
 
     def _stage_plans(self, stage_p):
         return psync.make_stage_plans(
@@ -291,8 +337,10 @@ class Trainer:
                 measure_entropy=measure_entropy, remat=self.tcfg.remat,
                 guard_nonfinite=self._guard, pipeline=self.pipeline_cfg,
                 sync=self.sync_cfg, adam=self.tcfg.adam)
-            self._step_cache[key] = make_train_step(self.model, scfg,
-                                                    pipe=self._transport)
+            self.step_configs[key] = scfg
+            self._step_cache[key] = make_train_step(
+                self.model, scfg, psum_mean=make_dp_pmean(self._dp_group),
+                pipe=self._transport)
         return self._step_cache[key]
 
     def _device_batch(self, batch: dict) -> dict:
@@ -344,10 +392,13 @@ class Trainer:
         plan = self.controller.plan
         comp = self.state["comp"]
         if self.pipelined:
+            # the resize reads every stage's slices: a process that hosts
+            # one stage gathers them and keeps its own
             new_splans = self._stage_plans(self.state["stage_params"])
             fresh = psync.resize_pipeline_comp_state(
-                comp, self._splans, new_splans, self._comp_seed,
-                device=self.device)
+                tree.tree_map(self._gather_stages, comp), self._splans,
+                new_splans, self._comp_seed, device=self.device)
+            fresh = tree.tree_map(self._own_stages, fresh)
             self._splans = new_splans
         elif self._bucketed:
             new_layout = make_bucket_layout(self.leaves, plan,
@@ -510,7 +561,7 @@ class Trainer:
                 if self._tear_next_ckpt:
                     # torn_ckpt fault: a crash mid-write, simulated after
                     # the (atomic) save by truncating the archive in place
-                    if self.rank == 0:
+                    if self._writer:
                         truncate_file(path + ".npz")
                     dp_barrier()
                     self._tear_next_ckpt = False
@@ -659,28 +710,54 @@ class Trainer:
         poison_lowrank_state(self.state["comp"])
 
     # --------------------------------------------------------- checkpointing
+    def _gather_stages(self, t: torch.Tensor) -> torch.Tensor:
+        """A stage-stacked leaf with every stage's slice: gathered over the
+        pipe group where each process hosts one stage (a collective)."""
+        if self._pipe_group is None:
+            return t
+        return dp_all_gather(t[0], self._pipe_group)
+
+    def _own_stages(self, t: torch.Tensor) -> torch.Tensor:
+        """The hosted stages' slices of a stage-stacked leaf."""
+        if self._pipe_group is None:
+            return t
+        s = self._transport.stage
+        return t[s:s + 1].contiguous()
+
     def _checkpoint_like(self, gather: bool) -> dict:
         """The state as the reference lays it out: each compressor leaf with
         a per-worker dim, leading (flat) or after the stage dim (pipelined:
-        (S, W, ...)). ``gather`` collects every worker's leaves (a
-        collective); otherwise the leaves are shape-only stand-ins."""
-        comp = self.state["comp"]
+        (S, W, ...)), and every stage's slices. ``gather`` collects every
+        process's leaves (collectives); otherwise the leaves are shape-only
+        stand-ins."""
+        state, comp = self.state, self.state["comp"]
         if self.pipelined:
-            comp = (tree.tree_map(lambda t: dp_all_gather(t).movedim(0, 1),
-                                  comp) if gather else
-                    psync.replicate_pipeline_comp_state(comp, self.world))
+            S = self.edgc_cfg.num_stages
+            stages = (self._gather_stages if gather else
+                      (lambda t: t[:1].expand((S,) + tuple(t.shape[1:]))))
+            if self._pipe_group is not None:
+                per = lambda t: tree.tree_map(stages, t)
+                state = dict(
+                    state, stage_params=per(state["stage_params"]),
+                    opt_m=dict(state["opt_m"], stage=per(state["opt_m"]["stage"])),
+                    opt_v=dict(state["opt_v"], stage=per(state["opt_v"]["stage"])))
+                comp = per(comp)
+            comp = (tree.tree_map(
+                lambda t: dp_all_gather(t, self._dp_group).movedim(0, 1), comp)
+                if gather else
+                psync.replicate_pipeline_comp_state(comp, self.world))
         else:
-            lead = (dp_all_gather if gather else
+            lead = ((lambda t: dp_all_gather(t, self._dp_group)) if gather else
                     (lambda t: t[None].expand((self.world,)
                                               + tuple(t.shape))))
             comp = tree.tree_map(lead, comp)
-        return dict(self.state, comp=comp)
+        return dict(state, comp=comp)
 
     def save_checkpoint(self, path: str, step: int | None = None) -> None:
         """The device tree + the host control plane (controller/DAC/CQM).
 
-        Every worker calls it (the compressor state is gathered); worker 0
-        writes the pair. ``extra`` carries what the window loop mutates, so
+        Every process calls it (the state is gathered); rank 0 of the
+        default group writes the pair. ``extra`` carries what the window loop mutates, so
         a resumed run continues mid-window instead of restarting warm-up.
         """
         state = self._checkpoint_like(gather=True)
@@ -694,7 +771,7 @@ class Trainer:
         }
         if self.recovery is not None:
             extra["recovery"] = self.recovery.as_dict()
-        if self.rank == 0:
+        if self._writer:
             ckpt_mod.save(path, state, extra=extra)
         dp_barrier()
 
@@ -734,6 +811,13 @@ class Trainer:
         mine = ((lambda t: t[:, self.rank].contiguous()) if self.pipelined
                 else (lambda t: t[self.rank].contiguous()))
         restored["comp"] = tree.tree_map(mine, restored["comp"])
+        if self._pipe_group is not None:
+            own = lambda t: tree.tree_map(self._own_stages, t)
+            restored = dict(
+                restored, stage_params=own(restored["stage_params"]),
+                comp=own(restored["comp"]),
+                opt_m=dict(restored["opt_m"], stage=own(restored["opt_m"]["stage"])),
+                opt_v=dict(restored["opt_v"], stage=own(restored["opt_v"]["stage"])))
         self.state = restored
         return self._global_step
 

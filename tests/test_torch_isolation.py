@@ -25,7 +25,8 @@ def test_port_has_files():
     for module in ("obs/metrics.py", "obs/trace.py", "train/faults.py",
                    "launch/report.py", "pipeline/schedule.py",
                    "pipeline/adapters.py", "pipeline/partition.py",
-                   "pipeline/sync.py", "pipeline/executor.py"):
+                   "pipeline/sync.py", "pipeline/executor.py",
+                   "launch/mesh.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 

@@ -14,6 +14,7 @@ bar) and of the flat trainer's, entropy within 1e-4 of the reference's,
 ``bytes_synced`` equal.
 """
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -158,8 +159,10 @@ def test_pipelined_trainer_refusals():
         _port(2, 2, faults=parse_inject("nan_grad@1"))
     with pytest.raises(ValueError, match="pipe=3 != num_stages=2"):
         _port(2, 3)
-    with pytest.raises(NotImplementedError, match="8b"):
-        _port(2, 2, overlap_sync=True)
+    # overlap_sync is no longer refused: the trainer plans the drain
+    tr = _port(2, 2, overlap_sync=True)
+    assert tr.overlap_plan is not None and all(tr.overlap_plan.feasible)
+    assert tr.controller.dac.slack_seconds is not None
     with pytest.raises(ValueError, match="gaussian"):
         tr = _port(2, 2)
         tr.edgc_cfg = dataclasses.replace(
@@ -234,7 +237,49 @@ def test_launch_pipe_trace_on_cpu(tmp_path, capsys):
     assert "pipeline: S=2 M=4 gpipe stash=full overlap_sync=False" in out
     assert "bubble fraction: 0.200" in out and "stage entropy (last)" in out
     validate_trace(load_trace(str(tmp_path / "r.json")))
-    for bad in (["--overlap"], ["--chunk-bytes", "1024"],
-                ["--trace", trace_path]):
+    # --overlap and --chunk-bytes without --pipe run the flat trainer, which
+    # ignores them, as the reference's launcher does
+    assert len(main(["--steps", "1", "--batch", "2", "--seq", "16",
+                     "--overlap", "--chunk-bytes", "1024",
+                     "--device", "cpu"])) == 1
+    for bad in (["--trace", trace_path], ["--data-mesh", "2"]):
         with pytest.raises(SystemExit):
             main(["--steps", "1", "--device", "cpu"] + bad)
+
+
+def test_launch_overlap_trace_on_cpu(tmp_path, capsys):
+    """``--pipe 2 --overlap --chunk-bytes N --trace``: the trace's SYNC spans
+    are the overlap plan's in-loop launches and its sync-residual spans the
+    residual; the report prints the overlap line."""
+    from repro_torch.launch import report
+    from repro_torch.launch.train import main
+    from repro_torch.obs.metrics import read_jsonl
+    from repro_torch.obs.trace import load_trace, validate_trace
+    trace_path, runs = str(tmp_path / "t.json"), str(tmp_path / "runs")
+    hist = main(["--arch", "gpt2", "--variant", "reduced", "--policy",
+                 "fixed", "--rank", "8", "--pipe", "2", "--micro", "4",
+                 "--steps", "3", "--batch", "4", "--seq", "16", "--overlap",
+                 "--chunk-bytes", "16384", "--trace", trace_path,
+                 "--metrics-dir", runs, "--device", "cpu"])
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+    assert "overlapped sync" in capsys.readouterr().out
+    events = load_trace(trace_path)["traceEvents"]
+    stats = validate_trace(load_trace(trace_path))
+    sync = [(e["tid"], e["args"]["planned_tick"], e["args"]["chunk"])
+            for e in events if e.get("cat") == "sync"]
+    residual = [(e["tid"], e["args"]["chunk"]) for e in events
+                if e.get("cat") == "sync-residual"]
+    # the plan the run's trainer made, from its overlap_plan event
+    meta = [r for r in read_jsonl(os.path.join(runs, "metrics.jsonl"))
+            if r.get("name") == "overlap_plan"]
+    assert len(meta) == 1
+    plan = meta[0]["data"]
+    assert [sum(1 for s, _, _ in sync if s == st) for st in range(2)] == \
+        plan["in_loop"]
+    assert [sum(1 for s, _ in residual if s == st) for st in range(2)] == \
+        plan["residual"]
+    assert plan["in_loop"][0] == 0 and plan["in_loop"][1] > 0
+    assert stats["by_cat"]["sync"] == sum(plan["in_loop"])
+    report.main([runs])
+    out = capsys.readouterr().out
+    assert "overlap_sync=True" in out and "overlap plan:" in out
