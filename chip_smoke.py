@@ -111,6 +111,33 @@ Phases, in order; any failure raises, so the exit code is not 0:
                --pipe 2 --overlap --chunk-bytes --trace`` on the card, its
                SYNC spans equal to the plan's in-loop launches and its
                sync-residual spans to the residual
+  (l) families the MoE, dense and VLM families: (l1) ``Trainer.run`` for
+               3 flat steps of qwen3-moe-235b-a22b at its published widths
+               (depth cut to 1 of 94), policy fixed, rank 64, kernels on,
+               bucketed, raw wire, batch 2 x 1024, bf16, remat: its four
+               shape groups (388 matrices), 4 launches of each PowerSGD
+               kernel a step, ``bytes_synced`` equal to 2 r (m + n) per
+               compressed matrix and 2 B per other element, the loss and
+               router aux per step, the seconds to initialise, the state by
+               part and the peak; with ``--profile`` a fourth step's device
+               time by part (sync kernels, experts, GShard dispatch and
+               combine, router, attention, head and loss, other); then each
+               PowerSGD kernel against its plain version at the (256, 4096,
+               1536) and (128, 1536, 4096) expert groups and at qwen3-32b's
+               (4, 5120, 25600) and (2, 25600, 5120); (l2) two flat steps
+               each of qwen2.5-3b (depth 4) and qwen3-32b (depth 2) at
+               their published widths and llama3-405b's reduced config,
+               batch 4 x 1024; (l3) the reduced MoE in fp32 on the card
+               against the CPU, 3 steps, with the first step's top-k
+               indices and dispatch masks compared and any routing flip
+               counted; (l4) the same model at S = 2 on ``LocalPipe``,
+               1F1B, M = 1 within 5e-3 of (l3)'s card run and M = 2 within
+               the reference's 0.2 envelope; (l5) phi-3-vision-4.2b at its
+               published widths (depth 8 of 32), batch 4 x (576 stub
+               patches + 1024 tokens): the residual stream's dtype (fp32,
+               as the reference's), losses, step ms and peak; then
+               ``launch.train --arch phi-3-vision-4.2b --pipe 2`` on the
+               reduced config
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -127,7 +154,9 @@ entry points (the training step does not call them: the model keeps its
 plain-torch ``blockwise_attention``, as the reference's does). The
 PowerSGD and pack entries add ``launches_pipelined``, their launches on
 the pipelined paths of (j1) and (j4) quant8; the PowerSGD entries add
-``launches_overlapped``, their launches on (k1)'s first run. The last
+``launches_overlapped``, their launches on (k1)'s first run,
+``launches_moe``, their launches on (l1)'s three steps, and ``families``,
+their rows at (l)'s expert and qwen3-32b groups. The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -137,6 +166,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -2025,8 +2055,383 @@ def phase_overlap(report: dict, dev, j1_state: list) -> dict:
 
 
 # ----------------------------------------------------------------- the lines
+# ----------------------------------------------------------- (l) families
+# qwen3-moe-235b-a22b at depth 1: (E, m, n, r) of wk/wv, wq/wo, down, and
+# gate/up of 128 experts
+MOE_GROUPS = [(2, 4096, 256, 64), (2, 4096, 4096, 64), (128, 1536, 4096, 64),
+              (256, 4096, 1536, 64)]
+MOE_CHECK = [(256, 4096, 1536, 64), (128, 1536, 4096, 64)]
+# qwen3-32b at depth 2: the mlp's gate/up and down groups
+QWEN3_CHECK = [(4, 5120, 25600, 64), (2, 25600, 5120, 64)]
+MOE_PEAK_RECKONING_GIB = 72.0     # state from the leaf list plus the largest group's sync
+
+
+def _state_gb(tr) -> dict:
+    """GB (1e9 B) of the flat trainer's state by part."""
+    from repro_torch import tree
+    from repro_torch.core.powersgd import LowRankState
+    size = lambda t: sum(a.numel() * a.element_size() for a in tree.leaves(t))
+    comp = tr.state["comp"]
+    return {"params": size(tr.state["params"]) / 1e9,
+            "moments": (size(tr.state["opt_m"]) + size(tr.state["opt_v"])) / 1e9,
+            "ef": sum(v.err.numel() * 4 for v in comp.values()
+                      if isinstance(v, LowRankState)) / 1e9,
+            "q": sum(v.q.numel() * 4 for v in comp.values()
+                     if isinstance(v, LowRankState)) / 1e9}
+
+
+def _bytes_by_hand(tr) -> int:
+    """One raw step's wire bytes from the shapes: 2 r (m + n) per compressed
+    (m, n) matrix, 2 per element of every other leaf."""
+    from repro_torch import tree
+    ranks = dict(tr.controller.plan.ranks)
+    total = 0
+    for path, a in tree.flatten_with_path(tr.state["params"]):
+        if path in ranks:
+            m, n = a.shape[-2:]
+            total += 2 * ranks[path] * (m + n) * (a.numel() // (m * n))
+        else:
+            total += 2 * a.numel()
+    return total
+
+
+def _profile_categories(prof) -> dict:
+    """Device ms of one profiled step by what ran: the PowerSGD kernels by
+    name; every other kernel by the shapes of the aten op that launched it
+    (AdamW's in-place slices of ``adam.INPLACE_CHUNK`` elements, the head's
+    vocabulary, the experts' d_ff, the GShard dispatch and combine's E x C
+    slots, the router's E, attention's heads); the rest by aten op under
+    ``other``, with its largest ops listed."""
+    from torch.autograd import DeviceType
+    from repro_torch.optim import adam
+    sync = ("ef_factor_kernel", "decompress_kernel", "gram_schmidt_kernel",
+            "split_sum_kernel")
+    out = {"sync kernels": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(s in e.key for s in sync):
+            out["sync kernels"] += e.self_device_time_total / 1e3
+    rules = [("adamw", lambda dims: adam.INPLACE_CHUNK in dims),
+             ("head and loss", lambda dims: 151936 in dims),
+             ("experts", lambda dims: 1536 in dims),
+             ("dispatch and combine", lambda dims: 10240 in dims or 80 in dims),
+             ("router", lambda dims: 128 in dims and 2048 in dims),
+             ("attention", lambda dims: 64 in dims or 256 in dims)]
+    other: dict[str, float] = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
+            continue
+        dims = {d for shape in (e.input_shapes or []) if isinstance(shape, list)
+                for d in shape if isinstance(d, int)}
+        ms = e.self_device_time_total / 1e3
+        name = next((n for n, rule in rules if rule(dims)), "other")
+        out[name] = out.get(name, 0.0) + ms
+        if name == "other":
+            other[e.key] = other.get(e.key, 0.0) + ms
+    out["other: largest ops"] = dict(sorted(other.items(),
+                                            key=lambda kv: -kv[1])[:8])
+    return out
+
+
+def _moe_full(report: dict, dev, profile: bool) -> dict:
+    """(l1): qwen3-moe-235b-a22b at its published widths, depth 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b", "full"),
+                              num_layers=1, num_stages=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = _trainer(cfg, "fixed", 64, 4, 50, dev)     # step 4: --profile
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    groups = [(g.stack_size, g.m, g.n, g.rank) for g in tr._layout.groups]
+    matrices = sum(g.stack_size for g in tr._layout.groups)
+    compressed = sum(g.stack_size * g.m * g.n for g in tr._layout.groups)
+    state = _state_gb(tr)
+    state_bytes = torch.cuda.memory_allocated(dev)
+    S = min(cfg.moe_group, 2 * 1024)
+    log(f"(l1) {cfg.name} at its published widths (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.hd}, {cfg.num_kv_heads} kv heads, "
+        f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.experts_per_token}, vocab {cfg.vocab_size}), depth 1 (of 94), "
+        f"{cfg.dtype}, remat={cfg.remat}: {tr.n_params} params, "
+        f"{compressed} compressed in {matrices} matrices; initialised in "
+        f"{init_s:.1f} s; shape groups (E,m,n,r) {groups}; dispatch groups "
+        f"G = {2 * 1024 // S} of S = {S}, capacity C = "
+        f"{moe.capacity_of(cfg, S)}; AdamW moments "
+        f"{tr.tcfg.adam.opt_dtype}, state donated to the step")
+    log(f"    state {sum(state.values()):.2f} GB: params {state['params']:.2f}, "
+        f"moments {state['moments']:.2f}, EF {state['ef']:.2f}, Q "
+        f"{state['q']:.3f} (allocated {state_bytes / 2**30:.2f} GiB)")
+    if sorted(groups) != sorted(MOE_GROUPS) or matrices != 388:
+        raise AssertionError(f"MoE groups {groups} ({matrices} matrices) != "
+                             f"{MOE_GROUPS} (388)")
+    batches = SyntheticLM(cfg.vocab_size, 1024, 2, seed=0).batches()
+    kernels = _reset_launches()
+    step_ms = _timed_steps(tr, batches, 3)
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = tr.history
+    by_hand = _bytes_by_hand(tr)
+    row = {"config": cfg.name, "init_s": init_s, "groups": groups,
+           "matrices": matrices, "compressed_params": compressed,
+           "n_params": tr.n_params, "state_gb": state,
+           "loss": [h["loss"] for h in hist[:3]],
+           "aux": [h["aux"] for h in hist[:3]],
+           "step_ms": step_ms, "peak_bytes": peak, "launches": launches,
+           "bytes_synced": [h["bytes_synced"] for h in hist[:3]],
+           "bytes_by_hand": by_hand, "opt_dtype": tr.tcfg.adam.opt_dtype}
+    prev = 0
+    for h, ms in zip(hist, step_ms):
+        log(f"    step {h['step']} loss {h['loss']:.4f} aux {h['aux']:.4f} "
+            f"{ms:.1f} ms bytes synced {h['bytes_synced'] - prev} (by hand "
+            f"{by_hand})")
+        prev = h["bytes_synced"]
+    log(f"    peak {peak / 2**30:.2f} GiB (reckoning about "
+        f"{MOE_PEAK_RECKONING_GIB} of {torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}); "
+        f"PowerSGD launches {launches}")
+    steps_bytes = [b - a for a, b in zip([0] + row["bytes_synced"],
+                                         row["bytes_synced"])]
+    if len(row["loss"]) != 3 or not all(math.isfinite(x) for x in
+                                        row["loss"] + row["aux"]):
+        raise AssertionError(f"(l1) losses {row['loss']} aux {row['aux']}")
+    if any(b != by_hand for b in steps_bytes):
+        raise AssertionError(f"(l1) bytes synced {steps_bytes} != {by_hand}")
+    if any(launches[k.__name__] != 4 * 3 for k in kernels
+           if k.__name__ in ("ef_lowrank_p", "ef_lowrank_q",
+                             "decompress_residual", "gram_schmidt_panel")):
+        raise AssertionError(f"(l1) launches {launches}: want 4 a step")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                      record_shapes=True) as prof:
+            tr.run(batches, num_steps=1)
+            torch.cuda.synchronize()
+        cats = _profile_categories(prof)
+        ops = cats.pop("other: largest ops")
+        row["profile_ms"] = cats
+        row["profile_other_ops_ms"] = ops
+        log(f"    profiled step, device ms by part: "
+            f"{ {k: round(v, 2) for k, v in sorted(cats.items(), key=lambda kv: -kv[1])} }; "
+            f"largest ops of the rest: { {k: round(v, 2) for k, v in ops.items()} }")
+    del tr
+    _release()
+    return row
+
+
+def _dense_full(report: dict, dev) -> list:
+    """(l2): the dense configs of 9a, one flat step each at their widths."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    rows = []
+    cases = [("qwen2.5-3b", "full", dict(num_layers=4)),
+             ("qwen3-32b", "full", dict(num_layers=2, num_stages=2)),
+             ("llama3-405b", "reduced", {})]
+    log("(l2) llama3-405b runs its reduced config only: one layer at its "
+        "published widths holds 57.4 GB of state and its embed and head "
+        "58.8 GB, more than the card's 80 GB together")
+    for arch, variant, cut in cases:
+        cfg = dataclasses.replace(get_config(arch, variant), **cut)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = _trainer(cfg, "fixed", 64, 2, 50, dev)
+        groups = [(g.stack_size, g.m, g.n, g.rank) for g in tr._layout.groups]
+        batches = SyntheticLM(cfg.vocab_size, 1024, 4, seed=0).batches()
+        kernels = _reset_launches()
+        step_ms = _timed_steps(tr, batches, 2)
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in tr.history]
+        rows.append({"config": cfg.name, "variant": variant, "cut": cut,
+                     "groups": groups, "loss": losses, "step_ms": step_ms,
+                     "peak_bytes": peak, "launches": launches,
+                     "n_params": tr.n_params})
+        log(f"(l2) {cfg.name} ({variant}, {cut or 'as published'}): "
+            f"{tr.n_params} params, groups {groups}; losses "
+            f"{[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x, 1) for x in step_ms]}, peak {peak / 2**30:.2f} GiB")
+        if not all(math.isfinite(x) for x in losses) or not all(
+                launches[k.__name__] > 0 for k in kernels
+                if k.__name__ == "ef_lowrank_p"):
+            raise AssertionError(f"(l2) {cfg.name}: losses {losses}, "
+                                 f"launches {launches}")
+        if arch == "qwen3-32b" and not set(QWEN3_CHECK) <= set(groups):
+            raise AssertionError(f"(l2) qwen3-32b groups {groups} lack "
+                                 f"{QWEN3_CHECK}")
+        del tr
+        _release()
+    return rows
+
+
+def _route_spy(calls: list):
+    """Wrap ``moe.route`` so each call also records its top-k indices and
+    dispatch mask on the host."""
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def spy(x_flat, ffn, cfg, group_size, capacity=None):
+        out = orig(x_flat, ffn, cfg, group_size, capacity)
+        with torch.no_grad():
+            xg = out[0]
+            probs = torch.softmax(torch.einsum(
+                "gsd,de->gse", xg.float(), ffn["router"].float()), dim=-1)
+            idx = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).indices[..., :cfg.experts_per_token]
+        calls.append((idx.cpu(), out[1].cpu()))
+        return out
+    return orig, spy
+
+
+def _moe_small(report: dict, dev) -> dict:
+    """(l3) the reduced MoE in fp32, card against CPU; (l4) pipelined."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b", "reduced"),
+                              num_stages=2)
+    data = lambda: SyntheticLM(cfg.vocab_size, 64, 4, seed=1).batches()
+    out, routes = {}, {}
+    for where in ("cpu", dev):
+        calls: list = []
+        orig, spy = _route_spy(calls)
+        tr = _trainer(cfg, "fixed", 8, 3, 50, where)
+        batches = data()
+        moe.route = spy
+        try:
+            tr.run(batches, num_steps=1)
+        finally:
+            moe.route = orig
+        tr.run(batches, num_steps=2)
+        out[str(where)] = [h["loss"] for h in tr.history]
+        routes[str(where)] = calls
+        del tr
+    cpu, card = out["cpu"], out[str(dev)]
+    gap = max(abs(a - b) for a, b in zip(cpu, card))
+    pairs = list(zip(routes["cpu"], routes[str(dev)]))
+    flips = sum(int((a[0] != b[0]).sum()) for a, b in pairs)
+    mask_flips = sum(int((a[1] != b[1]).sum()) for a, b in pairs)
+    n_idx = sum(a[0].numel() for a, _ in pairs)
+    row = {"cpu_loss": cpu, "card_loss": card, "max_gap": gap,
+           "route_calls": len(pairs), "topk_flips": flips,
+           "dispatch_flips": mask_flips, "topk_entries": n_idx}
+    log(f"(l3) {cfg.name} fp32 (2 stages' layout, flat), 3 steps, card "
+        f"{card} cpu {cpu}: max gap {gap:.2e} (tol 5e-3); first step's "
+        f"{len(pairs)} route calls: top-k indices differ in {flips} of "
+        f"{n_idx}, dispatch masks in {mask_flips} entries"
+        + ("" if flips == mask_flips == 0 else
+           " -- a routing flip between the devices (finding)"))
+    if len(routes["cpu"]) != len(routes[str(dev)]) or not pairs:
+        raise AssertionError("(l3) the route calls differ in number")
+    if not gap < 5e-3 or not all(math.isfinite(x) for x in card):
+        raise AssertionError("(l3) the card's MoE run disagrees with the CPU")
+    # (l4) pipelined on LocalPipe, S = 2, 1F1B
+    row["pipelined"] = {}
+    for micro, bar in ((1, 5e-3), (2, 0.2)):
+        kernels = _reset_launches()
+        tr = _trainer(cfg, "fixed", 8, 3, 50, dev, pipe=2, schedule="1f1b",
+                      num_microbatches=micro, stash_policy="replay")
+        hist = tr.run(data())
+        losses = [h["loss"] for h in hist]
+        g = max(abs(a - b) for a, b in zip(losses, card))
+        launches = {k.__name__: k.launches for k in kernels}
+        row["pipelined"][micro] = {"loss": losses, "max_gap": g, "bar": bar,
+                                   "launches": launches}
+        log(f"(l4) {cfg.name} pipe=2 (LocalPipe, 1F1B) M={micro}: losses "
+            f"{[round(x, 5) for x in losses]}, max gap to (l3)'s card run "
+            f"{g:.2e} (bar {bar}); launches {launches}")
+        if not g < bar or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"(l4) M={micro}: gap {g} >= {bar}")
+        del tr
+    _release()
+    return row
+
+
+def _vlm(report: dict, dev) -> dict:
+    """(l5): phi-3-vision at its published widths, depth 8, then the
+    launcher's --pipe 2 on the reduced config."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, add_modality_stubs
+    from repro_torch.models import vlm
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b", "full"),
+                              num_layers=8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = _trainer(cfg, "fixed", 64, 2, 50, dev)
+    groups = [(g.stack_size, g.m, g.n, g.rank) for g in tr._layout.groups]
+    batches = (add_modality_stubs(b, "vlm", num_patches=cfg.num_patches,
+                                  d_model=cfg.d_model, seed=0)
+               for b in SyntheticLM(cfg.vocab_size, 1024, 4, seed=0).batches())
+    first = next(batches)
+    probe = tr._device_batch(first)
+    with torch.no_grad():
+        stream = vlm._embed_multimodal(tr.state["params"], probe["patches"],
+                                       probe["tokens"], cfg).dtype
+    del probe
+    kernels = _reset_launches()
+    step_ms = _timed_steps(tr, itertools.chain([first], batches), 2)
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in tr.history]
+    row = {"config": cfg.name, "groups": groups, "loss": losses,
+           "step_ms": step_ms, "peak_bytes": peak, "launches": launches,
+           "stream_dtype": str(stream), "n_params": tr.n_params}
+    log(f"(l5) {cfg.name} depth 8 (of 32), {cfg.dtype} weights, batch 4 x "
+        f"({cfg.num_patches} patches + 1024 tokens): {tr.n_params} params, "
+        f"groups {groups}; residual stream {stream} (the reference's "
+        f"promotion); losses {[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in step_ms]}, peak {peak / 2**30:.2f} GiB")
+    if stream != torch.float32 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(l5) stream {stream}, losses {losses}")
+    del tr
+    _release()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    tail = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "phi-3-vision-4.2b", "--variant", "reduced", "--policy", "fixed",
+         "--rank", "8", "--pipe", "2", "--micro", "2", "--steps", "4",
+         "--batch", "4", "--seq", "64", "--use-kernels"],
+        env=env, capture_output=True, text=True, check=True,
+        timeout=300).stdout.splitlines()
+    row["cli"] = {"seconds": time.perf_counter() - t0, "tail": tail[-6:]}
+    log(f"(l5) launch.train --arch phi-3-vision-4.2b --pipe 2 on the card, "
+        f"{row['cli']['seconds']:.1f} s:")
+    for line in tail[-6:]:
+        log(f"    train | {line}")
+    steps = [l for l in tail if l.startswith("step ")]
+    if len(steps) != 4 or "pipe=2" not in tail[0]:
+        raise AssertionError(f"(l5) the launcher's output: {tail}")
+    return row
+
+
+def phase_families(report: dict, dev, profile: bool) -> dict:
+    """(l): the MoE, dense and VLM families on the card; returns the
+    PowerSGD kernels' launches in (l1)."""
+    _release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = {"moe_full": _moe_full(report, dev, profile)}
+    rows = []
+    for shape in MOE_CHECK + QWEN3_CHECK:
+        cases = _cases(*shape, torch.float32, dev)
+        for name, c in cases.items():
+            rows.append(check_kernel(name, c, shape, torch.float32, False))
+            rows[-1]["group"] = "moe" if shape in MOE_CHECK else "qwen3-32b"
+            log(f"(l)   {name} at {shape}: {_rates(rows[-1])}")
+        del cases
+        _release()
+    out["kernel_rows"] = rows
+    out["dense"] = _dense_full(report, dev)
+    out["moe_small"] = _moe_small(report, dev)
+    out["vlm"] = _vlm(report, dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(l) families: {out['seconds']:.1f} s")
+    report["families"] = out
+    return out["moe_full"]["launches"]
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
-                 pipe_launches: dict, overlap_launches: dict) -> dict:
+                 pipe_launches: dict, overlap_launches: dict,
+                 moe_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -2044,8 +2449,15 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "bound_ms": total("bound_ms"), "bound_by": bound_by,
                  "library_ms": total("library_ms"),
                  "launches_pipelined": pipe_launches[wrapper],
-                 "launches_overlapped": overlap_launches[wrapper]}
+                 "launches_overlapped": overlap_launches[wrapper],
+                 "launches_moe": moe_launches[wrapper]}
         entry["device_ms"] = total("device_ms")
+        # (l)'s groups: the MoE's expert stacks and qwen3-32b's mlp
+        entry["families"] = [
+            {key: r[key] for key in ("group", "shape", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "max_abs_err", "rel_err")}
+            for r in report["families"]["kernel_rows"] if r["kernel"] == name]
         if name == "gram_schmidt":
             # the column chain: cluster size, device ms per column and
             # resident clusters per group; both instances' ptxas numbers
@@ -2154,9 +2566,10 @@ def main() -> int:
     j1_state: dict = {}
     pipe_launches = phase_pipeline(report, dev, j1_state)
     overlap_launches = phase_overlap(report, dev, j1_state.pop("state"))
+    moe_launches = phase_families(report, dev, args.profile)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
-                        overlap_launches)
+                        overlap_launches, moe_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

@@ -1,4 +1,6 @@
-"""Architecture registry of the port (the dense configs ported so far).
+"""Architecture registry of the port: the reference's archs of the families
+ported so far (dense, MoE, VLM; xLSTM, Zamba2 and Whisper are ROADMAP
+Queue 1 items 9d-9f).
 
 ``get_config(arch, variant)`` returns a ModelConfig; variants are
 ``full`` (published widths) and ``reduced`` (CPU-scale).
@@ -8,7 +10,13 @@ from __future__ import annotations
 import importlib
 
 ARCHS: dict[str, str] = {
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "qwen3-32b": "qwen3_32b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "llama3-405b": "llama3_405b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "gpt2": "gpt2",
 }
 

@@ -386,9 +386,16 @@ def _sync_flat(by_path: dict[str, torch.Tensor], members: tuple[Member, ...],
 def bucketed_sync_grads(grads: Any, comp_state: dict[str, LowRankState],
                         layout: BucketLayout, psum_mean: PsumFn,
                         use_kernels: bool = False,
-                        codec: _wire.ChunkCodec | None = None):
+                        codec: _wire.ChunkCodec | None = None,
+                        donate: bool = False):
     """Execute the bucketed schedule: 2 psums per group, 1 per flat bucket,
-    every payload coded when ``codec`` is given."""
+    every payload coded when ``codec`` is given.
+
+    ``donate``: the caller gives up ``comp_state``'s residuals. Each
+    group's new EF residual (and each coded member's ``ef:`` residual) is
+    copied into the old one's buffer as soon as it is computed, so the old
+    and the new residuals of the whole tree are never held at once; the
+    values returned are the same."""
     flat = tree.flatten_with_path(grads)
     by_path = dict(flat)
     out: dict[str, torch.Tensor] = {}
@@ -397,11 +404,15 @@ def bucketed_sync_grads(grads: Any, comp_state: dict[str, LowRankState],
         upd, st = _sync_group(by_path, group, comp_state[group.key], psum_mean,
                               use_kernels=use_kernels, codec=codec)
         out.update(upd)
+        if donate:
+            st = LowRankState(q=st.q, err=comp_state[group.key].err.copy_(st.err))
         new_state[group.key] = st
     for bucket in layout.buckets:
         upd, ef_upd = _sync_flat(by_path, bucket.members, psum_mean,
                                  codec=codec, comp_state=comp_state)
         out.update(upd)
+        if donate:
+            ef_upd = {k: comp_state[k].copy_(v) for k, v in ef_upd.items()}
         new_state.update(ef_upd)
     return tree.unflatten(grads, [out[path] for path, _ in flat]), new_state
 

@@ -226,14 +226,17 @@ def resize_compressor_state(state: dict[str, LowRankState],
 def sync_grads(grads: Any, comp_state: dict[str, LowRankState],
                plan: CompressionPlan, psum_mean: PsumFn,
                use_kernels: bool = False, bucketed: bool | None = None,
-               bucket_bytes: int = DEFAULT_BUCKET_BYTES, codec=None):
+               bucket_bytes: int = DEFAULT_BUCKET_BYTES, codec=None,
+               donate: bool = False):
     """Data-parallel gradient synchronization under a compression plan.
 
     ``bucketed=False`` runs the per-leaf loop (parity oracle: two factor
     psums per compressed leaf, one psum per other leaf); ``bucketed=True``
     the shape-grouped schedule of ``bucketing``; ``None`` infers it from
     the state format. ``codec`` (``wire.ChunkCodec``) codes every
-    collective payload, bucketed executor only. Returns (synced grads, new
+    collective payload, bucketed executor only. ``donate`` (bucketed
+    executor) writes the new EF residuals into ``comp_state``'s buffers
+    (``bucketing.bucketed_sync_grads``). Returns (synced grads, new
     compressor state).
     """
     if bucketed is None:
@@ -245,7 +248,7 @@ def sync_grads(grads: Any, comp_state: dict[str, LowRankState],
         layout = bucketing.layout_for_tree(grads, plan, bucket_bytes)
         return bucketing.bucketed_sync_grads(grads, comp_state, layout,
                                              psum_mean, use_kernels=use_kernels,
-                                             codec=codec)
+                                             codec=codec, donate=donate)
     rank_by_path = plan.as_dict()
     flat = tree.flatten_with_path(grads)
     out_leaves = []

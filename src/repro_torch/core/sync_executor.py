@@ -32,7 +32,8 @@ class SyncExecutor:
     """Facade over the flat, per-stage and overlapped DP-sync executors."""
 
     def __init__(self, cfg: SyncConfig | None = None, mode: str = "flat", *,
-                 plan: CompressionPlan | None = None, splans=None) -> None:
+                 plan: CompressionPlan | None = None, splans=None,
+                 donate: bool = False) -> None:
         if mode not in COMM_MODES:
             raise ValueError(f"unknown CommMode {mode!r} "
                              f"(want one of {COMM_MODES})")
@@ -45,6 +46,7 @@ class SyncExecutor:
         self.mode = mode
         self.plan = plan
         self.splans = splans
+        self.donate = donate          # flat: EF residuals updated in place
 
     @staticmethod
     def resolve_codec(cfg: SyncConfig):
@@ -77,7 +79,7 @@ class SyncExecutor:
                               use_kernels=self.cfg.use_kernels,
                               bucketed=self.cfg.bucketed,
                               bucket_bytes=self.cfg.bucket_bytes,
-                              codec=self.codec)
+                              codec=self.codec, donate=self.donate)
         from repro_torch.pipeline.sync import stage_sync_grads
         return stage_sync_grads(grads, shared_grads, comp_state, self.splans,
                                 psum_mean, my_stage,

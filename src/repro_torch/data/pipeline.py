@@ -1,19 +1,23 @@
-"""Deterministic synthetic LM stream (port of ``SyntheticLM`` in
+"""Deterministic synthetic LM stream and modality stubs (port of
+``SyntheticLM``, ``_stub_embedding`` and ``add_modality_stubs`` in
 ``repro/data/pipeline.py``).
 
 Pure numpy, copied as it is, so both packages draw bit-identical batches
 from one seed: a Zipf-weighted order-2 Markov token stream with real
 sequential structure, deterministic and infinitely long. Batches are numpy
-``int32`` arrays; the trainer moves them to its device.
+``int32`` arrays; the trainer moves them to its device. The stubbed
+modality frontends attach fp32 ``frames`` (audio) or ``patches`` (vision)
+drawn from a generator seeded by the sha256 of ``f"{tag}:{seed}"``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "add_modality_stubs"]
 
 
 @dataclasses.dataclass
@@ -62,3 +66,27 @@ class SyntheticLM:
                 "tokens": seqs[:, :-1].astype(np.int32),
                 "labels": seqs[:, 1:].astype(np.int32),
             }
+
+
+def _stub_embedding(shape: tuple[int, ...], tag: str, seed: int) -> np.ndarray:
+    """Deterministic pseudo-embedding for the stubbed modality frontends."""
+    h = int.from_bytes(hashlib.sha256(f"{tag}:{seed}".encode()).digest()[:4],
+                       "little")
+    rng = np.random.default_rng(h)
+    return rng.standard_normal(shape).astype(np.float32) * 0.1
+
+
+def add_modality_stubs(batch: dict, family: str, *, audio_frames: int = 0,
+                       num_patches: int = 0, d_model: int = 0,
+                       seed: int = 0) -> dict:
+    """Attach stub frames/patches as the brief's modality-frontend carve-out."""
+    B = batch["tokens"].shape[0]
+    if family == "whisper":
+        batch = dict(batch)
+        batch["frames"] = _stub_embedding((B, audio_frames, d_model), "audio",
+                                          seed)
+    elif family == "vlm":
+        batch = dict(batch)
+        batch["patches"] = _stub_embedding((B, num_patches, d_model),
+                                           "vision", seed)
+    return batch

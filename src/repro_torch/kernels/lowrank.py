@@ -237,7 +237,9 @@ def factor_plan(num_e: int, m: int, n: int, r: int, dtype, sm_count: int, *,
     / s, the smallest on a tie. So a grid that fills the resident blocks is
     not split, and 120 blocks on 264 resident take 2 splits (one wave),
     not 3 (1.36 waves). ``splits`` forces a count instead (timing sweeps).
-    Raises before any launch on what the kernel does not take.
+    The grid's z dimension is E x splits, at most 65535: the plan never
+    picks more splits than that allows, and refuses a forced count beyond
+    it. Raises before any launch on what the kernel does not take.
     """
     name = str(dtype).removeprefix("torch.")
     if name not in ("float32", "bfloat16"):
@@ -260,10 +262,15 @@ def factor_plan(num_e: int, m: int, n: int, r: int, dtype, sm_count: int, *,
     tiles = (-(-rows // FACTOR_TILE[0]), -(-r // FACTOR_TILE[1]))
     if splits is None:
         blocks, slots = num_e * tiles[0] * tiles[1], resident * sm_count
-        most = min(depth // MIN_CHUNK, 2 * -(-slots // blocks))
+        most = min(depth // MIN_CHUNK, 2 * -(-slots // blocks),
+                   _MAX_GRID_YZ // num_e)
         splits = min(range(1, max(1, most) + 1),
                      key=lambda s: (-(-blocks * s // slots) / s, s))
-    splits = max(1, min(splits, _MAX_GRID_YZ // num_e))
+    elif num_e * splits > _MAX_GRID_YZ:
+        raise ValueError(f"E x splits = {num_e} x {splits} > {_MAX_GRID_YZ}: "
+                         f"the grid's z dimension (E x splits) takes at most "
+                         f"{_MAX_GRID_YZ}")
+    splits = max(1, splits)
     chunk = lambda s: -(-(-(-depth // s)) // k_tile) * k_tile
     splits = -(-depth // chunk(splits))       # drop splits left empty
     return FactorPlan(grid=(*tiles, num_e * splits), splits=splits,

@@ -56,7 +56,7 @@ import torch.distributed as dist
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import EDGCConfig, GDSConfig, SyncConfig
 from repro_torch.core.dac import DACConfig
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, add_modality_stubs
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import build_model
 from repro_torch.obs import (load_trace, profiler_session, tick_trace_events,
@@ -210,8 +210,12 @@ def main(argv=None) -> list[dict]:
         f"policy={args.policy}{pipe_tag}, {trainer.controller.describe()}")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        batch_size=args.batch, seed=args.seed)
+    # the VLM family's batches carry the stubbed frontend's patches
+    batches = (add_modality_stubs(b, cfg.family, num_patches=cfg.num_patches,
+                                  d_model=cfg.d_model, seed=args.seed)
+               for b in data.batches())
     with profiler_session(bool(args.profile), args.profile or "profile"):
-        hist = trainer.run(data.batches())
+        hist = trainer.run(batches)
     for h in hist:
         say(f"step {h['step']:5d} loss {h['loss']:.4f} H {h['entropy']:+.3f} "
             f"ranks {h['ranks']} comm-saved "

@@ -36,8 +36,10 @@ def embed_init(gen, vocab: int, d: int, dtype):
 
 
 def _mm(eq: str, x, w):
-    """Product in the operands' dtype, returned in fp32."""
-    return torch.einsum(eq, x, w).to(F32)
+    """Product in the operands' promoted dtype (as ``jnp.einsum`` promotes
+    mixed operands: fp32 x bf16 runs in fp32), returned in fp32."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum(eq, x.to(dt), w.to(dt)).to(F32)
 
 
 # --------------------------------------------------------------------------- norms

@@ -6,9 +6,11 @@
   * ``loss_fn(params, batch) -> (loss, metrics)``
   * ``forward(params, batch) -> logits``
 
-``batch`` holds ``tokens``/``labels`` (B, T) int64 tensors. Only the dense
-family is ported; the others are ROADMAP Queue 1 item 9. Serving
-(``init_cache``/``decode_step``) is Queue 1 item 11.
+``batch`` holds ``tokens``/``labels`` (B, T) int64 tensors; the VLM family
+adds ``patches`` (B, P, d_model), the stubbed vision frontend's output
+(``data.pipeline.add_modality_stubs``). The dense, MoE and VLM families
+are ported; xLSTM, Zamba2 and Whisper are ROADMAP Queue 1 items 9d-9f.
+Serving (``init_cache``/``decode_step``) is Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ import torch
 
 from repro_torch import tree
 
-__all__ = ["ModelConfig", "Model", "build_model", "param_count",
-           "near_even_split"]
+__all__ = ["ModelConfig", "Model", "build_model", "register_family",
+           "param_count", "active_param_count", "near_even_split"]
 
 
 def near_even_split(total: int, parts: int) -> list[int]:
@@ -32,7 +34,7 @@ def near_even_split(total: int, parts: int) -> list[int]:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # dense (ported) | moe | xlstm | zamba | whisper | vlm
+    family: str = "dense"        # dense | moe | vlm (ported) | xlstm | zamba | whisper
     num_layers: int = 2
     d_model: int = 256
     num_heads: int = 4
@@ -51,6 +53,14 @@ class ModelConfig:
     norm_eps: float = 1e-5
     sliding_window: int = 0      # 0 = full attention; >0 = window size
     max_position: int = 1 << 20
+    # moe
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_group: int = 1024        # GShard dispatch group size (perf knob)
+    # vlm
+    num_patches: int = 576       # prepended image patch embeddings
     dtype: str = "float32"       # param/activation dtype
     block_q: int = 512           # attention query-block size
     remat: bool = False          # checkpoint each block (recompute in bwd)
@@ -75,14 +85,42 @@ class Model(NamedTuple):
     forward: Callable[[Any, dict], torch.Tensor]
 
 
+_REGISTRY: dict[str, Callable[[ModelConfig], Model]] = {}
+
+# families of the reference whose port is still to come (ROADMAP item 9)
+_LATER_FAMILIES = ("xlstm", "zamba", "whisper")
+
+
+def register_family(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in _REGISTRY:
+        # import side-effect registration
+        from . import moe, transformer, vlm  # noqa: F401
+    if cfg.family in _LATER_FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet "
-            "(ROADMAP Queue 1 item 9); the port has the dense family")
-    from . import transformer
-    return transformer.build(cfg)
+            f"(ROADMAP Queue 1 item 9); the port has {sorted(_REGISTRY)}")
+    if cfg.family not in _REGISTRY:
+        raise KeyError(f"unknown model family {cfg.family!r}")
+    return _REGISTRY[cfg.family](cfg)
 
 
 def param_count(params: Any) -> int:
     return sum(int(l.numel()) for l in tree.leaves(params))
+
+
+def active_param_count(cfg: ModelConfig, params: Any) -> int:
+    """Active params per token (MoE: top-k of the expert population)."""
+    total = param_count(params)
+    if cfg.family != "moe" or cfg.num_experts == 0:
+        return total
+    expert_leaves = sum(int(l.numel()) for path, l in
+                        tree.flatten_with_path(params) if "expert" in path)
+    active_frac = cfg.experts_per_token / max(1, cfg.num_experts)
+    return int(total - expert_leaves + expert_leaves * active_frac)

@@ -17,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from . import layers as L
-from .model import Model, ModelConfig
+from .model import Model, ModelConfig, register_family
 
 F32 = torch.float32
 
@@ -139,6 +139,7 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"loss": loss}
 
 
+@register_family("dense")
 def build(cfg: ModelConfig) -> Model:
     return Model(
         config=cfg,

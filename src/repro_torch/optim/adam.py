@@ -1,9 +1,13 @@
 """AdamW + cosine LR schedule with linear warmup (port of ``repro/optim/adam.py``).
 
-Functional: ``update`` returns new parameter and moment trees. Weight
-decay applies to leaves with ndim >= 2, as in the reference (which makes
-it reach the stacked (L, d) norm scales too). Moments are fp32 unless
-``opt_dtype`` says otherwise.
+Functional: ``update`` returns new parameter and moment trees;
+``update(..., inplace=True)`` writes the same values into the given
+parameter and moment tensors instead, a slice of at most
+``INPLACE_CHUNK`` elements at a time, so an update holds no second copy
+of the state (the flat trainer donates its state to the step, as the
+reference's ``jit`` does). Weight decay applies to leaves with ndim >= 2,
+as in the reference (which makes it reach the stacked (L, d) norm scales
+too). Moments are fp32 unless ``opt_dtype`` says otherwise.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 from repro_torch import tree
 
 F32 = torch.float32
+INPLACE_CHUNK = 1 << 26        # elements per slice of an in-place update
 
 
 class AdamState(NamedTuple):
@@ -62,11 +67,14 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(params, grads, state: AdamState, cfg: AdamConfig, gnorm=None):
+def update(params, grads, state: AdamState, cfg: AdamConfig, gnorm=None,
+           inplace: bool = False):
     """One AdamW step. Returns (new_params, new_state, metrics).
 
     The step count, LR and bias corrections are computed on the device from
-    ``state.step``, so an update needs no host sync.
+    ``state.step``, so an update needs no host sync. ``inplace`` writes
+    the new values into ``params``, ``state.m`` and ``state.v`` (returned
+    as the new trees), elementwise the same arithmetic.
     """
     b1, b2 = cfg.betas
     step = state.step + 1
@@ -79,18 +87,29 @@ def update(params, grads, state: AdamState, cfg: AdamConfig, gnorm=None):
     c2 = 1.0 - b2 ** step.to(F32)
     dt = getattr(torch, cfg.opt_dtype)
 
-    def leaf(p, g, m, v):
+    def leaf(p, g, m, v, decay):
         g32 = g.to(F32) * scale
         m32 = b1 * m.to(F32) + (1 - b1) * g32
         v32 = b2 * v.to(F32) + (1 - b2) * g32 * g32
         upd = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-        if cfg.weight_decay > 0 and p.ndim >= 2:
+        if decay:
             upd = upd + cfg.weight_decay * p.to(F32)
         return (p.to(F32) - lr * upd).to(p.dtype), m32.to(dt), v32.to(dt)
 
-    out = [leaf(p, g, m, v) for p, g, m, v in zip(
-        tree.leaves(params), tree.leaves(grads), tree.leaves(state.m),
-        tree.leaves(state.v))]
+    def leaf_inplace(p, g, m, v, decay):
+        flat = [t.view(-1) for t in (p, g, m, v)]     # raises unless contiguous
+        for lo in range(0, p.numel(), INPLACE_CHUNK):
+            part = [t[lo:lo + INPLACE_CHUNK] for t in flat]
+            for dst, new in zip((part[0], part[2], part[3]),
+                                leaf(*part, decay)):
+                dst.copy_(new)
+        return p, m, v
+
+    one = leaf_inplace if inplace else leaf
+    out = [one(p, g, m, v, cfg.weight_decay > 0 and p.ndim >= 2)
+           for p, g, m, v in zip(
+               tree.leaves(params), tree.leaves(grads), tree.leaves(state.m),
+               tree.leaves(state.v))]
     new_p = tree.unflatten(params, [o[0] for o in out])
     new_m = tree.unflatten(params, [o[1] for o in out])
     new_v = tree.unflatten(params, [o[2] for o in out])

@@ -1,7 +1,7 @@
 """Per-family stage adapters: the pipeline-partition contract.
 
-Port of ``repro/pipeline/adapters.py`` (the base class and the dense
-adapter). Every family that can run the pipeline executor registers a
+Port of ``repro/pipeline/adapters.py`` (the base class and the dense, VLM
+and MoE adapters). Every family that can run the pipeline executor registers a
 :class:`StageAdapter` subclass here. The adapter owns:
 
   * the **support check** (``check``): a family-specific reason string when
@@ -19,12 +19,12 @@ adapter). Every family that can run the pipeline executor registers a
     partition of ``[0, num_units)`` reproduces ``blocks``;
   * the **stash and boundary specs** (``stash_spec`` / ``boundary_spec``):
     shape and dtype of one stashed inter-unit carry and of one boundary
-    activation (the same for the dense family).
+    activation (the same for the dense, VLM and MoE families).
 
 Stage-assignable parameters live under ``params['stages'][i]``, so the
 local <-> global leaf-path mapping is one regex shared by every family.
-The other families' adapters come with their models (ROADMAP Queue 1
-item 9); ``supported_reason`` names them.
+The xLSTM, Zamba2 and Whisper adapters come with their models (ROADMAP
+Queue 1 items 9d-9f); ``supported_reason`` names them.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ _STAGE_PREFIX = re.compile(r"^\['stages'\]\[(\d+)\]")
 F32 = torch.float32
 
 # families with a stage adapter in the reference, not ported yet
-_LATER_FAMILIES = ("moe", "vlm", "xlstm", "zamba", "whisper")
+_LATER_FAMILIES = ("xlstm", "zamba", "whisper")
 
 
 class TensorSpec(NamedTuple):
@@ -328,4 +328,80 @@ class DenseAdapter(StageAdapter):
         from repro_torch.models import layers as L
         from repro_torch.models import transformer as T
         logits = T.final_logits(shared, y, self.cfg)
+        return L.cross_entropy(logits, mb["labels"], mb.get("mask"))
+
+
+# ----------------------------------------------------------------------- vlm
+@register_adapter("vlm")
+class VLMAdapter(DenseAdapter):
+    """Dense decoder over a [patches ; tokens] prefix; loss on text only.
+
+    The boundary is (b, P + T, d_model) in the dtype the embed produces:
+    the fp32 stub patches promote the stream (``models/vlm.py``)."""
+
+    def boundary_spec(self, mb):
+        b, t = mb["tokens"].shape
+        p = mb["patches"].shape[1]
+        dt = torch.promote_types(mb["patches"].dtype, self.cfg.torch_dtype)
+        return TensorSpec((b, p + t, self.cfg.d_model), dt)
+
+    def embed(self, shared, mb):
+        from repro_torch.models import vlm as V
+        return V._embed_multimodal(shared, mb["patches"], mb["tokens"],
+                                   self.cfg)
+
+    def head_loss(self, shared, y, mb):
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+        p = y.shape[1] - mb["tokens"].shape[1]
+        logits = T.final_logits(shared, y, self.cfg)[:, p:]
+        return L.cross_entropy(logits, mb["labels"], mb.get("mask"))
+
+
+# ----------------------------------------------------------------------- moe
+@register_adapter("moe")
+class MoEAdapter(StageAdapter):
+    """MoE decoder: experts and router live with their block's stage; the
+    Switch load-balance aux loss is a per-segment contribution, scaled by
+    ``router_aux_weight / num_layers`` (the flat forward's weight times
+    its mean over layers), so the spans of a stage stay additive and the
+    executor adds them into the loss."""
+
+    @classmethod
+    def check(cls, cfg: ModelConfig, num_stages: int) -> str | None:
+        if cfg.num_stages != num_stages:
+            return (f"model was built with num_stages={cfg.num_stages}, "
+                    f"pipeline wants {num_stages}; rebuild the model config")
+        if cfg.num_layers < num_stages:
+            return (f"num_layers={cfg.num_layers} < num_stages={num_stages}:"
+                    " at least one MoE block per stage is required")
+        return None
+
+    def unit_counts(self):
+        return {"blocks": self.cfg.stage_sizes()}
+
+    def embed(self, shared, mb):
+        return shared["embed"]["tok"][mb["tokens"]]
+
+    def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
+        from repro_torch.models import moe as M
+        cfg = self.cfg
+        pos = _positions(x)
+
+        def body(carry, bp):
+            h, aux = carry
+            h, a = M._block_apply(bp, h, cfg, pos, cfg.sliding_window)
+            return h, aux + a
+        flags = self.stage_flags("blocks", s)
+        y, aux = self._run_units(
+            body, (x, torch.zeros((), dtype=F32, device=x.device)),
+            stage_tree["blocks"][lo:hi],
+            None if flags is None else flags[lo:hi])
+        return y, aux * cfg.router_aux_weight / max(1, cfg.num_layers)
+
+    def head_loss(self, shared, y, mb):
+        from repro_torch.models import layers as L
+        cfg = self.cfg
+        x = L.rms_norm(y, shared["final_norm_scale"], cfg.norm_eps)
+        logits = L.lm_logits(x, shared["lm_head"], tie=False)
         return L.cross_entropy(logits, mb["labels"], mb.get("mask"))

@@ -82,7 +82,7 @@ del _name
 
 
 def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
-                    pipe=None):
+                    pipe=None, donate: bool = False):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     state = {params, opt_m, opt_v, opt_step, comp}; metrics = {loss,
@@ -94,18 +94,31 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
     as the reference does.
     ``psum_mean`` defaults to the mean over the ``torch.distributed`` world.
 
+    ``donate`` (the flat step; the reference jits its step with
+    ``donate_argnums=0``): the step writes the new EF residuals, parameters
+    and moments into ``state``'s tensors as it computes them, so it never
+    holds two copies of the state; the caller must not use the old state
+    after the call. It refuses ``guard_nonfinite``, which keeps the old
+    state where an update is refused.
+
     ``cfg.num_stages > 1`` or a ``pipe`` transport (``LocalPipe``,
     ``DistPipe``) returns the pipelined step instead, with the
     stage-partitioned state of ``pipeline.executor``.
     """
     if cfg.num_stages > 1 or pipe is not None:
+        if donate:
+            raise ValueError("donate applies to the flat step only")
         from repro_torch.pipeline.executor import make_pipeline_train_step
         return make_pipeline_train_step(model, cfg, psum_mean, pipe)
     if cfg.mode != "dp_tp":
         raise NotImplementedError(f"mode={cfg.mode!r}: only the flat dp_tp "
                                   "step is ported")
+    if donate and cfg.guard_nonfinite:
+        raise ValueError("donate conflicts with guard_nonfinite: the guard "
+                         "keeps the old state where it refuses an update")
     pmean = psum_mean or make_dp_pmean()
-    sync_exec = SyncExecutor(cfg.sync, mode="flat", plan=cfg.policy_plan)
+    sync_exec = SyncExecutor(cfg.sync, mode="flat", plan=cfg.policy_plan,
+                             donate=donate)
     loss_fn = model.loss_fn
 
     def step(state, batch):
@@ -127,6 +140,7 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
         loss = pmean(loss.detach())
         comp_in = state["comp"]
         synced, comp = sync_exec.sync(grads, comp_in, pmean)
+        del grads
         entropy = (grads_entropy(synced, cfg.gds) if cfg.measure_entropy
                    else torch.zeros((), device=loss.device))
         opt_state = adam.AdamState(state["opt_step"], state["opt_m"],
@@ -151,7 +165,7 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
             skipped = 1.0 - ok.to(torch.float32)
         else:
             new_params, opt_state, opt_mets = adam.update(
-                state["params"], synced, opt_state, cfg.adam)
+                state["params"], synced, opt_state, cfg.adam, inplace=donate)
         ef_norm = torch.sqrt(pmean(powersgd.ef_norm_sq(comp).to(loss.device)))
         new_state = {"params": new_params, "opt_m": opt_state.m,
                      "opt_v": opt_state.v, "opt_step": opt_state.step,

@@ -68,9 +68,10 @@ from repro_torch.train.step import TrainStepConfig, make_train_step
 __all__ = ["TrainerConfig", "Trainer", "resolve_device"]
 
 # the step metrics a flush reads (``skipped`` only under the guard,
-# ``stage_entropy`` only on the pipelined step)
+# ``stage_entropy`` only on the pipelined step, ``aux``, the MoE router's
+# load-balance loss, only on the flat step of the MoE family)
 _METRIC_KEYS = ("loss", "entropy", "grad_norm", "lr", "ef_norm", "skipped",
-                "stage_entropy")
+                "stage_entropy", "aux")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -338,9 +339,12 @@ class Trainer:
                 guard_nonfinite=self._guard, pipeline=self.pipeline_cfg,
                 sync=self.sync_cfg, adam=self.tcfg.adam)
             self.step_configs[key] = scfg
+            # the flat step updates the state in place, as the reference's
+            # jit donates it, unless the guard must keep the old state
             self._step_cache[key] = make_train_step(
                 self.model, scfg, psum_mean=make_dp_pmean(self._dp_group),
-                pipe=self._transport)
+                pipe=self._transport,
+                donate=not (self.pipelined or self._guard))
         return self._step_cache[key]
 
     def _device_batch(self, batch: dict) -> dict:
@@ -604,6 +608,8 @@ class Trainer:
                 }
                 if b_raw != b_syn:      # wire coding is on
                     rec["bytes_wire_raw"] = b_raw
+                if "aux" in vals:
+                    rec["aux"] = vals["aux"]
                 if rec_rs is not None:
                     rec["recovery"] = rec_rs
                 self.history.append(rec)

@@ -26,7 +26,7 @@ def test_port_has_files():
                    "launch/report.py", "pipeline/schedule.py",
                    "pipeline/adapters.py", "pipeline/partition.py",
                    "pipeline/sync.py", "pipeline/executor.py",
-                   "launch/mesh.py"):
+                   "launch/mesh.py", "models/moe.py", "models/vlm.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 

@@ -6,6 +6,8 @@ without a card. ``csrc/lowrank.cu``'s ``launch_factor`` derives the k-chunk
 and the load paths by the same rules, and ``gs::smem_bytes`` the shared
 memory; the card tests run every path."""
 import itertools
+import pathlib
+import re
 
 import pytest
 import torch
@@ -26,7 +28,11 @@ def _chunks(plan, depth):
     (32, 1920, 1920, 64), (8, 1920, 7680, 64), (8, 7680, 1920, 64),
     (1, 64, 7680, 8), (1, 100, 5000, 64), (1, 3000, 100, 16), (3, 1, 1, 1),
     (1, 130, 12, 8), (2, 9, 200, 16), (1, 17, 65, 3), (1, 128, 100_000, 64),
-    (5, 333, 4097, 130)])
+    (5, 333, 4097, 130),
+    # the shape groups of the MoE, qwen3-32b and phi-3-vision configs
+    (256, 4096, 1536, 64), (128, 1536, 4096, 64), (2, 4096, 256, 64),
+    (4, 5120, 25600, 64), (2, 25600, 5120, 64), (32, 3072, 3072, 64),
+    (16, 3072, 8192, 64), (8, 8192, 3072, 64)])
 @pytest.mark.parametrize("trans", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_splits_cover_the_depth_in_whole_k_tiles(num_e, m, n, r, trans, dtype):
@@ -424,3 +430,99 @@ def test_parse_gs_ptxas_reads_each_instance():
     # each reader sees only its own kernel's instances
     assert set(lr.parse_factor_ptxas(_GS_LOG + _LOG)) == {
         ("float32", False, True), ("bfloat16", True, False)}
+
+
+# qwen3-moe-235b-a22b at depth 1: gate and up of 128 experts, and down
+MOE_GROUPS = [(256, 4096, 1536, 64), (128, 1536, 4096, 64)]
+
+
+@pytest.mark.parametrize("group", MOE_GROUPS)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plans_at_the_moe_groups_keep_the_grid_limit(group, trans, dtype):
+    """At E = 256 the grid's z dimension (E x splits) bounds splits to 255;
+    the plan keeps well inside it and refuses a forced count past it."""
+    e, m, n, r = group
+    plan = lr.factor_plan(*group, dtype, SMS, trans=trans)
+    assert plan.grid[2] == e * plan.splits <= 65535
+    assert plan.grid == (-(-(n if trans else m) // 128), 1, e * plan.splits)
+    assert plan.vector and plan.f_vector
+    most = 65535 // e
+    assert lr.factor_plan(*group, dtype, SMS, trans=trans,
+                          splits=most).grid[2] <= 65535
+    with pytest.raises(ValueError, match="65535"):
+        lr.factor_plan(*group, dtype, SMS, trans=trans, splits=most + 1)
+
+
+def test_auto_plan_never_passes_the_grid_limit():
+    """Many stacked slices on a short depth: the plan's own split count
+    stays at or under 65535 / E."""
+    for e in (255, 256, 4000, 30000, 65535):
+        plan = lr.factor_plan(e, 8, 8192, 8, torch.float32, SMS, trans=False)
+        assert plan.grid[2] == e * plan.splits <= 65535
+
+
+# ------------------------------------------------ 64-bit element offsets
+CU = (pathlib.Path(lr.__file__).parent / "csrc" / "lowrank.cu").read_text()
+# the kernels' pointers into device memory (parameters and their offsets)
+GLOBAL_PTRS = ("g", "e", "f", "p", "q", "out", "partial", "ghat", "err_out",
+               "work", "G", "E", "Eb", "F", "P", "Q", "O")
+# products that index shared memory through a pointer of the same name:
+# ordered_sum's p[c * stride], the cluster's partials (<= 16 x 65 floats)
+SHARED_INDEXING = {"c * stride"}
+
+
+def _products_without_size_t(src: str) -> list[str]:
+    """Every product in an offset of a device pointer (``ptr + expr`` or
+    ``ptr[expr]``) whose leftmost factor is neither a ``(size_t)`` cast nor
+    a variable declared ``size_t``: an ``int`` product that wraps past
+    2**31 elements."""
+    wide = set(re.findall(r"\bsize_t\s+(\w+)\s*=", src))
+    names = "|".join(GLOBAL_PTRS)
+    bad = []
+    for line in src.splitlines():
+        code = line.split("//")[0]
+        for hit in re.finditer(rf"(?<![\w.])({names})\s*(\+|\[)", code):
+            rest = code[hit.end():]
+            depth, end = 0, len(rest)
+            for i, ch in enumerate(rest):       # the offset expression
+                if ch in "([":
+                    depth += 1
+                elif ch in ")]":
+                    if depth == 0:
+                        end = i
+                        break
+                    depth -= 1
+                elif ch in ",;?:" and depth == 0:
+                    end = i
+                    break
+            expr = rest[:end]
+            for term in re.split(r"\+(?![^()]*\))", expr):
+                term = term.strip()
+                if "*" not in term:
+                    continue
+                if term in SHARED_INDEXING:
+                    continue
+                lead = term.lstrip(" (")
+                name = re.match(r"\w+", lead)
+                if not lead.startswith("size_t)") and (
+                        name is None or name.group(0) not in wide):
+                    bad.append(term)
+    return bad
+
+
+def test_lowrank_cu_offsets_are_size_t():
+    """E m n passes 2**31 at a depth-2 MoE group (3.2e9 elements): every
+    element offset into device memory in ``csrc/lowrank.cu`` is 64-bit."""
+    assert _products_without_size_t(CU) == []
+    checked = len(re.findall(r"\(size_t\)", CU))
+    assert checked >= 20
+
+
+@pytest.mark.parametrize("seeded", [
+    "const T* G = g + be * mn;",
+    "float* O = out + (sp * num_e + be) * rows * r;",
+    "x = P[(row0 + rr) * r + gc];",
+    "ghat[base + row * n + col] = v;"])
+def test_offset_check_finds_an_int_product(seeded):
+    assert _products_without_size_t(seeded)

@@ -1,8 +1,10 @@
 """Dense-model parity: with the reference's weights carried across by
 ``from_reference``, the port's loss and gradients agree with the
 reference's in fp32 on gpt2-fidelity (LayerNorm, plain GeLU, learned
-positions, tied embeddings) and on qwen2-0.5b reduced (RMSNorm, RoPE, GQA,
-QKV bias, gated SiLU). The batches come from both packages' SyntheticLM."""
+positions, tied embeddings), on qwen2-0.5b and qwen2.5-3b reduced (RMSNorm,
+RoPE, GQA, QKV bias, gated SiLU), qwen3-32b reduced (qk-norm, head_dim 64
+over 4 heads of a 256 model) and llama3-405b reduced (untied head,
+head_dim 64). The batches come from both packages' SyntheticLM."""
 import dataclasses
 
 import jax
@@ -20,7 +22,8 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.interop import from_reference
 from repro_torch.models.model import build_model
 
-ARCHS = [("gpt2", 32), ("qwen2-0.5b", 24)]
+ARCHS = [("gpt2", 32), ("qwen2-0.5b", 24), ("qwen2.5-3b", 32),
+         ("qwen3-32b", 32), ("llama3-405b", 32)]
 
 
 @pytest.fixture(autouse=True)
@@ -109,3 +112,25 @@ def test_blockwise_attention_blocks_do_not_change_values():
         torch.testing.assert_close(
             L.blockwise_attention(q, k, v, causal=True, block_q=bq), full,
             rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("family", ["xlstm", "zamba", "whisper"])
+def test_families_still_to_port_raise_naming_item_9(family):
+    from repro_torch.models.model import ModelConfig
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_model(ModelConfig(family=family))
+    with pytest.raises(KeyError, match="unknown model family"):
+        build_model(ModelConfig(family="nope"))
+
+
+def test_registries_hold_the_ported_families():
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import ModelConfig
+    from repro_torch.pipeline.adapters import adapter_families
+    assert sorted(ARCHS) == sorted(set(REF_ARCHS) - {
+        "xlstm-125m", "zamba2-7b", "whisper-base"})
+    assert all(ARCHS[a] == REF_ARCHS[a] for a in ARCHS)
+    for family in ("dense", "moe", "vlm"):
+        assert build_model(ModelConfig(family=family)).config.family == family
+    assert adapter_families() == ["dense", "moe", "vlm"]

@@ -208,7 +208,7 @@ class _FakeModel:
     def __init__(self):
         cfg = ModelConfig(**dict(MODEL, num_stages=2))
         real = build_model(cfg)
-        self.config = dataclasses.replace(cfg, family="moe")
+        self.config = dataclasses.replace(cfg, family="xlstm")
         self.init, self.loss_fn = real.init, real.loss_fn
 
 
