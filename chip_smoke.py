@@ -119,9 +119,10 @@ Phases, in order; any failure raises, so the exit code is not 0:
                kernel a step, ``bytes_synced`` equal to 2 r (m + n) per
                compressed matrix and 2 B per other element, the loss and
                router aux per step, the seconds to initialise, the state by
-               part and the peak; with ``--profile`` a fourth step's device
-               time by part (sync kernels, experts, GShard dispatch and
-               combine, router, attention, head and loss, other); then each
+               part and the peak; with ``--profile`` a fourth step's kernel
+               launches, idle share and device time by part (sync kernels,
+               experts, GShard dispatch and combine, router, attention,
+               head and loss, AdamW, the rest), as (m1)-(m3); then each
                PowerSGD kernel against its plain version at the (256, 4096,
                1536) and (128, 1536, 4096) expert groups and at qwen3-32b's
                (4, 5120, 25600) and (2, 25600, 5120); (l2) two flat steps
@@ -138,6 +139,34 @@ Phases, in order; any failure raises, so the exit code is not 0:
                as the reference's), losses, step ms and peak; then
                ``launch.train --arch phi-3-vision-4.2b --pipe 2`` on the
                reduced config
+  (m) families the xLSTM, Zamba2 and Whisper families: (m1) 2 flat steps
+               of xlstm-125m as published (12 layers, 2 stages' layout,
+               bf16, remat), batch 8 x 1024, fixed rank 64, kernels on;
+               (m2) zamba2-7b at its published widths, depth cut to 28 of
+               81 (4 groups of 7, one per the config's 4 stages), batch 4
+               x 1024, 3 steps; (m3) whisper-base as published, batch 8 x
+               (1500 stub frames + 448 tokens), 3 steps: each with its
+               shape groups,
+               matrices and PowerSGD launches a step, ``bytes_synced``
+               equal to 2 r (m + n) per compressed matrix and 2 B per other
+               element, the seconds to initialise, the state by part, the
+               peak, the loss and ms per step; with ``--profile`` a fourth
+               step's kernel launches, idle share and device time by part
+               (sync kernels, the recurrences, the sLSTM loop, attention,
+               head and loss, AdamW, the rest; Mamba2's ops by the SSM's
+               own layout, before attention's). (m2k) each PowerSGD kernel
+               against its plain version at Zamba2's (28, 3584, 14576) and
+               (28, 7168, 3584) groups, and Gram-Schmidt on 14576 x 64
+               panels (the device slab; under the 4 MiB limit of
+               ``ops``'s routing). (m4) the three reduced configs in fp32,
+               card against CPU, 3 steps, within 5e-3; (m5) each family's
+               stage adapter on ``LocalPipe`` at S = 2, M = 2, 1F1B (xlstm
+               with two pairs, the ragged pp-zamba [2, 1], whisper-smoke
+               encoder | decoder) within 5e-3 of its flat card run, then
+               zamba2-7b at its published widths, depth 14 (2 groups),
+               the first loss within 2e-3 of a flat run at that depth;
+               (m6) ``launch.train --pipe 2`` on the reduced zamba2-7b and
+               whisper-base
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -155,8 +184,10 @@ plain-torch ``blockwise_attention``, as the reference's does). The
 PowerSGD and pack entries add ``launches_pipelined``, their launches on
 the pipelined paths of (j1) and (j4) quant8; the PowerSGD entries add
 ``launches_overlapped``, their launches on (k1)'s first run,
-``launches_moe``, their launches on (l1)'s three steps, and ``families``,
-their rows at (l)'s expert and qwen3-32b groups. The last
+``launches_moe``, their launches on (l1)'s three steps,
+``launches_families2``, their launches on (m1)-(m3)'s steps by
+config, and ``families``, their rows at (l)'s expert and qwen3-32b groups
+and (m2k)'s Zamba2 groups. The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -177,6 +208,11 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+# (l1) runs within 6 GiB of the card's memory, where the caching allocator's
+# fixed segments fragmented and a 6 GiB request failed; segments that grow
+# in place do not fragment so (set before torch reaches the card)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch
 
@@ -2095,53 +2131,168 @@ def _bytes_by_hand(tr) -> int:
     return total
 
 
-def _profile_categories(prof) -> dict:
-    """Device ms of one profiled step by what ran: the PowerSGD kernels by
-    name; every other kernel by the shapes of the aten op that launched it
-    (AdamW's in-place slices of ``adam.INPLACE_CHUNK`` elements, the head's
-    vocabulary, the experts' d_ff, the GShard dispatch and combine's E x C
-    slots, the router's E, attention's heads); the rest by aten op under
-    ``other``, with its largest ops listed."""
+POWERSGD = ("ef_lowrank_p", "ef_lowrank_q", "decompress_residual",
+            "gram_schmidt_panel")
+
+
+def _family_batches(cfg, batch: int, seq: int, seed: int = 0):
+    """SyntheticLM batches with the family's stub frames attached."""
+    from repro_torch.data.pipeline import SyntheticLM, add_modality_stubs
+    for b in SyntheticLM(cfg.vocab_size, seq, batch, seed=seed).batches():
+        yield add_modality_stubs(b, cfg.family, audio_frames=cfg.audio_frames,
+                                 num_patches=cfg.num_patches,
+                                 d_model=cfg.d_model, seed=seed)
+
+
+def _attention_tails(cfg, seq: int) -> set:
+    """The (second-last, last) dims, size-1 dims left out, of attention's
+    tensors, for the model's self- and cross-attention: the (tokens,
+    heads, head dim) layout and RoPE's halves, the grouped query block
+    (kv heads, rep, head dim), and the scores, values and their batched
+    products (query block or rep x query block, keys, head dim)."""
+    lens = [seq] + ([cfg.audio_frames] if cfg.family == "whisper" else [])
+    hd, rep = cfg.hd, cfg.num_heads // cfg.num_kv_heads
+    tails = {(h, d) for h in (cfg.num_heads, cfg.num_kv_heads, rep)
+             for d in (hd, hd // 2)}
+    for k in lens:
+        for q in {min(cfg.block_q, n) for n in lens} | {
+                n % cfg.block_q for n in lens if n % cfg.block_q}:
+            for qq in {q, rep * q}:
+                tails |= {(qq, k), (qq, hd), (hd, k), (k, hd)}
+    return tails
+
+
+def _squeezed(shape) -> tuple:
+    return tuple(d for d in shape if d != 1)
+
+
+def _mamba2_layout(cfg, batch: int, seq: int):
+    """A rule that holds for the tensors of Mamba2's SSM by their own
+    layout (size-1 dims left out), tried before attention's: (B, T, H),
+    (B, N, H), (B, H) and (H,) for dt, log_a, the chunk decays and the
+    per-head parameters; the heads H before the head or state dim; the
+    chunked (N, C, H), (C, C, H), (H, C, C) and (N, H), and the chunk
+    einsums' (N H, x) and batched (B N H, x, y), x and y the chunk or the
+    head or state dim. Each holds the heads next to a dim that attention's
+    tensors do not put there."""
+    H, n, C = 2 * cfg.d_model // 64, cfg.ssm_state, cfg.chunk
+    N = -(-seq // C)
+    inner = {64, n, C}
+    exact = {(batch, N * C, H), (batch, seq, H), (batch, N, H), (batch, H),
+             (H,)}
+    runs = [(H, 64), (H, n), (N, C, H), (C, C, H), (H, C, C), (N, H)] + [
+        (N * H, x) for x in inner]
+
+    def holds(u: tuple) -> bool:
+        if u in exact or (len(u) == 3 and u[0] == batch * N * H
+                          and set(u[1:]) <= inner):
+            return True
+        return any(u[i:i + len(r)] == r for r in runs
+                   for i in range(len(u) - len(r) + 1))
+    return lambda shapes, dims: any(holds(_squeezed(sh)) for sh in shapes)
+
+
+def _family_rules(cfg, batch: int, seq: int) -> list:
+    """(part, rule over an aten op's input shapes and their dims) for a
+    profiled step of ``cfg``, tried in order. MoE: the experts' d_ff, the
+    GShard dispatch and combine's E x C slots, the router's E over the
+    tokens. xLSTM: the recurrence's chunked tensors (rank 4 or more with
+    the chunk in them, mLSTM's normaliser column dh + 1); the sLSTM loop's
+    per-token tensors (the batch's width and no time axis). Zamba2: the
+    Mamba2 SSM's own layout (``_mamba2_layout``), before attention. Then
+    attention by the tails of its tensors (``_attention_tails``)."""
+    tails = _attention_tails(cfg, seq)
+    attention = ("attention", lambda shapes, dims: any(
+        len(u) >= 3 and u[-2:] in tails
+        for u in map(_squeezed, shapes)))
+    big = lambda shapes: max((len(sh) for sh in shapes), default=0) >= 4
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        E = cfg.num_experts
+        C = moe.capacity_of(cfg, min(cfg.moe_group, batch * seq))
+        return [("experts", lambda shapes, dims: cfg.d_ff in dims),
+                ("dispatch and combine",
+                 lambda shapes, dims: E * C in dims or C in dims),
+                ("router", lambda shapes, dims: E in dims
+                 and batch * seq in dims),
+                attention]
+    if cfg.family == "xlstm":
+        H, d = cfg.num_heads, cfg.d_model
+        dh = 2 * d // H
+        return [("recurrence (mLSTM)",
+                 lambda shapes, dims: (dh + 1) in dims
+                 or (big(shapes) and cfg.chunk in dims)),
+                ("sLSTM loop",
+                 lambda shapes, dims: seq not in dims and bool(
+                     dims & {d, 4 * d, d // H}))]
+    if cfg.family == "zamba":
+        return [("recurrence (Mamba2)", _mamba2_layout(cfg, batch, seq)),
+                attention]
+    return [attention]
+
+
+def _family_profile(tr, batches, cfg, batch: int, seq: int,
+                    step_ms: float) -> dict:
+    """One more step under the profiler: device ms and kernel-running aten
+    ops by part (the PowerSGD kernels by name; every other op by the shapes
+    of its inputs, ``_family_rules`` after AdamW's slices and the head's
+    vocabulary; the profiler's own events, such as "Command Buffer Full",
+    repeat kernel time and are left out), kernel launches, and the idle
+    share of an unprofiled step of ``step_ms``."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
     from repro_torch.optim import adam
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  record_shapes=True) as prof:
+        tr.run(batches, num_steps=1)
+        torch.cuda.synchronize()
     sync = ("ef_factor_kernel", "decompress_kernel", "gram_schmidt_kernel",
             "split_sum_kernel")
-    out = {"sync kernels": 0.0}
+    ms = {"sync kernels": 0.0}
+    ops = {"sync kernels": 0}
+    launches, busy = 0, 0.0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and any(s in e.key for s in sync):
-            out["sync kernels"] += e.self_device_time_total / 1e3
-    rules = [("adamw", lambda dims: adam.INPLACE_CHUNK in dims),
-             ("head and loss", lambda dims: 151936 in dims),
-             ("experts", lambda dims: 1536 in dims),
-             ("dispatch and combine", lambda dims: 10240 in dims or 80 in dims),
-             ("router", lambda dims: 128 in dims and 2048 in dims),
-             ("attention", lambda dims: 64 in dims or 256 in dims)]
+        if e.device_type != DeviceType.CUDA:
+            continue
+        launches += e.count
+        busy += e.self_device_time_total / 1e3
+        if any(k in e.key for k in sync):
+            ms["sync kernels"] += e.self_device_time_total / 1e3
+            ops["sync kernels"] += e.count
+    rules = ([("adamw", lambda shapes, dims: adam.INPLACE_CHUNK in dims),
+              ("head and loss", lambda shapes, dims: cfg.vocab_size in dims)]
+             + _family_rules(cfg, batch, seq))
     other: dict[str, float] = {}
     for e in prof.key_averages(group_by_input_shape=True):
-        if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
+        if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0 \
+                or not e.key.startswith("aten::"):
             continue
-        dims = {d for shape in (e.input_shapes or []) if isinstance(shape, list)
-                for d in shape if isinstance(d, int)}
-        ms = e.self_device_time_total / 1e3
-        name = next((n for n, rule in rules if rule(dims)), "other")
-        out[name] = out.get(name, 0.0) + ms
-        if name == "other":
-            other[e.key] = other.get(e.key, 0.0) + ms
-    out["other: largest ops"] = dict(sorted(other.items(),
-                                            key=lambda kv: -kv[1])[:8])
-    return out
+        shapes = [sh for sh in (e.input_shapes or []) if isinstance(sh, list)]
+        dims = {d for sh in shapes for d in sh if isinstance(d, int)}
+        t = e.self_device_time_total / 1e3
+        name = next((n for n, rule in rules if rule(shapes, dims)), "rest")
+        ms[name] = ms.get(name, 0.0) + t
+        ops[name] = ops.get(name, 0) + e.count
+        if name == "rest":
+            other[e.key] = other.get(e.key, 0.0) + t
+    return {"ms_by_part": ms, "ops_by_part": ops, "launches": launches,
+            "busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "rest_largest_ms": dict(sorted(other.items(),
+                                           key=lambda kv: -kv[1])[:6])}
 
 
-def _moe_full(report: dict, dev, profile: bool) -> dict:
-    """(l1): qwen3-moe-235b-a22b at its published widths, depth 1."""
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import moe
-    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b", "full"),
-                              num_layers=1, num_stages=1)
+def _family_full(label: str, cfg, batch: int, seq: int, steps: int, dev,
+                 profile: bool, want_groups: tuple | None = None,
+                 note: str = "") -> dict:
+    """(l1), (m1)-(m3): ``Trainer.run`` for ``steps`` flat steps of
+    ``cfg``, fixed rank 64, kernels on, raw wire; groups (held to
+    ``want_groups``, (groups, matrices), where given), launches, bytes
+    against the hand count, state by part, peak, loss (and the MoE's aux)
+    and step ms; with ``profile`` one more step's device time by part."""
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr = _trainer(cfg, "fixed", 64, 4, 50, dev)     # step 4: --profile
+    tr = _trainer(cfg, "fixed", 64, steps + 1, 50, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     groups = [(g.stack_size, g.m, g.n, g.rank) for g in tr._layout.groups]
@@ -2149,75 +2300,86 @@ def _moe_full(report: dict, dev, profile: bool) -> dict:
     compressed = sum(g.stack_size * g.m * g.n for g in tr._layout.groups)
     state = _state_gb(tr)
     state_bytes = torch.cuda.memory_allocated(dev)
-    S = min(cfg.moe_group, 2 * 1024)
-    log(f"(l1) {cfg.name} at its published widths (d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads of {cfg.hd}, {cfg.num_kv_heads} kv heads, "
-        f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
-        f"{cfg.experts_per_token}, vocab {cfg.vocab_size}), depth 1 (of 94), "
-        f"{cfg.dtype}, remat={cfg.remat}: {tr.n_params} params, "
+    log(f"({label}) {cfg.name} (d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers, {cfg.num_stages} stages' layout, {cfg.dtype}, remat="
+        f"{cfg.remat}), batch {batch} x {seq}: {tr.n_params} params, "
         f"{compressed} compressed in {matrices} matrices; initialised in "
-        f"{init_s:.1f} s; shape groups (E,m,n,r) {groups}; dispatch groups "
-        f"G = {2 * 1024 // S} of S = {S}, capacity C = "
-        f"{moe.capacity_of(cfg, S)}; AdamW moments "
-        f"{tr.tcfg.adam.opt_dtype}, state donated to the step")
+        f"{init_s:.1f} s; shape groups (E,m,n,r) {groups}{note}")
     log(f"    state {sum(state.values()):.2f} GB: params {state['params']:.2f}, "
         f"moments {state['moments']:.2f}, EF {state['ef']:.2f}, Q "
         f"{state['q']:.3f} (allocated {state_bytes / 2**30:.2f} GiB)")
-    if sorted(groups) != sorted(MOE_GROUPS) or matrices != 388:
-        raise AssertionError(f"MoE groups {groups} ({matrices} matrices) != "
-                             f"{MOE_GROUPS} (388)")
-    batches = SyntheticLM(cfg.vocab_size, 1024, 2, seed=0).batches()
+    if want_groups and (sorted(groups) != sorted(want_groups[0])
+                        or matrices != want_groups[1]):
+        raise AssertionError(f"({label}) groups {groups} ({matrices} "
+                             f"matrices) != {want_groups}")
+    batches = _family_batches(cfg, batch, seq)
     kernels = _reset_launches()
-    step_ms = _timed_steps(tr, batches, 3)
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+    step_ms = _timed_steps(tr, batches, steps)
     launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated(dev)
+    # the caching allocator's frees and retries when a request does not fit
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries",
+                                               0) - retries
     hist = tr.history
     by_hand = _bytes_by_hand(tr)
-    row = {"config": cfg.name, "init_s": init_s, "groups": groups,
+    syn = [h["bytes_synced"] for h in hist]
+    per_step = [b - a for a, b in zip([0] + syn, syn)]
+    row = {"label": label, "config": cfg.name, "num_layers": cfg.num_layers,
+           "batch": [batch, seq], "init_s": init_s, "groups": groups,
            "matrices": matrices, "compressed_params": compressed,
            "n_params": tr.n_params, "state_gb": state,
-           "loss": [h["loss"] for h in hist[:3]],
-           "aux": [h["aux"] for h in hist[:3]],
-           "step_ms": step_ms, "peak_bytes": peak, "launches": launches,
-           "bytes_synced": [h["bytes_synced"] for h in hist[:3]],
-           "bytes_by_hand": by_hand, "opt_dtype": tr.tcfg.adam.opt_dtype}
-    prev = 0
-    for h, ms in zip(hist, step_ms):
-        log(f"    step {h['step']} loss {h['loss']:.4f} aux {h['aux']:.4f} "
-            f"{ms:.1f} ms bytes synced {h['bytes_synced'] - prev} (by hand "
-            f"{by_hand})")
-        prev = h["bytes_synced"]
-    log(f"    peak {peak / 2**30:.2f} GiB (reckoning about "
-        f"{MOE_PEAK_RECKONING_GIB} of {torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}); "
-        f"PowerSGD launches {launches}")
-    steps_bytes = [b - a for a, b in zip([0] + row["bytes_synced"],
-                                         row["bytes_synced"])]
-    if len(row["loss"]) != 3 or not all(math.isfinite(x) for x in
-                                        row["loss"] + row["aux"]):
-        raise AssertionError(f"(l1) losses {row['loss']} aux {row['aux']}")
-    if any(b != by_hand for b in steps_bytes):
-        raise AssertionError(f"(l1) bytes synced {steps_bytes} != {by_hand}")
-    if any(launches[k.__name__] != 4 * 3 for k in kernels
-           if k.__name__ in ("ef_lowrank_p", "ef_lowrank_q",
-                             "decompress_residual", "gram_schmidt_panel")):
-        raise AssertionError(f"(l1) launches {launches}: want 4 a step")
+           "loss": [h["loss"] for h in hist], "step_ms": step_ms,
+           "peak_bytes": peak, "launches": launches,
+           "bytes_per_step": per_step, "bytes_by_hand": by_hand,
+           "opt_dtype": tr.tcfg.adam.opt_dtype, "alloc_retries": retries}
+    if "aux" in hist[0]:
+        row["aux"] = [h["aux"] for h in hist]
+    for i, (h, ms_, b) in enumerate(zip(hist, step_ms, per_step)):
+        aux = f" aux {row['aux'][i]:.4f}" if "aux" in row else ""
+        log(f"    step {h['step']} loss {h['loss']:.4f}{aux} {ms_:.1f} ms, "
+            f"bytes synced {b} (by hand {by_hand})")
+    log(f"    peak {peak / 2**30:.2f} GiB, {retries} allocator retries; "
+        f"PowerSGD launches in {steps} steps {launches}")
+    if not all(math.isfinite(x) for x in row["loss"] + row.get("aux", [])) \
+            or len(hist) != steps:
+        raise AssertionError(f"({label}) losses {row['loss']} aux "
+                             f"{row.get('aux')}")
+    if any(b != by_hand for b in per_step):
+        raise AssertionError(f"({label}) bytes synced {per_step} != {by_hand}")
+    if any(launches[k] != steps * len(groups) for k in POWERSGD):
+        raise AssertionError(f"({label}) launches {launches}: want "
+                             f"{len(groups)} a step")
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof_ctx
-        torch.cuda.synchronize()
-        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                      record_shapes=True) as prof:
-            tr.run(batches, num_steps=1)
-            torch.cuda.synchronize()
-        cats = _profile_categories(prof)
-        ops = cats.pop("other: largest ops")
-        row["profile_ms"] = cats
-        row["profile_other_ops_ms"] = ops
-        log(f"    profiled step, device ms by part: "
-            f"{ {k: round(v, 2) for k, v in sorted(cats.items(), key=lambda kv: -kv[1])} }; "
-            f"largest ops of the rest: { {k: round(v, 2) for k, v in ops.items()} }")
+        steady = statistics.median(step_ms[1:])
+        row["profile"] = _family_profile(tr, batches, cfg, batch, seq, steady)
+        pr = row["profile"]
+        log(f"    profiled step: {pr['launches']} kernel launches, device "
+            f"busy {pr['busy_ms']:.1f} ms, idle share "
+            f"{pr['idle_share']:.3f} of a {steady:.1f} ms step; device ms by "
+            f"part { {k: round(v, 2) for k, v in sorted(pr['ms_by_part'].items(), key=lambda kv: -kv[1])} }; "
+            f"kernel-running ops by part {pr['ops_by_part']}; largest of the "
+            f"rest { {k: round(v, 2) for k, v in pr['rest_largest_ms'].items()} }")
     del tr
     _release()
     return row
+
+
+def _moe_full(report: dict, dev, profile: bool) -> dict:
+    """(l1): qwen3-moe-235b-a22b at its published widths, depth 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b", "full"),
+                              num_layers=1, num_stages=1)
+    S = min(cfg.moe_group, 2 * 1024)
+    note = (f"; {cfg.num_heads} heads of {cfg.hd}, {cfg.num_kv_heads} kv "
+            f"heads, {cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
+            f"{cfg.experts_per_token}, vocab {cfg.vocab_size}, depth 1 (of "
+            f"94); dispatch groups G = {2 * 1024 // S} of S = {S}, capacity "
+            f"C = {moe.capacity_of(cfg, S)}; peak reckoned about "
+            f"{MOE_PEAK_RECKONING_GIB} GiB; state donated to the step")
+    return _family_full("l1", cfg, 2, 1024, 3, dev, profile,
+                        want_groups=(MOE_GROUPS, 388), note=note)
 
 
 def _dense_full(report: dict, dev) -> list:
@@ -2429,9 +2591,198 @@ def phase_families(report: dict, dev, profile: bool) -> dict:
     return out["moe_full"]["launches"]
 
 
+# ------------------------------------------- (m) recurrent and enc-dec
+# zamba2-7b at depth 28: Mamba2 in_proj and out_proj of 28 layers
+ZAMBA_CHECK = [(28, 3584, 14576, 64), (28, 7168, 3584, 64)]
+# a Gram-Schmidt panel as wide as in_proj's Q factor (3.73 MB, under the
+# 4 MiB limit past which ops hands a panel to linalg.qr): the device slab
+ZAMBA_GS_WIDE = (28, 14576, 64)
+# tests/test_pipeline.py's ragged hybrid: groups [2, 1] at S = 2
+PP_ZAMBA = dict(name="pp-zamba", family="zamba", num_layers=3, d_model=128,
+                num_heads=4, num_kv_heads=4, d_ff=256, vocab_size=512,
+                ssm_state=16, chunk=16, attn_every=2, num_stages=2)
+def _card_against_cpu(dev) -> list:
+    """(m4): the three reduced configs in fp32, 3 flat steps each, on the
+    card and on the CPU (the kernels' plain versions), losses within 5e-3."""
+    from repro_torch.configs import get_config
+    rows = []
+    for arch in ("xlstm-125m", "zamba2-7b", "whisper-base"):
+        cfg = get_config(arch, "reduced")
+        out = {}
+        for where in ("cpu", dev):
+            tr = _trainer(cfg, "fixed", 8, 3, 50, where)
+            out[str(where)] = [h["loss"] for h in
+                               tr.run(_family_batches(cfg, 4, 64, seed=1))]
+            del tr
+        cpu, card = out["cpu"], out[str(dev)]
+        gap = max(abs(a - b) for a, b in zip(cpu, card))
+        rows.append({"config": cfg.name, "cpu_loss": cpu, "card_loss": card,
+                     "max_gap": gap})
+        log(f"(m4) {cfg.name} fp32, 3 steps: card {[round(x, 6) for x in card]}"
+            f" cpu {[round(x, 6) for x in cpu]}, max gap {gap:.2e} (bar 5e-3)")
+        if not gap < 5e-3 or len(card) != 3:
+            raise AssertionError(f"(m4) {cfg.name}: card {card} cpu {cpu}")
+    _release()
+    return rows
+
+
+def _flat_and_piped(cfg, dev, rank: int, steps: int, batch: int, seq: int,
+                    bar: float, first_only: bool = False) -> dict:
+    """A flat run and an S = cfg.num_stages run on ``LocalPipe`` (1F1B,
+    M = 2, replay) of the same config on the card; the pipelined losses
+    held to the flat ones (the first only when ``first_only``)."""
+    S = cfg.num_stages
+    runs, peaks = {}, {}
+    for pipe in (None, S):
+        _release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels = _reset_launches()
+        kw = dict(pipe=pipe, schedule="1f1b", num_microbatches=2,
+                  stash_policy="replay") if pipe else {}
+        tr = _trainer(cfg, "fixed", rank, steps, 50, dev, **kw)
+        runs[pipe] = [h["loss"] for h in
+                      tr.run(_family_batches(cfg, batch, seq, seed=1))]
+        peaks[pipe] = torch.cuda.max_memory_allocated(dev)
+        launches = {k.__name__: k.launches for k in kernels}
+        del tr
+    flat, piped = runs[None], runs[S]
+    gaps = [abs(a - b) for a, b in zip(flat, piped)]
+    row = {"config": cfg.name, "num_layers": cfg.num_layers, "S": S,
+           "flat_loss": flat, "pipe_loss": piped, "gaps": gaps, "bar": bar,
+           "flat_peak_bytes": peaks[None], "pipe_peak_bytes": peaks[S],
+           "pipe_launches": launches}
+    log(f"(m5) {cfg.name} ({cfg.num_layers} layers) pipe={S} (LocalPipe, "
+        f"1F1B, M=2) against flat, {steps} steps: pipe "
+        f"{[round(x, 5) for x in piped]} flat {[round(x, 5) for x in flat]}, "
+        f"gaps {[f'{g:.1e}' for g in gaps]} (bar {bar}"
+        f"{', first step' if first_only else ''}); peak flat "
+        f"{peaks[None] / 2**30:.2f} GiB, pipelined {peaks[S] / 2**30:.2f} "
+        f"GiB; pipelined launches {launches}")
+    held = gaps[:1] if first_only else gaps
+    if not max(held) < bar or not all(math.isfinite(x) for x in piped):
+        raise AssertionError(f"(m5) {cfg.name}: gaps {gaps} >= {bar}")
+    if not all(launches[k] > 0 for k in POWERSGD):
+        raise AssertionError(f"(m5) {cfg.name}: launches {launches}")
+    return row
+
+
+def _families2_pipelines(dev) -> list:
+    """(m5): the three families' stage adapters on LocalPipe at S = 2, fp32
+    small configs within 5e-3 of their flat card runs; then zamba2-7b at
+    its published widths, depth 14 (2 groups), first loss within 2e-3."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import ModelConfig
+    # xlstm-smoke has one pair: two pairs make two stages
+    small = [dc.replace(get_config("xlstm-125m", "reduced"), num_layers=4,
+                        num_stages=2),
+             ModelConfig(**PP_ZAMBA),
+             dc.replace(get_config("whisper-base", "reduced"), num_stages=2)]
+    rows = [_flat_and_piped(cfg, dev, 8, 3, 4, 64, 5e-3) for cfg in small]
+    cfg = dc.replace(get_config("zamba2-7b", "full"), num_layers=14,
+                     num_stages=2)
+    rows.append(_flat_and_piped(cfg, dev, 64, 2, 4, 1024, 2e-3,
+                                first_only=True))
+    _release()
+    return rows
+
+
+def _families2_cli() -> list:
+    """(m6): the launcher's ``--pipe 2`` on the card for the reduced
+    zamba2-7b (a ragged [2, 1] plan) and whisper-base (encoder | decoder)."""
+    rows = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch in ("zamba2-7b", "whisper-base"):
+        t0 = time.perf_counter()
+        tail = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+             "--variant", "reduced", "--policy", "fixed", "--rank", "8",
+             "--pipe", "2", "--micro", "2", "--steps", "4", "--batch", "4",
+             "--seq", "64", "--use-kernels"],
+            env=env, capture_output=True, text=True, check=True,
+            timeout=300).stdout.splitlines()
+        rows.append({"arch": arch, "seconds": time.perf_counter() - t0,
+                     "tail": tail[-6:]})
+        log(f"(m6) launch.train --arch {arch} --variant reduced --pipe 2 on "
+            f"the card, {rows[-1]['seconds']:.1f} s:")
+        for line in tail[-6:]:
+            log(f"    train | {line}")
+        steps = [l for l in tail if l.startswith("step ")]
+        if len(steps) != 4 or "pipe=2" not in tail[0]:
+            raise AssertionError(f"(m6) the launcher's output: {tail}")
+    return rows
+
+
+def phase_families2(report: dict, dev, profile: bool) -> dict:
+    """(m): xLSTM, Zamba2 and Whisper on the card; returns each PowerSGD
+    kernel's launches in (m1)-(m3), by config."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    _release()
+    t0 = time.perf_counter()
+    zamba = dc.replace(get_config("zamba2-7b", "full"), num_layers=28)
+    # xlstm-125m's step is bound by the host (its sLSTM loop launches
+    # about 600k kernels a step): two steps
+    full = [("m1", get_config("xlstm-125m", "full"), 8, 1024, 2, None),
+            ("m2", zamba, 4, 1024, 3, (ZAMBA_CHECK, 56)),
+            ("m3", get_config("whisper-base", "full"), 8, 448, 3, None)]
+    out = {"full": [], "seconds_by_part": {}}
+    clock = time.perf_counter()
+
+    def took(part):
+        nonlocal clock
+        now = time.perf_counter()
+        out["seconds_by_part"][part] = now - clock
+        clock = now
+    for label, cfg, batch, seq, steps, want in full:
+        out["full"].append(_family_full(label, cfg, batch, seq, steps, dev,
+                                        profile, want_groups=want))
+        took(label)
+        if label == "m2":
+            out["kernel_rows"] = _zamba_kernels(dev)
+            took("m2k")
+    out["card_vs_cpu"] = _card_against_cpu(dev)
+    took("m4")
+    out["pipelines"] = _families2_pipelines(dev)
+    took("m5")
+    out["cli"] = _families2_cli()
+    took("m6")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(m) recurrent and encoder-decoder families: {out['seconds']:.1f} s "
+        f"(by part { {k: round(v, 1) for k, v in out['seconds_by_part'].items()} })")
+    report["families2"] = out
+    return {k: {r["config"]: r["launches"][k] for r in out["full"]}
+            for k in POWERSGD}
+
+
+def _zamba_kernels(dev) -> list:
+    """(m2k): each PowerSGD kernel against its plain version at Zamba2's
+    two groups, fp32, and Gram-Schmidt on 14576 x 64 panels."""
+    rows = []
+    jobs = [(shape, lambda s=shape: _cases(*s, torch.float32, dev))
+            for shape in ZAMBA_CHECK]
+    from repro_torch.kernels import ops
+    e, m, r = ZAMBA_GS_WIDE
+    if any(ops._use_qr(mm, r) for mm in (m, 3584, 7168)):
+        raise AssertionError("(m2k) a Zamba2 panel would go to linalg.qr")
+    jobs.append(((e, m, 0, r),
+                 lambda: {"gram_schmidt": _gs_case(e, m, r, dev)}))
+    for shape, make in jobs:
+        cases = make()
+        for name, c in cases.items():
+            rows.append(check_kernel(name, c, shape, torch.float32, False))
+            rows[-1]["group"] = "zamba2-7b"
+            if name == "gram_schmidt":
+                rows[-1]["gs_path"] = rows[-1]["plan"]["path"]
+            log(f"(m2k) {name} at {shape}: {_rates(rows[-1])}")
+        del cases
+        _release()
+    return rows
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
-                 moe_launches: dict) -> dict:
+                 moe_launches: dict, families2_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -2450,14 +2801,17 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "library_ms": total("library_ms"),
                  "launches_pipelined": pipe_launches[wrapper],
                  "launches_overlapped": overlap_launches[wrapper],
-                 "launches_moe": moe_launches[wrapper]}
+                 "launches_moe": moe_launches[wrapper],
+                 "launches_families2": families2_launches[wrapper]}
         entry["device_ms"] = total("device_ms")
-        # (l)'s groups: the MoE's expert stacks and qwen3-32b's mlp
+        # (l)'s groups (the MoE's expert stacks, qwen3-32b's mlp) and
+        # (m2k)'s (zamba2-7b's Mamba2 projections)
         entry["families"] = [
             {key: r[key] for key in ("group", "shape", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bound_by",
                                      "max_abs_err", "rel_err")}
-            for r in report["families"]["kernel_rows"] if r["kernel"] == name]
+            for r in report["families"]["kernel_rows"]
+            + report["families2"]["kernel_rows"] if r["kernel"] == name]
         if name == "gram_schmidt":
             # the column chain: cluster size, device ms per column and
             # resident clusters per group; both instances' ptxas numbers
@@ -2567,9 +2921,10 @@ def main() -> int:
     pipe_launches = phase_pipeline(report, dev, j1_state)
     overlap_launches = phase_overlap(report, dev, j1_state.pop("state"))
     moe_launches = phase_families(report, dev, args.profile)
+    families2_launches = phase_families2(report, dev, args.profile)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
-                        overlap_launches, moe_launches)
+                        overlap_launches, moe_launches, families2_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

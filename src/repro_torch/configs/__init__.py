@@ -1,6 +1,4 @@
-"""Architecture registry of the port: the reference's archs of the families
-ported so far (dense, MoE, VLM; xLSTM, Zamba2 and Whisper are ROADMAP
-Queue 1 items 9d-9f).
+"""Architecture registry of the port: every arch of the reference.
 
 ``get_config(arch, variant)`` returns a ModelConfig; variants are
 ``full`` (published widths) and ``reduced`` (CPU-scale).
@@ -11,12 +9,15 @@ import importlib
 
 ARCHS: dict[str, str] = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "xlstm-125m": "xlstm_125m",
     "qwen3-32b": "qwen3_32b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "zamba2-7b": "zamba2_7b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "qwen2.5-3b": "qwen2_5_3b",
     "llama3-405b": "llama3_405b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "whisper-base": "whisper_base",
     "gpt2": "gpt2",
 }
 

@@ -33,14 +33,15 @@ def dp_rank(group=None) -> int:
 def make_dp_pmean(group=None) -> Callable[[Any], Any]:
     """Mean over the data-parallel workers of a tensor or a tree of them.
 
-    The input is never written: each collective reduces a copy.
+    The input is never written: each collective reduces a contiguous
+    copy (the all-reduce sums storage in memory order).
     """
     world = dp_world_size(group)
     if world == 1:
         return lambda x: x
 
     def mean(t: torch.Tensor) -> torch.Tensor:
-        out = t.detach().clone()
+        out = t.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out.div_(world)
 

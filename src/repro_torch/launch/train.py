@@ -210,8 +210,11 @@ def main(argv=None) -> list[dict]:
         f"policy={args.policy}{pipe_tag}, {trainer.controller.describe()}")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        batch_size=args.batch, seed=args.seed)
-    # the VLM family's batches carry the stubbed frontend's patches
-    batches = (add_modality_stubs(b, cfg.family, num_patches=cfg.num_patches,
+    # the Whisper and VLM families' batches carry the stubbed frontends'
+    # frames and patches
+    batches = (add_modality_stubs(b, cfg.family,
+                                  audio_frames=cfg.audio_frames,
+                                  num_patches=cfg.num_patches,
                                   d_model=cfg.d_model, seed=args.seed)
                for b in data.batches())
     with profiler_session(bool(args.profile), args.profile or "profile"):

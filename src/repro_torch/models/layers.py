@@ -1,4 +1,5 @@
-"""Shared layers on torch (port of the dense half of ``repro/models/layers.py``).
+"""Shared layers on torch (port of ``repro/models/layers.py`` without the
+decode path, ``attn_decode``, which waits for serving).
 
 Conventions follow the reference: weights are stored ``(in, out)``, stacked
 layer leaves carry a leading layer dim, products come back in fp32, and
@@ -16,6 +17,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree
 
 F32 = torch.float32
 
@@ -68,6 +72,17 @@ def apply_rope(x, positions, theta: float = 1e4):
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(T: int, d: int, dtype=F32, device=None):
+    """(T, d) sine/cosine positions: sin on even columns, cos on odd."""
+    pos = torch.arange(T, dtype=F32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=F32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((T, d), dtype=F32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
 
 
 # --------------------------------------------------------------------------- mlp
@@ -192,6 +207,45 @@ def attn_apply(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
                             block_q=block_q)
     o = o.reshape(B, T, num_heads * head_dim)
     return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype)
+
+
+def cross_attn_apply(p, x, enc_k, enc_v, *, num_heads: int,
+                     num_kv_heads: int, head_dim: int):
+    """Cross-attention with precomputed encoder K/V (the Whisper decoder).
+    The output comes back in ``x``'s dtype; the attention itself runs in
+    the encoder K/V's (fp32 under the fp32 encoder stream)."""
+    B, T, _ = x.shape
+    q = _mm("btd,de->bte", x, p["wq"])
+    q = q.reshape(B, T, num_heads, head_dim).to(x.dtype)
+    o = blockwise_attention(q, enc_k, enc_v, causal=False,
+                            block_q=min(512, max(T, 8)))
+    o = o.reshape(B, T, num_heads * head_dim)
+    return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype)
+
+
+def cross_kv(p, enc_out, *, num_kv_heads: int, head_dim: int):
+    """Encoder memory -> (K, V), each (B, S, Hkv, Dh) in its dtype."""
+    B, S, _ = enc_out.shape
+    k = _mm("bsd,de->bse", enc_out, p["wk"])
+    v = _mm("bsd,de->bse", enc_out, p["wv"])
+    return (k.reshape(B, S, num_kv_heads, head_dim).to(enc_out.dtype),
+            v.reshape(B, S, num_kv_heads, head_dim).to(enc_out.dtype))
+
+
+# --------------------------------------------------------------------------- stacks
+def apply_units(fn, units, x, cfg):
+    """``x = fn(unit_i, x, cfg)`` over a stacked tree's units, each under
+    ``torch.utils.checkpoint`` when ``cfg.remat``; the carry ``x`` may be a
+    tensor or a tuple of them. The units come from
+    ``unbind``, whose backward stacks their gradients once (an index per
+    unit would write each into a zero-filled copy of the stack)."""
+    for xs in zip(*(a.unbind(0) for a in tree.leaves(units))):
+        u = tree.unflatten(units, xs)
+        if cfg.remat:
+            x = checkpoint(fn, u, x, cfg, use_reentrant=False)
+        else:
+            x = fn(u, x, cfg)
+    return x
 
 
 # --------------------------------------------------------------------------- head

@@ -8,9 +8,10 @@
 
 ``batch`` holds ``tokens``/``labels`` (B, T) int64 tensors; the VLM family
 adds ``patches`` (B, P, d_model), the stubbed vision frontend's output
-(``data.pipeline.add_modality_stubs``). The dense, MoE and VLM families
-are ported; xLSTM, Zamba2 and Whisper are ROADMAP Queue 1 items 9d-9f.
-Serving (``init_cache``/``decode_step``) is Queue 1 item 11.
+(``data.pipeline.add_modality_stubs``) and the Whisper family ``frames``
+(B, audio_frames, d_model), the stubbed audio frontend's. All six families
+of the reference are ported (dense, MoE, VLM, xLSTM, Zamba2, Whisper).
+Serving (``init_cache``/``decode_step``) is ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import torch
 from repro_torch import tree
 
 __all__ = ["ModelConfig", "Model", "build_model", "register_family",
-           "param_count", "active_param_count", "near_even_split"]
+           "param_count", "active_param_count", "near_even_split",
+           "concat_stage_stacks"]
 
 
 def near_even_split(total: int, parts: int) -> list[int]:
@@ -31,10 +33,18 @@ def near_even_split(total: int, parts: int) -> list[int]:
     return [base + (1 if i < extra else 0) for i in range(max(1, parts))]
 
 
+def concat_stage_stacks(stacks: list[Any]) -> Any:
+    """Concatenate per-stage stacked subtrees back to one (L, ...) tree
+    (the flat forwards' inverse of the ``['stages'][s]`` relayout)."""
+    if len(stacks) == 1:
+        return stacks[0]
+    return tree.tree_map(lambda *xs: torch.cat(xs, dim=0), *stacks)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # dense | moe | vlm (ported) | xlstm | zamba | whisper
+    family: str = "dense"        # dense | moe | xlstm | zamba | whisper | vlm
     num_layers: int = 2
     d_model: int = 256
     num_heads: int = 4
@@ -59,6 +69,15 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     moe_group: int = 1024        # GShard dispatch group size (perf knob)
+    # ssm / hybrid
+    ssm_state: int = 0
+    conv_kernel: int = 4
+    chunk: int = 128             # chunk size for linear-recurrence scan
+    attn_every: int = 6          # zamba: shared attn block cadence
+    slstm_every: int = 2         # xlstm: every k-th block is sLSTM
+    # whisper
+    encoder_layers: int = 0
+    audio_frames: int = 1500     # encoder positions after the conv stub
     # vlm
     num_patches: int = 576       # prepended image patch embeddings
     dtype: str = "float32"       # param/activation dtype
@@ -87,9 +106,6 @@ class Model(NamedTuple):
 
 _REGISTRY: dict[str, Callable[[ModelConfig], Model]] = {}
 
-# families of the reference whose port is still to come (ROADMAP item 9)
-_LATER_FAMILIES = ("xlstm", "zamba", "whisper")
-
 
 def register_family(name: str):
     def deco(fn):
@@ -101,11 +117,7 @@ def register_family(name: str):
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _REGISTRY:
         # import side-effect registration
-        from . import moe, transformer, vlm  # noqa: F401
-    if cfg.family in _LATER_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue 1 item 9); the port has {sorted(_REGISTRY)}")
+        from . import encdec, hybrid, moe, ssm, transformer, vlm  # noqa: F401
     if cfg.family not in _REGISTRY:
         raise KeyError(f"unknown model family {cfg.family!r}")
     return _REGISTRY[cfg.family](cfg)

@@ -26,7 +26,6 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from . import layers as L
@@ -175,17 +174,14 @@ def forward(params, batch, cfg: ModelConfig, return_aux: bool = False):
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     x = params["embed"]["tok"][tokens]
     aux_total = torch.zeros((), dtype=F32, device=x.device)
+
+    def block(bp, carry, cfg):
+        x, aux = _block_apply(bp, carry[0], cfg, positions, cfg.sliding_window)
+        return x, carry[1] + aux
+
     for stage in params["stages"]:
-        blocks = stage["blocks"]
-        for i in range(tree.leaves(blocks)[0].shape[0]):
-            bp = tree.tree_map(lambda t, i=i: t[i], blocks)
-            if cfg.remat:
-                x, aux = checkpoint(_block_apply, bp, x, cfg, positions,
-                                    cfg.sliding_window, use_reentrant=False)
-            else:
-                x, aux = _block_apply(bp, x, cfg, positions,
-                                      cfg.sliding_window)
-            aux_total = aux_total + aux
+        x, aux_total = L.apply_units(block, stage["blocks"], (x, aux_total),
+                                     cfg)
     x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
     logits = L.lm_logits(x, params["lm_head"], tie=False)
     if return_aux:

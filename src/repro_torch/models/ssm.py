@@ -1,0 +1,381 @@
+"""Recurrent families (port of ``repro/models/ssm.py``): xLSTM (mLSTM and
+sLSTM blocks) and Mamba2 blocks.
+
+The shared core is a *chunked linear recurrence*
+
+    S_t = a_t * S_{t-1} + k_t (x) v_t          (matrix state per head)
+    y_t = q_t . S_t
+
+evaluated chunk-parallel: intra-chunk terms are an attention-like product
+with a decay mask D_ts = exp(Lambda_t - Lambda_s) (Lambda = cumsum log a),
+and the inter-chunk terms flow through a loop over the T / chunk chunk
+states (the reference's ``lax.scan``). mLSTM adds a normaliser channel;
+Mamba2 derives its decay from dt * A.
+
+The reference's numerics are kept as they are, defects included:
+
+  * mLSTM's exponential input gate runs as ``sigmoid(i_raw)`` in the
+    chunked path; sLSTM has the true exponential gating with the m
+    stabiliser, in a sequential loop over T (one step of about twenty
+    small kernels per token);
+  * the intra-chunk decay takes ``exp`` of the whole (t, s) difference
+    before masking the upper triangle, ``where(tri, exp(ldiff), 0)``. Once
+    a chunk's summed log-decay passes about 88 the masked entries are inf,
+    and the backward multiplies them by zero: the gradient is NaN while
+    the forward is finite, in both packages.
+
+Stacked parameters carry a leading layer dim, as every family's do: the
+xLSTM (mLSTM, sLSTM) pairs under ``['stages'][s]['pairs']`` and the Mamba2
+layers of the hybrid family under ``['stages'][s]['mamba']``. The gates,
+recurrences, ``dt`` and ``log_a`` run in fp32, and ``gate_bias``,
+``a_log``, ``dt_bias`` and ``d_skip`` are fp32 leaves under any
+``cfg.dtype``. Decoding waits for serving (ROADMAP Queue 1 item 11).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import tree
+from . import layers as L
+from .model import (Model, ModelConfig, concat_stage_stacks, near_even_split,
+                    register_family)
+
+F32 = torch.float32
+
+
+# ------------------------------------------------------------- linear recurrence
+def chunked_linear_recurrence(q, k, v, log_a, chunk: int, s0=None):
+    """y_t = q_t . S_t with S_t = a_t S_{t-1} + k_t (x) v_t, chunk-parallel.
+
+    q, k: (B, T, H, Dk); v: (B, T, H, Dv); log_a: (B, T, H) (<= 0).
+    Returns (y (B, T, H, Dv), S_final (B, H, Dk, Dv)), both fp32.
+    T must be a multiple of ``chunk`` (callers pad).
+    """
+    B, T, H, Dk = q.shape
+    Dv = v.shape[-1]
+    assert T % chunk == 0, (T, chunk)
+    N = T // chunk
+    qc = q.reshape(B, N, chunk, H, Dk).to(F32)
+    kc = k.reshape(B, N, chunk, H, Dk).to(F32)
+    vc = v.reshape(B, N, chunk, H, Dv).to(F32)
+    la = log_a.reshape(B, N, chunk, H).to(F32)
+    La = torch.cumsum(la, dim=2)                      # (B,N,C,H) inclusive
+
+    # intra-chunk: D_ts = exp(La_t - La_s) for s <= t, masked after the exp
+    scores = torch.einsum("bnthk,bnshk->bnhts", qc, kc)
+    ldiff = (La[..., :, None, :] - La[..., None, :, :]).permute(0, 1, 4, 2, 3)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))
+    decay = torch.where(tri, torch.exp(ldiff), 0.0)
+    y_intra = torch.einsum("bnhts,bnshv->bnthv", scores * decay, vc)
+
+    # inter-chunk: a loop over the chunk-final states
+    if s0 is None:
+        s0 = torch.zeros((B, H, Dk, Dv), dtype=F32, device=q.device)
+    La_end = La[:, :, -1, :]                          # (B,N,H)
+    # per-chunk input to the state: sum_s exp(La_end - La_s) k_s v_s
+    w = torch.exp(La_end[:, :, None, :] - La)         # (B,N,C,H)
+    chunk_in = torch.einsum("bnshk,bnshv->bnhkv", kc * w[..., None], vc)
+    chunk_decay = torch.exp(La_end)                   # (B,N,H)
+    # unbind, not an index per chunk: its backward stacks the N slices'
+    # gradients once instead of writing each into a zero-filled copy
+    s, s_prevs = s0, []
+    for cin, cdec in zip(chunk_in.unbind(1), chunk_decay.unbind(1)):
+        s_prevs.append(s)
+        s = cdec[..., None, None] * s + cin
+    s_prevs = torch.stack(s_prevs, dim=1)             # state at chunk start
+    qw = qc * torch.exp(La)[..., None]                # q_t decayed from chunk start
+    y_cross = torch.einsum("bnthk,bnhkv->bnthv", qw, s_prevs)
+
+    y = (y_intra + y_cross).reshape(B, T, H, Dv)
+    return y, s
+
+
+def _pad_time(pad: int, *arrays):
+    """Zero-pad dim 1 (time) of each array at its end."""
+    return [F.pad(a, [0, 0] * (a.ndim - 2) + [0, pad]) for a in arrays]
+
+
+# ---------------------------------------------------------------- causal conv
+def causal_conv_init(gen, n: int, channels: int, kernel: int, dtype):
+    w = torch.randn((n, kernel, channels), generator=gen, dtype=F32)
+    return {"w": (w / math.sqrt(kernel)).to(dtype),
+            "b": torch.zeros((n, channels), dtype=dtype)}
+
+
+def causal_conv_apply(p, x):
+    """Depthwise causal conv along T. x: (B, T, C)."""
+    k, T = p["w"].shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    w = p["w"].to(F32)
+    out = sum(xp[:, i: i + T] * w[i] for i in range(k))
+    return (out + p["b"].to(F32)).to(x.dtype)
+
+
+# ======================================================================= mLSTM
+def mlstm_init(gen, n: int, cfg: ModelConfig) -> dict[str, Any]:
+    d = cfg.d_model
+    d_inner = 2 * d
+    H = cfg.num_heads
+    dt = cfg.torch_dtype
+    ones = lambda width: torch.ones((n, width), dtype=dt)
+    bias = torch.cat([torch.zeros((H,), dtype=F32),
+                      3.0 * torch.ones((H,), dtype=F32)])
+    return {
+        "norm_scale": ones(d),
+        "up_x": L.dense_init(gen, (n, d, d_inner), dt),
+        "up_z": L.dense_init(gen, (n, d, d_inner), dt),
+        "conv": causal_conv_init(gen, n, d_inner, cfg.conv_kernel, dt),
+        "wq": L.dense_init(gen, (n, d_inner, d_inner), dt),
+        "wk": L.dense_init(gen, (n, d_inner, d_inner), dt),
+        "wv": L.dense_init(gen, (n, d_inner, d_inner), dt),
+        "w_gates": L.dense_init(gen, (n, d_inner, 2 * H), dt),  # i, f per head
+        "gate_bias": bias.expand(n, 2 * H).clone(),
+        "head_norm_scale": ones(d_inner),
+        "down": L.dense_init(gen, (n, d_inner, d), dt),
+    }
+
+
+def _mlstm_qkv_gates(p, xc, xz, H: int):
+    """q, k, v heads and the per-head log decay (input gate folded into k)."""
+    d_inner = xc.shape[-1]
+    dh = d_inner // H
+    q = L._mm("...d,de->...e", xc, p["wq"])
+    k = L._mm("...d,de->...e", xc, p["wk"])
+    v = L._mm("...d,de->...e", xz, p["wv"])
+    gates = L._mm("...d,de->...e", xc, p["w_gates"]) + p["gate_bias"]
+    i_raw, f_raw = torch.chunk(gates, 2, dim=-1)        # (..., H)
+    i_gate = torch.sigmoid(i_raw)                       # stabilised input gate
+    log_a = F.logsigmoid(f_raw)                         # log forget/decay
+    shape = tuple(xc.shape[:-1]) + (H, dh)
+    scale = 1.0 / math.sqrt(dh)
+    return (q.reshape(shape) * scale, k.reshape(shape) * i_gate[..., None],
+            v.reshape(shape), log_a)
+
+
+def mlstm_apply(p, x, cfg: ModelConfig):
+    """x: (B, T, d). Matrix-memory LSTM with a normaliser channel."""
+    B, T, d = x.shape
+    h = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    xz = L._mm("btd,de->bte", h, p["up_z"]).to(x.dtype)
+    xc = L._mm("btd,de->bte", h, p["up_x"]).to(x.dtype)
+    xc = F.silu(causal_conv_apply(p["conv"], xc).to(F32)).to(x.dtype)
+    q, k, v, log_a = _mlstm_qkv_gates(p, xc, xz, cfg.num_heads)
+    # normaliser channel: a column of ones appended to v
+    v_aug = torch.cat([v, torch.ones(tuple(v.shape[:-1]) + (1,),
+                                     dtype=v.dtype, device=v.device)], dim=-1)
+    pad = (-T) % cfg.chunk
+    if pad:
+        q, k, v_aug, log_a = _pad_time(pad, q, k, v_aug, log_a)
+    y_aug, _ = chunked_linear_recurrence(q, k, v_aug, log_a, cfg.chunk)
+    y_aug = y_aug[:, :T]
+    y, norm = y_aug[..., :-1], y_aug[..., -1:]
+    y = y / torch.maximum(torch.abs(norm), torch.ones_like(norm))
+    y = y.reshape(B, T, -1).to(x.dtype)
+    y = L.rms_norm(y, p["head_norm_scale"], cfg.norm_eps)
+    y = y * F.silu(xz.to(F32)).to(x.dtype)
+    out = L._mm("bte,ed->btd", y, p["down"])
+    return x + out.to(x.dtype)
+
+
+# ======================================================================= sLSTM
+def slstm_init(gen, n: int, cfg: ModelConfig) -> dict[str, Any]:
+    d = cfg.d_model
+    H = cfg.num_heads
+    dh = d // H
+    dt = cfg.torch_dtype
+    d_ff = int(d * 4 / 3 / 2) * 2  # xLSTM proj factor 4/3, even
+    r = torch.randn((n, H, dh, 4 * dh), generator=gen, dtype=F32)
+    bias = torch.cat([torch.zeros((2 * d,), dtype=F32),
+                      3.0 * torch.ones((d,), dtype=F32),
+                      torch.zeros((d,), dtype=F32)])
+    return {
+        "norm_scale": torch.ones((n, d), dtype=dt),
+        "w_in": L.dense_init(gen, (n, d, 4 * d), dt),   # z, i, f, o pre-acts
+        "r_blocks": (r / math.sqrt(dh)).to(dt),          # block-diag recurrence
+        "gate_bias": bias.expand(n, 4 * d).clone(),
+        "head_norm_scale": torch.ones((n, d), dtype=dt),
+        "ffn_norm_scale": torch.ones((n, d), dtype=dt),
+        "ffn": L.mlp_init(gen, n, d, d_ff, dt, gated=True),
+    }
+
+
+def _slstm_cell(r32, gate_bias, x_pre, h_prev, c_prev, n_prev, m_prev,
+                H: int):
+    """One sLSTM step with exponential gating and the m stabiliser.
+
+    ``r32``: the recurrence blocks in fp32 (H, dh, 4 dh); x_pre: (B, 4d)
+    input pre-activations; h/c/n/m: (B, d). Returns (h, c, n, m).
+    """
+    B, d4 = x_pre.shape
+    d = d4 // 4
+    hh = h_prev.reshape(B, H, d // H)
+    rec = torch.einsum("bhd,hde->bhe", hh.to(F32), r32)
+    pre = x_pre.to(F32) + rec.reshape(B, 4 * d) + gate_bias
+    z_raw, i_raw, f_raw, o_raw = torch.chunk(pre, 4, dim=-1)
+    z = torch.tanh(z_raw)
+    o = torch.sigmoid(o_raw)
+    log_f = F.logsigmoid(f_raw)                 # exp-gate via log-sigmoid form
+    m = torch.maximum(log_f + m_prev, i_raw)
+    i_s = torch.exp(i_raw - m)
+    f_s = torch.exp(log_f + m_prev - m)
+    c = f_s * c_prev + i_s * z
+    n = f_s * n_prev + i_s
+    h = o * c / torch.clamp(n, min=1e-6)
+    return h, c, n, m
+
+
+def slstm_apply(p, x, cfg: ModelConfig):
+    """x: (B, T, d): a sequential loop over T (sLSTM is recurrent)."""
+    B, _, d = x.shape
+    hx = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    x_pre = L._mm("btd,de->bte", hx, p["w_in"])
+    r32 = p["r_blocks"].to(F32)
+    h = torch.zeros((B, d), dtype=F32, device=x.device)
+    c, n, m = h, h, h - 10.0
+    hs = []
+    for x_t in x_pre.unbind(1):      # (B, 4d) per token, one backward stack
+        h, c, n, m = _slstm_cell(r32, p["gate_bias"], x_t, h, c, n, m,
+                                 cfg.num_heads)
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype)              # (B,T,d)
+    y = L.rms_norm(y, p["head_norm_scale"], cfg.norm_eps)
+    x = x + y
+    h2 = L.rms_norm(x, p["ffn_norm_scale"], cfg.norm_eps)
+    return x + L.mlp_apply(p["ffn"], h2, act="silu")
+
+
+# ================================================================ xLSTM model
+def xlstm_stage_sizes(cfg: ModelConfig) -> list[int]:
+    """(mLSTM, sLSTM) pairs per virtual pipeline stage, near-even split.
+
+    The pair, not the layer, is the stage-assignable unit: splitting one
+    would separate an mLSTM from its sLSTM partner.
+    """
+    n_pairs = cfg.num_layers // 2
+    return near_even_split(n_pairs, min(cfg.num_stages, n_pairs))
+
+
+@torch.no_grad()
+def xlstm_init(cfg: ModelConfig, seed: int, device) -> dict[str, Any]:
+    """Random parameters on ``device``, drawn on the CPU from a generator
+    seeded with ``seed`` (the same weights on every device)."""
+    assert cfg.num_layers % 2 == 0, "xlstm stacks (mLSTM, sLSTM) pairs"
+    gen = torch.Generator().manual_seed(seed)
+    dt = cfg.torch_dtype
+    to = lambda t: tree.tree_map(lambda a: a.to(device), t)
+    return {
+        "embed": {"tok": to(L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt))},
+        "stages": [
+            {"pairs": to({"mlstm": mlstm_init(gen, sz, cfg),
+                          "slstm": slstm_init(gen, sz, cfg)})}
+            for sz in xlstm_stage_sizes(cfg)
+        ],
+        "final_norm_scale": torch.ones((cfg.d_model,), dtype=dt,
+                                       device=device),
+        "lm_head": to(L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)),
+    }
+
+
+def pair_apply(pair, x, cfg: ModelConfig):
+    """One (mLSTM, sLSTM) pair."""
+    x = mlstm_apply(pair["mlstm"], x, cfg)
+    return slstm_apply(pair["slstm"], x, cfg)
+
+
+def xlstm_forward(params, batch, cfg: ModelConfig):
+    x = params["embed"]["tok"][batch["tokens"]]
+    pairs = concat_stage_stacks([st["pairs"] for st in params["stages"]])
+    x = L.apply_units(pair_apply, pairs, x, cfg)
+    x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    return L.lm_logits(x, params["lm_head"], tie=False)
+
+
+def xlstm_loss(params, batch, cfg: ModelConfig):
+    logits = xlstm_forward(params, batch, cfg)
+    loss = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+@register_family("xlstm")
+def _build_xlstm(cfg: ModelConfig) -> Model:
+    return Model(
+        config=cfg,
+        init=lambda seed, device: xlstm_init(cfg, seed, device),
+        loss_fn=lambda p, b: xlstm_loss(p, b, cfg),
+        forward=lambda p, b: xlstm_forward(p, b, cfg),
+    )
+
+
+# ====================================================================== Mamba2
+def _mamba2_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(d_inner, state size n, heads H): heads of dimension 64."""
+    d_inner = 2 * cfg.d_model
+    return d_inner, cfg.ssm_state, d_inner // 64
+
+
+def mamba2_init(gen, n_layers: int, cfg: ModelConfig) -> dict[str, Any]:
+    d = cfg.d_model
+    d_inner, n, H = _mamba2_dims(cfg)
+    dt = cfg.torch_dtype
+    full = lambda v: torch.full((n_layers, H), v, dtype=F32)
+    return {
+        "norm_scale": torch.ones((n_layers, d), dtype=dt),
+        "in_proj": L.dense_init(gen, (n_layers, d, 2 * d_inner + 2 * n + H),
+                                dt),
+        "conv": causal_conv_init(gen, n_layers, d_inner + 2 * n,
+                                 cfg.conv_kernel, dt),
+        "a_log": full(0.0),                                 # A = -exp(a_log)
+        "dt_bias": torch.log(torch.expm1(full(0.01))),
+        "d_skip": full(1.0),
+        "out_norm_scale": torch.ones((n_layers, d_inner), dtype=dt),
+        "out_proj": L.dense_init(gen, (n_layers, d_inner, d), dt),
+    }
+
+
+def _mamba2_project(p, h, cfg: ModelConfig):
+    d_inner, n, H = _mamba2_dims(cfg)
+    zxbcdt = L._mm("...d,de->...e", h, p["in_proj"])
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner: 2 * d_inner + 2 * n].to(h.dtype)
+    dt_raw = zxbcdt[..., -H:]
+    return z, xbc, dt_raw
+
+
+def _mamba2_ssm_inputs(p, xbc, dt_raw, cfg: ModelConfig):
+    d_inner, n, H = _mamba2_dims(cfg)
+    x = xbc[..., :d_inner]
+    b = xbc[..., d_inner: d_inner + n]
+    c = xbc[..., d_inner + n:]
+    dt = F.softplus(dt_raw + p["dt_bias"])                 # (..., H) > 0
+    log_a = -dt * torch.exp(p["a_log"])                    # (..., H) <= 0
+    lead = tuple(x.shape[:-1])
+    xh = x.reshape(lead + (H, 64))
+    # B and C shared across heads (n_groups = 1): broadcast, not copied;
+    # the input is scaled by dt per head
+    k = b[..., None, :].expand(lead + (H, n))
+    q = c[..., None, :].expand(lead + (H, n))
+    v = xh * dt[..., None]
+    return q, k, v, log_a, xh
+
+
+def mamba2_apply(p, x, cfg: ModelConfig):
+    B, T, d = x.shape
+    h = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    z, xbc, dt_raw = _mamba2_project(p, h, cfg)
+    xbc = F.silu(causal_conv_apply(p["conv"], xbc).to(F32)).to(x.dtype)
+    q, k, v, log_a, xh = _mamba2_ssm_inputs(p, xbc, dt_raw, cfg)
+    pad = (-T) % cfg.chunk
+    if pad:
+        q, k, v, log_a = _pad_time(pad, q, k, v, log_a)
+    y, _ = chunked_linear_recurrence(q, k, v, log_a, cfg.chunk)
+    y = y[:, :T] + p["d_skip"][:, None] * xh.to(F32)       # D skip per head
+    y = y.reshape(B, T, -1)
+    y = y * F.silu(z)
+    y = L.rms_norm(y.to(x.dtype), p["out_norm_scale"], cfg.norm_eps)
+    out = L._mm("bte,ed->btd", y, p["out_proj"])
+    return x + out.to(x.dtype)

@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from . import layers as L
@@ -95,14 +94,8 @@ def _block_apply(bp, x, cfg: ModelConfig, positions, window: int):
 
 def apply_block_stack(blocks, x, cfg: ModelConfig, positions, window: int):
     """Run one stacked set of decoder blocks (one pipeline stage's worth)."""
-    for i in range(tree.leaves(blocks)[0].shape[0]):
-        bp = tree.tree_map(lambda t, i=i: t[i], blocks)
-        if cfg.remat:
-            x = checkpoint(_block_apply, bp, x, cfg, positions, window,
-                           use_reentrant=False)
-        else:
-            x = _block_apply(bp, x, cfg, positions, window)
-    return x
+    block = lambda bp, x, cfg: _block_apply(bp, x, cfg, positions, window)
+    return L.apply_units(block, blocks, x, cfg)
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):

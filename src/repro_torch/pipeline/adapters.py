@@ -1,8 +1,9 @@
 """Per-family stage adapters: the pipeline-partition contract.
 
-Port of ``repro/pipeline/adapters.py`` (the base class and the dense, VLM
-and MoE adapters). Every family that can run the pipeline executor registers a
-:class:`StageAdapter` subclass here. The adapter owns:
+Port of ``repro/pipeline/adapters.py``: the base class and the adapters of
+all six families (dense, VLM, MoE, xLSTM, Zamba2, Whisper). Every family
+that can run the pipeline executor registers a :class:`StageAdapter`
+subclass here. The adapter owns:
 
   * the **support check** (``check``): a family-specific reason string when
     a config cannot be pipelined;
@@ -16,15 +17,17 @@ and MoE adapters). Every family that can run the pipeline executor registers a
   * the **compute** (``embed`` / ``blocks_segment`` / ``head_loss``):
     ``blocks_segment`` runs a span ``[lo, hi)`` of one stage's units and
     returns ``(boundary_out, aux_loss)``; chaining segments over any
-    partition of ``[0, num_units)`` reproduces ``blocks``;
+    partition of ``[0, num_units)`` reproduces ``blocks``. A unit is a
+    stacked element for most families (a block, an xLSTM pair); Zamba2's
+    is a group slot and Whisper's enumerates the encoder half, then the
+    decoder half (``unit_index`` maps a stacked element to its unit);
   * the **stash and boundary specs** (``stash_spec`` / ``boundary_spec``):
     shape and dtype of one stashed inter-unit carry and of one boundary
-    activation (the same for the dense, VLM and MoE families).
+    activation: one :class:`TensorSpec`, or for Whisper a dict of two
+    (``{"mem", "x"}``, the encoder memory and the decoder stream).
 
 Stage-assignable parameters live under ``params['stages'][i]``, so the
 local <-> global leaf-path mapping is one regex shared by every family.
-The xLSTM, Zamba2 and Whisper adapters come with their models (ROADMAP
-Queue 1 items 9d-9f); ``supported_reason`` names them.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ from repro_torch.models.model import Model, ModelConfig
 __all__ = [
     "StageAdapter",
     "TensorSpec",
+    "boundary_leaves",
+    "boundary_unflatten",
     "register_adapter",
     "adapter_families",
     "supported_reason",
@@ -53,15 +58,31 @@ _STAGE_PREFIX = re.compile(r"^\['stages'\]\[(\d+)\]")
 
 F32 = torch.float32
 
-# families with a stage adapter in the reference, not ported yet
-_LATER_FAMILIES = ("xlstm", "zamba", "whisper")
-
 
 class TensorSpec(NamedTuple):
     """Shape and dtype of one activation (what a pipe send moves)."""
 
     shape: tuple[int, ...]
     dtype: torch.dtype
+
+
+def boundary_leaves(b) -> list:
+    """A boundary's tensors (or specs) in sorted-key order: one tensor, or
+    the values of a dict of them."""
+    if isinstance(b, dict):
+        return [x for k in sorted(b) for x in boundary_leaves(b[k])]
+    return [b]
+
+
+def boundary_unflatten(like, xs: list):
+    """The boundary shaped like ``like`` whose leaves are ``xs``."""
+    it = iter(xs)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+    return build(like)
 
 
 def global_leaf_path(stage: int, local_path: str) -> str:
@@ -101,12 +122,8 @@ def supported_reason(cfg: ModelConfig, num_stages: int) -> str | None:
         return f"num_stages={num_stages} must be >= 1"
     cls = _REGISTRY.get(cfg.family)
     if cls is None:
-        reason = (f"family {cfg.family!r} has no stage adapter "
-                  f"(registered: {adapter_families()})")
-        if cfg.family in _LATER_FAMILIES:
-            reason += ("; its adapter comes with the family's port "
-                       "(ROADMAP Queue 1 item 9)")
-        return reason
+        return (f"family {cfg.family!r} has no stage adapter "
+                f"(registered: {adapter_families()})")
     return cls.check(cfg, num_stages)
 
 
@@ -175,6 +192,11 @@ class StageAdapter:
         assert len(self._counts) == 1, "multi-stack family must override"
         (per,) = self._counts.values()
         return max(per)
+
+    def unit_index(self, key: str, s: int, i: int) -> int:
+        """The unit of stage s that element i of stack ``key`` belongs to
+        (-1 for a padded element no unit runs)."""
+        return i
 
     def stash_spec(self, mb: dict) -> TensorSpec:
         """Spec of ONE stashed inter-unit carry: the boundary activation
@@ -286,6 +308,21 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(t, device=x.device).expand(b, t)
 
 
+def _untied_head_loss(cfg: ModelConfig, shared, y, mb) -> torch.Tensor:
+    """RMSNorm, the untied ``lm_head`` and the loss."""
+    from repro_torch.models import layers as L
+    x = L.rms_norm(y, shared["final_norm_scale"], cfg.norm_eps)
+    logits = L.lm_logits(x, shared["lm_head"], tie=False)
+    return L.cross_entropy(logits, mb["labels"], mb.get("mask"))
+
+
+def _stages_reason(cfg: ModelConfig, num_stages: int) -> str | None:
+    if cfg.num_stages != num_stages:
+        return (f"model was built with num_stages={cfg.num_stages}, "
+                f"pipeline wants {num_stages}; rebuild the model config")
+    return None
+
+
 # --------------------------------------------------------------------- dense
 @register_adapter("dense")
 class DenseAdapter(StageAdapter):
@@ -297,13 +334,11 @@ class DenseAdapter(StageAdapter):
 
     @classmethod
     def check(cls, cfg: ModelConfig, num_stages: int) -> str | None:
-        if cfg.num_stages != num_stages:
-            return (f"model was built with num_stages={cfg.num_stages}, "
-                    f"pipeline wants {num_stages}; rebuild the model config")
-        if cfg.num_layers < num_stages:
-            return (f"num_layers={cfg.num_layers} < num_stages={num_stages}:"
-                    " at least one block per stage is required")
-        return None
+        reason = _stages_reason(cfg, num_stages)
+        if reason is None and cfg.num_layers < num_stages:
+            reason = (f"num_layers={cfg.num_layers} < num_stages={num_stages}:"
+                      " at least one block per stage is required")
+        return reason
 
     def unit_counts(self):
         return {"blocks": self.cfg.stage_sizes()}
@@ -369,13 +404,11 @@ class MoEAdapter(StageAdapter):
 
     @classmethod
     def check(cls, cfg: ModelConfig, num_stages: int) -> str | None:
-        if cfg.num_stages != num_stages:
-            return (f"model was built with num_stages={cfg.num_stages}, "
-                    f"pipeline wants {num_stages}; rebuild the model config")
-        if cfg.num_layers < num_stages:
-            return (f"num_layers={cfg.num_layers} < num_stages={num_stages}:"
-                    " at least one MoE block per stage is required")
-        return None
+        reason = _stages_reason(cfg, num_stages)
+        if reason is None and cfg.num_layers < num_stages:
+            reason = (f"num_layers={cfg.num_layers} < num_stages={num_stages}:"
+                      " at least one MoE block per stage is required")
+        return reason
 
     def unit_counts(self):
         return {"blocks": self.cfg.stage_sizes()}
@@ -400,8 +433,210 @@ class MoEAdapter(StageAdapter):
         return y, aux * cfg.router_aux_weight / max(1, cfg.num_layers)
 
     def head_loss(self, shared, y, mb):
-        from repro_torch.models import layers as L
+        return _untied_head_loss(self.cfg, shared, y, mb)
+
+
+# --------------------------------------------------------------------- xlstm
+@register_adapter("xlstm")
+class XLSTMAdapter(StageAdapter):
+    """xLSTM: the stage unit is one (mLSTM, sLSTM) pair; splitting a pair
+    would separate the matrix-memory block from its recurrent partner."""
+
+    @classmethod
+    def check(cls, cfg: ModelConfig, num_stages: int) -> str | None:
+        if cfg.num_layers % 2:
+            return f"num_layers={cfg.num_layers} must be even (pair stacks)"
+        reason = _stages_reason(cfg, num_stages)
+        if reason is not None:
+            return reason
+        n_pairs = cfg.num_layers // 2
+        if n_pairs < num_stages:
+            return (f"{n_pairs} (mLSTM, sLSTM) pairs < num_stages="
+                    f"{num_stages}: at least one pair per stage is required")
+        return None
+
+    def unit_counts(self):
+        from repro_torch.models.ssm import xlstm_stage_sizes
+        return {"pairs": xlstm_stage_sizes(self.cfg)}
+
+    def embed(self, shared, mb):
+        return shared["embed"]["tok"][mb["tokens"]]
+
+    def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
+        from repro_torch.models import ssm
         cfg = self.cfg
-        x = L.rms_norm(y, shared["final_norm_scale"], cfg.norm_eps)
-        logits = L.lm_logits(x, shared["lm_head"], tie=False)
+        flags = self.stage_flags("pairs", s)
+        y = self._run_units(lambda h, pair: ssm.pair_apply(pair, h, cfg), x,
+                            stage_tree["pairs"][lo:hi],
+                            None if flags is None else flags[lo:hi])
+        return y, torch.zeros((), dtype=F32, device=x.device)
+
+    def head_loss(self, shared, y, mb):
+        return _untied_head_loss(self.cfg, shared, y, mb)
+
+
+# --------------------------------------------------------------------- zamba
+@register_adapter("zamba")
+class ZambaAdapter(StageAdapter):
+    """Hybrid Mamba2 + shared attention: stages take whole attention groups
+    (a mamba run and its shared-attention site), so per-stage layer counts
+    are ragged whenever ``num_layers`` does not tile over groups and
+    stages. The shared block rides in ``shared`` (its gradients summed over
+    the stages, like the embeddings').
+
+    The unit is a GROUP SLOT: the stage's runs in order, each followed by
+    the shared block. Each stage runs its own plan, so the group slots a
+    stage lacks and the padded layers are skipped, where the reference
+    runs them masked."""
+
+    def __init__(self, model, num_stages, remat=None):
+        super().__init__(model, num_stages, remat)
+        from repro_torch.models.hybrid import stage_group_sizes
+        self._plan = stage_group_sizes(self.cfg, num_stages)
+        # stage s's layer i -> its group slot
+        self._slot = [[g for g, sz in enumerate(sizes) for _ in range(sz)]
+                      for sizes in self._plan]
+
+    @classmethod
+    def check(cls, cfg: ModelConfig, num_stages: int) -> str | None:
+        from repro_torch.models.hybrid import _num_groups
+        reason = _stages_reason(cfg, num_stages)
+        if reason is not None:
+            return reason
+        g = _num_groups(cfg)
+        if g < num_stages:
+            return (f"{g} attention groups (attn_every={cfg.attn_every}) < "
+                    f"num_stages={num_stages}: whole groups per stage is "
+                    "the hybrid pipelining constraint")
+        return None
+
+    def unit_counts(self):
+        from repro_torch.models.hybrid import stage_group_sizes
+        plan = stage_group_sizes(self.cfg, self.num_stages)
+        return {"mamba": [sum(sizes) for sizes in plan]}
+
+    def num_units(self):
+        return max(len(sizes) for sizes in self._plan)
+
+    def unit_index(self, key, s, i):
+        slots = self._slot[s]
+        return slots[i] if i < len(slots) else -1
+
+    def embed(self, shared, mb):
+        return shared["embed"]["tok"][mb["tokens"]]
+
+    def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
+        from repro_torch.models import hybrid, ssm
+        cfg = self.cfg
+        pos = _positions(x)
+        sizes = self._plan[s]
+        layers = stage_tree["mamba"]
+        starts = np.cumsum([0] + sizes)
+
+        def group(h, run):
+            for mp in run:
+                h = ssm.mamba2_apply(mp, h, cfg)
+            return hybrid.shared_apply(shared["shared"], h, cfg, pos)
+        runs = [layers[starts[g]:starts[g + 1]]
+                for g in range(lo, min(hi, len(sizes)))]
+        y = self._run_units(group, x, runs, None)
+        return y, torch.zeros((), dtype=F32, device=x.device)
+
+    def head_loss(self, shared, y, mb):
+        return _untied_head_loss(self.cfg, shared, y, mb)
+
+
+# ------------------------------------------------------------------- whisper
+@register_adapter("whisper")
+class EncDecAdapter(StageAdapter):
+    """Encoder-decoder: encoder stages before decoder stages. The boundary
+    carries two tensors: ``mem``, the running encoder hidden (the encoder
+    output once it crosses into the decoder half, read by every decoder
+    stage's cross-attention), and ``x``, the decoder hidden (the token
+    embeddings, carried through the encoder half untouched). ``mem``'s
+    cotangent accumulates through the decoder stages on the way back.
+
+    The boundary has the dtypes the embed produces: ``mem`` the stub
+    frames' (fp32), ``x`` the parameters'. (The reference declares both in
+    the parameter dtype.)"""
+
+    def __init__(self, model, num_stages, remat=None):
+        super().__init__(model, num_stages, remat)
+        self._num_enc_stages = sum(
+            1 for c in self._counts["enc_blocks"] if c > 0)
+        self._le = max(self._counts["enc_blocks"])
+
+    @classmethod
+    def check(cls, cfg: ModelConfig, num_stages: int) -> str | None:
+        from repro_torch.models.encdec import stage_layout
+        reason = _stages_reason(cfg, num_stages)
+        if reason is not None:
+            return reason
+        le = cfg.encoder_layers or cfg.num_layers
+        if num_stages > le + cfg.num_layers:
+            return (f"num_stages={num_stages} > {le}+{cfg.num_layers} "
+                    "enc+dec layers")
+        layout = stage_layout(cfg, num_stages)
+        if len(layout) != num_stages:
+            return (f"enc/dec split yields {len(layout)} stages for "
+                    f"num_stages={num_stages}")
+        return None
+
+    def unit_counts(self):
+        from repro_torch.models.encdec import stage_layout
+        layout = stage_layout(self.cfg, self.num_stages)
+        return {"enc_blocks": [c["enc"] for c in layout],
+                "dec_blocks": [c["dec"] for c in layout]}
+
+    def boundary_spec(self, mb):
+        b, t = mb["tokens"].shape
+        a = mb["frames"].shape[1]
+        d = self.cfg.d_model
+        return {"mem": TensorSpec((b, a, d), mb["frames"].dtype),
+                "x": TensorSpec((b, t, d), self.cfg.torch_dtype)}
+
+    def embed(self, shared, mb):
+        from repro_torch.models import encdec as E
+        return {"mem": E.embed_frames(mb["frames"]),
+                "x": E.embed_tokens(shared, mb["tokens"])}
+
+    def num_units(self):
+        # the encoder half's units first, then the decoder half's, in the
+        # order a stage runs them
+        return self._le + max(self._counts["dec_blocks"])
+
+    def unit_index(self, key, s, i):
+        return i if key == "enc_blocks" else self._le + i
+
+    def blocks_segment(self, stage_tree, shared, bnd, s, lo, hi):
+        from repro_torch.models import encdec as E
+        cfg = self.cfg
+        le = self._le
+        mem, x = bnd["mem"], bnd["x"]
+        elo, ehi = lo, min(hi, le)
+        if ehi > elo:
+            flags = self.stage_flags("enc_blocks", s)
+            mem = self._run_units(
+                lambda h, bp: E.enc_block_apply(bp, h, cfg), mem,
+                stage_tree["enc_blocks"][elo:ehi],
+                None if flags is None else flags[elo:ehi])
+        # the encoder's output norm, once: on the last encoder stage, by
+        # the segment that runs the last encoder unit
+        if le and lo <= le - 1 < hi and s == self._num_enc_stages - 1:
+            mem = E._ln(mem, shared, "enc_norm", cfg)
+        dlo, dhi = max(lo - le, 0), hi - le
+        if dhi > dlo:
+            flags = self.stage_flags("dec_blocks", s)
+            x = self._run_units(
+                lambda h, bp: E.dec_block_apply(bp, h, mem, cfg), x,
+                stage_tree["dec_blocks"][dlo:dhi],
+                None if flags is None else flags[dlo:dhi])
+        return ({"mem": mem, "x": x},
+                torch.zeros((), dtype=F32, device=x.device))
+
+    def head_loss(self, shared, bnd, mb):
+        from repro_torch.models import encdec as E
+        from repro_torch.models import layers as L
+        x = E._ln(bnd["x"], shared, "final_norm", self.cfg)
+        logits = L.lm_logits(x, shared["embed"]["tok"], tie=True)
         return L.cross_entropy(logits, mb["labels"], mb.get("mask"))

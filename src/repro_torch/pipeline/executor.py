@@ -37,6 +37,10 @@ while other stages compute. The compute stream waits for the side stream
 at the end of the loop. ``step.sync_launches`` lists the last step's
 launches as ``(tick, stage, chunk ids)``, tick -1 after the loop.
 
+A boundary is one tensor, or a dict of tensors (Whisper's ``{"mem",
+"x"}``): the sends, receives, stash ring and cotangents take its leaves
+in sorted-key order, and a one-tensor boundary keeps its one-tensor path.
+
 The pipe collectives come from a transport, as the DP mean comes from an
 injected ``psum_mean``:
 
@@ -45,8 +49,8 @@ injected ``psum_mean``:
     delivered for tick t+1. One card carries S stages this way, one after
     another (so it shows the executor's work, not the pipeline's overlap).
   * :class:`DistPipe` hosts one stage per process: ``torch.distributed``
-    point-to-point (``batch_isend_irecv``) between neighbours, and an
-    all-reduce over the pipe group.
+    point-to-point (``batch_isend_irecv``, one message per boundary leaf)
+    between neighbours, and an all-reduce over the pipe group.
 
 A step's state holds the hosted stages' slices: ``stage_params`` and the
 stage halves of ``opt_m``/``opt_v`` lead with (H, Lmax, ...) and the
@@ -70,6 +74,7 @@ from repro_torch.models.model import Model
 from repro_torch.optim import adam
 from repro_torch.pipeline import schedule as sched
 from repro_torch.pipeline import sync as psync
+from repro_torch.pipeline.adapters import boundary_leaves, boundary_unflatten
 from repro_torch.pipeline.partition import make_partition
 
 __all__ = ["LocalPipe", "DistPipe", "make_pipeline_train_step", "host_state"]
@@ -149,22 +154,28 @@ class DistPipe:
     def _peer(self, s: int) -> int:
         return s if self.group is None else dist.get_global_rank(self.group, s)
 
-    def send_fwd(self, s: int, y: torch.Tensor) -> None:
-        self._sends.append((y.contiguous(), s + 1))
+    def send_fwd(self, s: int, y) -> None:
+        self._sends.extend((t.contiguous(), s + 1)
+                           for t in boundary_leaves(y))
 
-    def send_bwd(self, s: int, ct: torch.Tensor) -> None:
-        self._sends.append((ct.contiguous(), s - 1))
+    def send_bwd(self, s: int, ct) -> None:
+        self._sends.extend((t.contiguous(), s - 1)
+                           for t in boundary_leaves(ct))
 
     def deliver(self, expect: set, spec, device) -> None:
+        """Post the tick's sends and the receives ``expect`` implies, one
+        message per boundary leaf of ``spec``, and wait for them."""
         if self._in:
             raise RuntimeError(f"undelivered pipe messages {sorted(self._in)}")
         ops = [dist.P2POp(dist.isend, t, self._peer(peer), self.group)
                for t, peer in self._sends]
         for kind, s in sorted(expect):
-            buf = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+            bufs = [torch.empty(sp.shape, dtype=sp.dtype, device=device)
+                    for sp in boundary_leaves(spec)]
             src = s - 1 if kind == "f" else s + 1
-            ops.append(dist.P2POp(dist.irecv, buf, self._peer(src), self.group))
-            self._in[(kind, s)] = buf
+            ops.extend(dist.P2POp(dist.irecv, buf, self._peer(src), self.group)
+                       for buf in bufs)
+            self._in[(kind, s)] = boundary_unflatten(spec, bufs)
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -178,9 +189,11 @@ class DistPipe:
 
     def psum_pipe(self, parts: dict[int, torch.Tensor | None],
                   like: torch.Tensor) -> torch.Tensor:
+        """The all-reduce sums the tensors' storage in memory order, so a
+        part with other strides (a transposed gradient, as the tied head
+        gives) is made contiguous first."""
         out = parts.get(self.stage)
-        if out is None:
-            out = _zeros32(like)
+        out = _zeros32(like) if out is None else out.contiguous()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
 
@@ -356,13 +369,15 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
             gacc_s[s] = tree.tree_map(
                 lambda a: torch.zeros(a.shape, dtype=F32, device=a.device),
                 local)
-            # unit leaf n belongs to unit leaf_unit[n] and accumulates into
-            # that unit's slice of its stack
-            order = [(i, acc) for key in sorted(local)
+            # unit leaf n is element i of its stack, which runs in the
+            # stage's unit leaf_unit[n], and accumulates into the element's
+            # slice of its stack
+            order = [(part.unit_index(key, s, i), i, acc)
+                     for key in sorted(local)
                      for i in range(len(units[s][key]))
                      for acc in tree.leaves(gacc_s[s][key])]
-            leaf_unit[s] = [i for i, _ in order]
-            targets[s] = [acc[i] for i, acc in order]
+            leaf_unit[s] = [u for u, _, _ in order]
+            targets[s] = [acc[i] for _, i, acc in order]
         del order
         shared = tree.tree_map(grad_leaf, shared_p)
         shared_leaves = tree.leaves(shared)
@@ -405,18 +420,20 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                            if lo <= u < hi]
                 seg_leaves = [unit_leaves[s][n] for n in seg_ids]
                 with torch.enable_grad():
+                    x_leaves = []
                     if takes_input:
-                        xin = xin.detach().requires_grad_(True)
+                        x_leaves = [a.detach().requires_grad_(True)
+                                    for a in boundary_leaves(xin)]
+                        xin = boundary_unflatten(xin, x_leaves)
                     y, contrib = seg_fwd(s, units[s], shared, xin, mbj, i)
                     outs, cts = [], []
                     if ct_carry is not None:
-                        outs.append(y)
-                        cts.append(ct_carry)
+                        outs.extend(boundary_leaves(y))
+                        cts.extend(boundary_leaves(ct_carry))
                     if contrib.requires_grad:
                         outs.append(contrib)
                         cts.append(ct_loss)
-                    inputs = seg_leaves + shared_leaves + (
-                        [xin] if takes_input else [])
+                    inputs = seg_leaves + shared_leaves + x_leaves
                     grads = torch.autograd.grad(outs, inputs, cts,
                                                 allow_unused=True)
                 with torch.no_grad():
@@ -430,7 +447,13 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                         if g is not None:
                             acc[n] = (g.to(F32) if acc[n] is None
                                       else acc[n].add_(g.to(F32)))
-                ct_carry = grads[-1] if takes_input else None
+                # a boundary leaf the segment never read (a padded decoder
+                # unit's head reads no mem) gets a zero cotangent
+                ct_carry = (boundary_unflatten(xin, [
+                    torch.zeros_like(a) if g is None else g
+                    for a, g in zip(x_leaves,
+                                    grads[len(grads) - len(x_leaves):])])
+                    if takes_input else None)
             if s > 0:
                 pipe.send_bwd(s, ct_carry)
 

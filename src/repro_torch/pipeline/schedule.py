@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core import bucketing
 from repro_torch.core.comm_model import ring_allreduce_seconds
+from repro_torch.pipeline.adapters import boundary_leaves
 
 __all__ = [
     "SCHEDULES",
@@ -325,13 +326,15 @@ def policy_tick_cost(t_f: float, t_b: float, policy: str,
 
 
 def boundary_nbytes(part, mb: dict) -> int:
-    """Bytes of one boundary activation for one microbatch.
+    """Bytes of one boundary activation (all its tensors) for one
+    microbatch.
 
     ``mb`` maps batch keys to per-microbatch tensors (or anything with a
     ``shape``); ``part`` is the family's stage adapter.
     """
-    spec = part.boundary_spec(mb)
-    return math.prod(spec.shape) * torch.empty((), dtype=spec.dtype).element_size()
+    return sum(math.prod(sp.shape)
+               * torch.empty((), dtype=sp.dtype).element_size()
+               for sp in boundary_leaves(part.boundary_spec(mb)))
 
 
 def tick_spans(name: str, S: int, M: int,

@@ -26,7 +26,10 @@ def test_port_has_files():
                    "launch/report.py", "pipeline/schedule.py",
                    "pipeline/adapters.py", "pipeline/partition.py",
                    "pipeline/sync.py", "pipeline/executor.py",
-                   "launch/mesh.py", "models/moe.py", "models/vlm.py"):
+                   "launch/mesh.py", "models/moe.py", "models/vlm.py",
+                   "models/ssm.py", "models/hybrid.py", "models/encdec.py",
+                   "configs/xlstm_125m.py", "configs/zamba2_7b.py",
+                   "configs/whisper_base.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 

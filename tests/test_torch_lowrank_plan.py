@@ -32,7 +32,9 @@ def _chunks(plan, depth):
     # the shape groups of the MoE, qwen3-32b and phi-3-vision configs
     (256, 4096, 1536, 64), (128, 1536, 4096, 64), (2, 4096, 256, 64),
     (4, 5120, 25600, 64), (2, 25600, 5120, 64), (32, 3072, 3072, 64),
-    (16, 3072, 8192, 64), (8, 8192, 3072, 64)])
+    (16, 3072, 8192, 64), (8, 8192, 3072, 64),
+    # zamba2-7b at depth 28: the Mamba2 in_proj and out_proj groups
+    (28, 3584, 14576, 64), (28, 7168, 3584, 64)])
 @pytest.mark.parametrize("trans", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_splits_cover_the_depth_in_whole_k_tiles(num_e, m, n, r, trans, dtype):
@@ -526,3 +528,37 @@ def test_lowrank_cu_offsets_are_size_t():
     "ghat[base + row * n + col] = v;"])
 def test_offset_check_finds_an_int_product(seeded):
     assert _products_without_size_t(seeded)
+
+
+# zamba2-7b at depth 28 (4 groups of 7): in_proj (3584 x 14576) and
+# out_proj (7168 x 3584) of 28 Mamba2 layers
+ZAMBA_GROUPS = [(28, 3584, 14576, 64), (28, 7168, 3584, 64)]
+
+
+@pytest.mark.parametrize("group", ZAMBA_GROUPS)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plans_at_the_zamba_groups(group, trans, dtype):
+    """Both products take the 16-byte paths, their splits cover the depth
+    and the grid stays inside its limit."""
+    e, m, n, r = group
+    plan = lr.factor_plan(*group, dtype, SMS, trans=trans)
+    depth = m if trans else n
+    assert plan.vector and plan.f_vector
+    assert plan.grid == (-(-(n if trans else m) // 128), 1, e * plan.splits)
+    assert _chunks(plan, depth)[-1][1] == depth
+
+
+@pytest.mark.parametrize("m", [3584, 7168, 14576])
+def test_zamba_panels_take_gram_schmidt_under_4_mib(m):
+    """The P panels of Zamba2's groups (m = 3584 and 7168, r = 64) and a
+    14576 x 64 panel (3.73 MB, the width of in_proj's Q factor) are under
+    the 4 MiB limit past which ``ops`` hands a panel to ``linalg.qr``: all
+    three take the Gram-Schmidt kernel, the widest on the device-memory
+    slab."""
+    from repro_torch.kernels import ops
+    assert not ops._use_qr(m, 64) and m * 64 * 4 <= 4 << 20
+    plan = lr.gs_plan(28, m, 64, SMS)
+    assert plan.path == ("device" if m == 14576 else "shared")
+    assert plan.rows * plan.cluster >= m
+    assert plan.smem <= lr.GS_SMEM_MAX

@@ -143,8 +143,11 @@ def test_local_global_paths_and_support():
     assert supported_reason(ModelConfig(**short), 2) == \
         ref_part.pipeline_supported(RefModelConfig(**short), 2)
     assert "must be >= 1" in supported_reason(ModelConfig(**MODEL), 0)
-    reason = supported_reason(ModelConfig(**dict(MODEL, family="xlstm")), 2)
-    assert "no stage adapter" in reason and "item 9" in reason
+    # a family that neither package registers
+    reason = supported_reason(ModelConfig(**dict(MODEL, family="nope")), 2)
+    assert "no stage adapter" in reason
+    assert reason == ref_part.pipeline_supported(
+        RefModelConfig(**dict(MODEL, family="nope")), 2)
     with pytest.raises(ValueError, match="unsupported"):
         part_mod.make_partition(build_model(ModelConfig(**MODEL)), 3)
 
