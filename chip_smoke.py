@@ -167,6 +167,28 @@ Phases, in order; any failure raises, so the exit code is not 0:
                the first loss within 2e-3 of a flat run at that depth;
                (m6) ``launch.train --pipe 2`` on the reduced zamba2-7b and
                whisper-base
+  (n) elastic  the elastic (DiLoCo) outer loop: (n1) two pods of (c)'s
+               model (published widths, depth 8, batch 8 x 1024 a pod,
+               bf16, inner fixed rank 64, kernels on, bucketed) on the card
+               through ``ElasticTrainer``, outer policy fixed at rank 32,
+               quant8, K = 2, 4 rounds, ``pod_drop:1@r1,pod_join@r2``,
+               recovery off (the donated step): pods [2, 1, 2, 2] and the
+               membership events, finite losses, each round's coded and
+               uncompressed bytes equal to a count from the leaf shapes and
+               the rank, no parameter storage shared between pods or with
+               the anchor; seconds per round and per resize, each outer
+               round's ms and kernel launches, the outer sync alone (host
+               and device ms), the peak beside its reckoning; (n2) each
+               PowerSGD kernel against its plain version at (n1)'s
+               pod-stacked groups; (n3) ``benchmarks/elastic_faults.py``'s
+               bench-el fleet, the clean and four fault schedules, K = 5,
+               4 rounds, 2 pods, on the card against the CPU: pod losses
+               within 5e-3, 165132 / 657920 / 1706496 bytes a round, and the
+               benchmark's checks; (n4) ``launch.train --outer-k 3 --pods 2
+               --rounds 4`` with a drop and a join on the card, and
+               ``launch.report``'s elastic line. (c) also runs one flat
+               step twice from the same state and records whether the new
+               states are bit-equal
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -186,8 +208,10 @@ the pipelined paths of (j1) and (j4) quant8; the PowerSGD entries add
 ``launches_overlapped``, their launches on (k1)'s first run,
 ``launches_moe``, their launches on (l1)'s three steps,
 ``launches_families2``, their launches on (m1)-(m3)'s steps by
-config, and ``families``, their rows at (l)'s expert and qwen3-32b groups
-and (m2k)'s Zamba2 groups. The last
+config, ``families``, their rows at (l)'s expert and qwen3-32b groups
+and (m2k)'s Zamba2 groups, and ``elastic``, their rows at (n2)'s groups.
+The PowerSGD and pack entries add ``launches_elastic``, their launches
+on (n1)'s run (inner steps and outer syncs). The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -807,9 +831,38 @@ def phase_main(report: dict, dev, profile: bool) -> dict:
         raise AssertionError(f"main-path losses {losses}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    report["main"]["two_call"] = _two_call_check(tr, next(batches))
     if profile:
         report["profile"] = profile_step(tr, batches, sorted(step_ms[1:])[1])
     return launches, pooled_grad_sample(tr, batches)
+
+
+def _two_call_check(tr, batch) -> dict:
+    """One flat step run twice from the same state on the same batch (the
+    step updates its state in place, so each call gets its own copy):
+    whether the new states are bit-equal, and the leaves that are not.
+    Recorded, not held: it shows whether the embedding's backward (and
+    every other kernel of the step) is deterministic on the card."""
+    from repro_torch import tree
+    copy = lambda t: tree.tree_map(lambda a: a.clone(), t)
+    step = tr._get_step(False)
+    start = copy(tr.state)
+    device_batch = tr._device_batch(batch)
+    outs = []
+    for _ in range(2):
+        state, _ = step(copy(start), device_batch)
+        outs.append(state)
+    diff = [path for (path, a), b in zip(tree.flatten_with_path(outs[0]),
+                                         tree.leaves(outs[1]))
+            if not torch.equal(a, b)]
+    out = {"bit_equal": not diff, "leaves": len(tree.leaves(outs[0])),
+           "differing": diff[:20]}
+    log(f"(c) one flat step twice from the same state: "
+        f"{'bit-equal' if not diff else f'{len(diff)} leaves differ'} over "
+        f"{out['leaves']} state leaves{'' if not diff else f' {diff[:6]}'}")
+    del start, outs, state
+    _release()
+    return out
 
 
 def pooled_grad_sample(trainer, batches, beta: float = 0.25) -> torch.Tensor:
@@ -2780,9 +2833,388 @@ def _zamba_kernels(dev) -> list:
     return rows
 
 
+# --------------------------------------------------- (n) elastic outer loop
+EL_K, EL_ROUNDS, EL_OUTER_RANK = 2, 4, 32
+EL_INJECT = "pod_drop:1@r1,pod_join@r2"
+# two pods' state (about 12.7 GB), the outer momentum, EF and deltas (about
+# 9 GB) and one step's activations: a reckoning to check, not a bar
+EL_PEAK_RECKONING_GIB = (25.0, 35.0)
+# benchmarks/elastic_faults.py's model and fault schedules
+BENCH_EL = dict(name="bench-el", family="dense", num_layers=2, d_model=128,
+                num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=512)
+BENCH_EL_FAULTS = {"clean": None, "nan_grad": "nan_grad@7",
+                   "corrupt_payload": "corrupt_payload@9",
+                   "pod_drop": "pod_drop:1@r2",
+                   "pod_join": "pod_drop:1@r1,pod_join@r3"}
+BENCH_EL_BYTES = (165132, 657920, 1706496)   # coded, raw, uncompressed a round
+
+
+def _elastic_fleet(cfg, devices, k: int, rounds: int, inject, ckpt: str,
+                   batch_fn, rank: int, outer_rank: int, recovery=None,
+                   kernels: bool | None = None):
+    """An ElasticTrainer of two pods: inner policy fixed at ``rank``, every
+    step logged, AdamW lr 1e-3, kernels on (by default where the pods are
+    on the card; a CPU rehearsal may force them); outer policy fixed at
+    ``outer_rank``, quant8 wire (the default), window 2."""
+    from repro_torch.core import EDGCConfig, GDSConfig
+    from repro_torch.core.dac import DACConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.optim.outer import OuterConfig
+    from repro_torch.train.elastic import ElasticTrainer
+    from repro_torch.train.faults import parse_inject
+    from repro_torch.train.trainer import TrainerConfig
+    steps = k * rounds
+    if kernels is None:
+        kernels = torch.device(devices[0]).type == "cuda"
+    edgc = EDGCConfig(policy="fixed", fixed_rank=rank, total_iterations=steps,
+                      gds=GDSConfig(alpha=0.5, beta=0.25),
+                      dac=DACConfig(window=10, adjust_limit=4),
+                      num_stages=cfg.num_stages, use_kernels=kernels)
+    tcfg = TrainerConfig(total_steps=steps, log_every=1, ckpt_path=ckpt,
+                         faults=parse_inject(inject) if inject else None,
+                         recovery=recovery, use_kernels=kernels,
+                         adam=AdamConfig(lr=1e-3, warmup_steps=min(5, steps),
+                                         total_steps=steps))
+    ocfg = OuterConfig(outer_k=k, policy="fixed", fixed_rank=outer_rank,
+                       window=2, total_rounds=rounds)
+    return ElasticTrainer(build_model(cfg), edgc, tcfg, ocfg, 2, batch_fn,
+                          seed=0, devices=devices)
+
+
+def _outer_bytes_by_hand(params, plan) -> tuple[int, int]:
+    """One outer round's (coded, uncompressed) bytes from the leaf shapes:
+    quant8 packs 4 codes a 32-bit word plus one fp32 scale per 1024
+    elements of each leaf's payload, (m + n) r per compressed (m, n)
+    matrix and every element of the rest; uncompressed is 4 B an element."""
+    from repro_torch import tree
+    coded = lambda n: 4 * -(-n // 4) + 4 * -(-n // 1024)
+    ranks = dict(plan.ranks)
+    synced = full = 0
+    for path, a in tree.flatten_with_path(params):
+        full += 4 * a.numel()
+        if path in ranks:
+            m, n = a.shape[-2:]
+            synced += coded(ranks[path] * (m + n) * (a.numel() // (m * n)))
+        else:
+            synced += coded(a.numel())
+    return synced, full
+
+
+def _storage(et) -> list[int]:
+    from repro_torch import tree
+    return [a.untyped_storage().data_ptr()
+            for t in [tr.state["params"] for tr in et.pods] + [et.anchor]
+            for a in tree.leaves(t)]
+
+
+def _elastic_full(dev, tmp: str) -> dict:
+    """(n1): two pods of (c)'s model on the card through ElasticTrainer."""
+    from repro_torch import tree
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.outer import make_outer_sync_step
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    _release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    et = _elastic_fleet(
+        cfg, [dev, dev], EL_K, EL_ROUNDS, EL_INJECT, os.path.join(tmp, "n1"),
+        lambda pod: SyntheticLM(cfg.vocab_size, 1024, 8,
+                                seed=1000 * pod).batches(),
+        rank=64, outer_rank=EL_OUTER_RANK)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plan = et.outer.plan
+    shapes = {path: tuple(a.shape) for path, a in
+              tree.flatten_with_path(et.anchor)}
+    groups = sorted({(2 * (math.prod(shapes[p]) // (shapes[p][-2] * shapes[p][-1])),
+                      shapes[p][-2], shapes[p][-1], r) for p, r in plan.ranks})
+    by_hand = _outer_bytes_by_hand(et.anchor, plan)
+    log(f"(n1) elastic: {cfg.name} depth {cfg.num_layers}, 2 pods x K={EL_K} "
+        f"on one card, inner fixed rank 64, outer fixed rank {EL_OUTER_RANK} "
+        f"quant8, {EL_ROUNDS} rounds, {EL_INJECT}, recovery off; fleet built "
+        f"in {init_s:.1f} s; {len(plan.ranks)} compressed outer leaves, "
+        f"pod-stacked groups (N L, m, n, r) {groups}; bytes a round by hand "
+        f"{by_hand[0]} coded / {by_hand[1]} uncompressed")
+    resize_s, outer = [], []
+    parts = {"save": [], "build": [], "restore": []}
+
+    def timed(fn, part):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            (resize_s if part is None else parts[part]).append(
+                time.perf_counter() - t)
+            return out
+        return call
+    orig_round = et.outer.round
+    et.resize = timed(et.resize, None)
+    et._build_pods = timed(et._build_pods, "build")
+    # the resize's inner checkpoint round trip (a fleet checkpoints nothing
+    # else in this run); the class methods come back below
+    trainer_cls = type(et.pods[0])
+    saved = trainer_cls.save_checkpoint, trainer_cls.restore_checkpoint
+    trainer_cls.save_checkpoint = timed(saved[0], "save")
+    trainer_cls.restore_checkpoint = timed(saved[1], "restore")
+
+    def counted_round(anchor, deltas):
+        before = {k.__name__: k.launches for k in kernels}
+        outer.append({})
+        if len(outer) == EL_ROUNDS:
+            # the last round's inputs, for the outer sync timed alone after
+            # the run (held from here on only, so the peak reads the fleet)
+            outer[-1]["inputs"] = (deltas, dict(et.outer._comp))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_round(anchor, deltas)
+        torch.cuda.synchronize()
+        outer[-1]["ms"] = 1e3 * (time.perf_counter() - t)
+        outer[-1]["launches"] = {k.__name__: k.launches - before[k.__name__]
+                                 for k in kernels}
+        return out
+    et.outer.round = counted_round
+    kernels = _reset_launches()
+    round_s, aliasing = [], []
+    for _ in range(EL_ROUNDS):
+        ptrs = _storage(et)
+        aliasing.append(len(ptrs) - len(set(ptrs)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        et.run_rounds(1)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t)
+    launches = {k.__name__: k.launches for k in kernels}
+    trainer_cls.save_checkpoint, trainer_cls.restore_checkpoint = saved
+    ptrs = _storage(et)
+    aliasing.append(len(ptrs) - len(set(ptrs)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = et.history
+    row = {"config": cfg.name, "num_layers": cfg.num_layers, "k": EL_K,
+           "rounds": EL_ROUNDS, "inject": EL_INJECT, "init_s": init_s,
+           "round_s": round_s, "resize_s": resize_s,
+           "resize_parts_s": parts, "peak_bytes": peak,
+           "peak_reckoning_gib": list(EL_PEAK_RECKONING_GIB),
+           "pods": [h["n_pods"] for h in hist],
+           "events": [h["membership_events"] for h in hist],
+           "pod_losses": [h["pod_losses"] for h in hist],
+           "bytes": [[h["bytes_synced"], h["bytes_full"]] for h in hist],
+           "bytes_by_hand": list(by_hand), "groups": groups,
+           "outer_round_ms": [o["ms"] for o in outer],
+           "outer_launches": [o["launches"] for o in outer],
+           "launches": launches, "shared_storage": aliasing}
+    for h, s_, o in zip(hist, round_s, outer):
+        log(f"    round {h['round']} pods {h['n_pods']} loss "
+            f"{[round(x, 4) for x in h['pod_losses']]} {s_:.1f} s (outer round "
+            f"{o['ms']:.1f} ms, launches {o['launches']}) bytes "
+            f"{h['bytes_synced']}/{h['bytes_full']} {h['membership_events']}")
+    # the outer sync alone on the last round's inputs, device time
+    deltas, comp = outer[-1].pop("inputs")
+    stacked = tree.unflatten(deltas[0], [
+        torch.stack([d.float() for d in ds])
+        for ds in zip(*(tree.leaves(d) for d in deltas))])
+    del deltas
+    step = make_outer_sync_step(et.outer.mesh, plan, et.outer._edgc.gds,
+                                codec=et.outer._codec, use_kernels=True)
+    row["outer_sync_ms"] = time_ms(lambda: step(stacked, comp), 2)
+    row["outer_sync_profile"] = _device_busy(lambda: step(stacked, comp))
+    row["outer_sync_device_ms"] = row["outer_sync_profile"]["busy_ms"]
+    del stacked, comp, step
+    log(f"    resizes {[round(x, 1) for x in resize_s]} s (checkpoint save "
+        f"{[round(x, 1) for x in parts['save']]}, fleet build "
+        f"{[round(x, 1) for x in parts['build']]}, restores "
+        f"{[round(x, 1) for x in parts['restore']]} s); peak "
+        f"{peak / 2**30:.2f} GiB (reckoning {EL_PEAK_RECKONING_GIB[0]:.0f}-"
+        f"{EL_PEAK_RECKONING_GIB[1]:.0f}); outer sync alone "
+        f"{row['outer_sync_ms']:.1f} ms (device busy "
+        f"{row['outer_sync_device_ms']:.1f} ms in "
+        f"{row['outer_sync_profile']['launches']} kernels; largest "
+        f"{[(t['name'][:40], round(t['ms'], 2), t['count']) for t in row['outer_sync_profile']['top'][:5]]}"
+        f"); launches in the run {launches}; tensors shared between pods or "
+        f"with the anchor, before each round and after the last: {aliasing}")
+    if row["pods"] != [2, 1, 2, 2] or row["events"] != [[], ["pod_drop:1"],
+                                                        ["pod_join"], []]:
+        raise AssertionError(f"(n1) pods {row['pods']} events {row['events']}")
+    if not all(math.isfinite(x) for ls in row["pod_losses"] for x in ls):
+        raise AssertionError(f"(n1) losses {row['pod_losses']}")
+    if any(b != list(by_hand) for b in row["bytes"]):
+        raise AssertionError(f"(n1) bytes {row['bytes']} != {by_hand}")
+    if any(aliasing):
+        raise AssertionError(f"(n1) shared parameter storage {aliasing}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"(n1) a kernel never launched: {launches}")
+    if any(o["launches"][k] != len(plan.ranks)
+           for o in outer for k in POWERSGD):
+        raise AssertionError(f"(n1) outer launches {row['outer_launches']}: "
+                             f"want {len(plan.ranks)} of each a round")
+    del et
+    _release()
+    return row
+
+
+def _device_busy(fn, top: int = 8) -> dict:
+    """Device time of one call of ``fn`` by kernel, under torch.profiler,
+    for a call that waits for the device somewhere inside, which
+    ``device_ms`` cannot queue behind a sleep (the outer sync does: on an
+    H100 two calls took as long to queue as the 13 s sleep before them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return {"busy_ms": sum(ms for _, ms, _ in rows),
+            "launches": sum(c for _, _, c in rows),
+            "top": [{"name": k[:90], "ms": ms, "count": c}
+                    for k, ms, c in rows[:top]]}
+
+
+def _elastic_kernels(dev, groups: list) -> list:
+    """(n2): each PowerSGD kernel against its plain version at (n1)'s
+    pod-stacked groups, fp32 (the outer deltas' dtype)."""
+    rows = []
+    for shape in groups:
+        cases = _cases(*shape, torch.float32, dev)
+        for name, c in cases.items():
+            rows.append(check_kernel(name, c, tuple(shape), torch.float32,
+                                     False))
+            rows[-1]["group"] = "elastic"
+            log(f"(n2) {name} at {tuple(shape)}: {_rates(rows[-1])}")
+        del cases
+        _release()
+    return rows
+
+
+def _bench_el_runs(dev, tmp: str) -> list:
+    """(n3): bench-el's clean and fault schedules, K = 5, 4 rounds, 2 pods,
+    on the card (kernels) and on the CPU (plain versions)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import ModelConfig
+    from repro_torch.train.faults import RecoveryConfig
+    cfg = ModelConfig(**BENCH_EL)
+    rows = []
+    for name, inject in BENCH_EL_FAULTS.items():
+        runs = {}
+        for where in ("cpu", dev):
+            # a fleet rebuild hands the new pods new data, as the benchmark's
+            calls = [0]
+
+            def batch_fn(pod, calls=calls):
+                calls[0] += 1
+                return SyntheticLM(cfg.vocab_size, 64, 4,
+                                   seed=1000 * calls[0] + pod).batches()
+            t0 = time.perf_counter()
+            et = _elastic_fleet(cfg, [where, where], 5, 4, inject,
+                                os.path.join(tmp, f"n3_{name}_{where}"),
+                                batch_fn, rank=8, outer_rank=8,
+                                recovery=RecoveryConfig(rollback=False))
+            hist = et.run_rounds(4)
+            runs[str(where)] = {
+                "seconds": time.perf_counter() - t0,
+                "pods": [h["n_pods"] for h in hist],
+                "losses": [h["pod_losses"] for h in hist],
+                "bytes": [(h["bytes_synced"], h["bytes_wire_raw"],
+                           h["bytes_full"]) for h in hist],
+                "recovery": hist[-1]["recovery"],
+                "savings": et.outer.comm_savings()}
+            del et
+        cpu, card = runs["cpu"], runs[str(dev)]
+        gap = max(abs(a - b) for la, lb in zip(cpu["losses"], card["losses"])
+                  for a, b in zip(la, lb))
+        row = {"schedule": name, "inject": inject, "cpu": cpu, "card": card,
+               "max_gap": gap}
+        rows.append(row)
+        log(f"(n3) bench-el {name} ({inject}): pods {card['pods']}, final "
+            f"losses card {[round(x, 5) for x in card['losses'][-1]]} cpu "
+            f"{[round(x, 5) for x in cpu['losses'][-1]]}, max gap {gap:.2e} "
+            f"(bar 5e-3); bytes a round {card['bytes'][0]}; recovery "
+            f"{card['recovery']}; {card['seconds']:.1f} s card, "
+            f"{cpu['seconds']:.1f} s cpu")
+        if not gap < 5e-3 or cpu["pods"] != card["pods"]:
+            raise AssertionError(f"(n3) {name}: card {card} cpu {cpu}")
+        if any(b != BENCH_EL_BYTES for r in (cpu, card) for b in r["bytes"]):
+            raise AssertionError(f"(n3) {name} bytes {card['bytes']} "
+                                 f"{cpu['bytes']} != {BENCH_EL_BYTES}")
+    by = {r["schedule"]: r["card"] for r in rows}
+    checks = {"nan_grad skips a step": by["nan_grad"]["recovery"]["skipped_steps"] >= 1,
+              "corrupt_payload resets EF": by["corrupt_payload"]["recovery"]["ef_resets"] >= 1,
+              "pod_drop ends at 1 pod": by["pod_drop"]["pods"][-1] == 1,
+              "pod_join ends at 2 pods": by["pod_join"]["pods"][-1] == 2}
+    log(f"(n3) the benchmark's checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"(n3) {checks}")
+    return rows
+
+
+def _elastic_cli(tmp: str) -> dict:
+    """(n4): the launcher's elastic flags on the card, then the report."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    metrics = os.path.join(tmp, "n4")
+    t0 = time.perf_counter()
+    tail = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2",
+         "--outer-k", "3", "--pods", "2", "--rounds", "4", "--inject",
+         EL_INJECT, "--recover", "--use-kernels", "--ckpt-path",
+         os.path.join(tmp, "n4_ckpt", "st"), "--metrics-dir", metrics],
+        env=env, capture_output=True, text=True, check=True,
+        timeout=300).stdout.splitlines()
+    seconds = time.perf_counter() - t0
+    report = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report", metrics], env=env,
+        capture_output=True, text=True, check=True,
+        timeout=120).stdout.splitlines()
+    elastic = [line for line in report if line.startswith("elastic:")]
+    log(f"(n4) launch.train --outer-k 3 --pods 2 --rounds 4 --inject "
+        f"{EL_INJECT} --recover --use-kernels on the card, {seconds:.1f} s:")
+    for line in tail[-7:] + elastic:
+        log(f"    | {line}")
+    rounds = [line for line in tail if line.startswith("round ")]
+    if len(rounds) != 4 or "['pod_drop:1']" not in rounds[1] \
+            or "['pod_join']" not in rounds[2] or len(elastic) != 1 \
+            or not elastic[0].startswith("elastic: 4 outer rounds, final n_pods=2"):
+        raise AssertionError(f"(n4) the launcher's output: {tail} {report}")
+    return {"seconds": seconds, "tail": tail[-7:], "elastic": elastic}
+
+
+def phase_elastic(report: dict, dev) -> dict:
+    """(n): the elastic outer loop on the card; returns each PowerSGD and
+    pack kernel's launches in (n1)'s run."""
+    _release()
+    t0 = time.perf_counter()
+    out = {"seconds_by_part": {}}
+    clock = t0
+
+    def took(part):
+        nonlocal clock
+        now = time.perf_counter()
+        out["seconds_by_part"][part] = now - clock
+        clock = now
+    with tempfile.TemporaryDirectory() as tmp:
+        out["full"] = _elastic_full(dev, tmp)
+        took("n1")
+        out["kernel_rows"] = _elastic_kernels(dev, out["full"]["groups"])
+        took("n2")
+        out["bench_el"] = _bench_el_runs(dev, tmp)
+        took("n3")
+        out["cli"] = _elastic_cli(tmp)
+        took("n4")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(n) elastic outer loop: {out['seconds']:.1f} s (by part "
+        f"{ {k: round(v, 1) for k, v in out['seconds_by_part'].items()} })")
+    report["elastic"] = out
+    return out["full"]["launches"]
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
-                 moe_launches: dict, families2_launches: dict) -> dict:
+                 moe_launches: dict, families2_launches: dict,
+                 elastic_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -2802,7 +3234,8 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "launches_pipelined": pipe_launches[wrapper],
                  "launches_overlapped": overlap_launches[wrapper],
                  "launches_moe": moe_launches[wrapper],
-                 "launches_families2": families2_launches[wrapper]}
+                 "launches_families2": families2_launches[wrapper],
+                 "launches_elastic": elastic_launches[wrapper]}
         entry["device_ms"] = total("device_ms")
         # (l)'s groups (the MoE's expert stacks, qwen3-32b's mlp) and
         # (m2k)'s (zamba2-7b's Mamba2 projections)
@@ -2812,6 +3245,12 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                                      "max_abs_err", "rel_err")}
             for r in report["families"]["kernel_rows"]
             + report["families2"]["kernel_rows"] if r["kernel"] == name]
+        # (n2)'s groups: the outer sync's pod-stacked block leaves
+        entry["elastic"] = [
+            {key: r[key] for key in ("shape", "ms", "device_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "max_abs_err", "rel_err")}
+            for r in report["elastic"]["kernel_rows"] if r["kernel"] == name]
         if name == "gram_schmidt":
             # the column chain: cluster size, device ms per column and
             # resident clusters per group; both instances' ptxas numbers
@@ -2842,6 +3281,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                     "replaces": PACK_REPLACES[name],
                     "launches": pack_launches[name],
                     "launches_pipelined": pipe_launches[name],
+                    "launches_elastic": elastic_launches[name],
                     "max_abs_err": float(max(c[name] for c in
                                              report["pack_checks"])),
                     "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -2922,9 +3362,11 @@ def main() -> int:
     overlap_launches = phase_overlap(report, dev, j1_state.pop("state"))
     moe_launches = phase_families(report, dev, args.profile)
     families2_launches = phase_families2(report, dev, args.profile)
+    elastic_launches = phase_elastic(report, dev)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
-                        overlap_launches, moe_launches, families2_launches)
+                        overlap_launches, moe_launches, families2_launches,
+                        elastic_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

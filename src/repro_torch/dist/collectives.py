@@ -8,6 +8,11 @@ world size 1) it is the identity, the reference's single-worker case.
 Every function takes an optional process ``group``: the data group of a
 ``(pipe, data)`` mesh (``launch/mesh.py``), where each pipeline stage owns
 a DP group of its own. Without one they act on the default group.
+
+``PodCarrier`` is the outer loop's pod axis in one process (the port of
+the reference's 1-device-per-pod ``pod`` mesh, which runs every pod in one
+process too): a tensor stacked over the pods (leading dim N, or N x L for
+a stacked leaf folded to one batch dim) is averaged over that dim.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch.distributed as dist
 from repro_torch import tree
 
 __all__ = ["dp_world_size", "dp_rank", "make_dp_pmean", "dp_all_gather",
-           "dp_barrier"]
+           "dp_barrier", "PodCarrier"]
 
 
 def dp_world_size(group=None) -> int:
@@ -62,3 +67,36 @@ def dp_barrier(group=None) -> None:
     """Wait for every data-parallel worker (nothing to wait for alone)."""
     if dp_world_size(group) > 1:
         dist.barrier(group=group)
+
+
+class PodCarrier:
+    """The pods of the elastic outer loop, all in this process.
+
+    ``devices`` are the devices the pods may live on (one card repeated
+    when they share it); their number caps ``pod_join``. The first
+    ``n_pods`` host the live pods; the outer state lives on the first.
+    """
+
+    def __init__(self, n_pods: int, devices) -> None:
+        devices = [torch.device(d) for d in devices]
+        if not 1 <= n_pods <= len(devices):
+            raise ValueError(f"{n_pods} pods need {n_pods} devices, have "
+                             f"{len(devices)}")
+        self.n_pods = n_pods
+        self.devices = devices
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the pods of a pod-stacked tensor, given back to every
+        pod: ``x``'s leading dim is N, or N x L, each pod's slice a
+        contiguous run of it."""
+        n = self.n_pods
+        if x.shape[0] % n:
+            raise ValueError(f"leading dim {x.shape[0]} is not a multiple of "
+                             f"{n} pods")
+        rows = x.reshape((n, -1))
+        mean = rows.sum(dim=0) / n
+        return mean.expand(rows.shape).reshape(x.shape).contiguous()

@@ -15,6 +15,12 @@ The pipelined reference trainer's state (``stage_params`` with leaves
 "shared"}``, ``opt_step`` and ``comp`` with leaves (S, W, ...)) converts
 the same way; its compressor leaves keep the stage dim and take worker
 0's slice. Only numpy is read here: nothing of JAX is imported.
+
+``outer_from_reference(arrays_np, device)`` takes the reference
+``OuterOptimizer``'s ``arrays`` (``outer_m``, the momentum tree, and
+``outer_comp``, per-leaf (q, err) pairs) and returns them for the port's
+``OuterOptimizer.load_arrays``. The outer state keeps every pod's rows in
+both packages, so the leading pod dim comes across whole.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core.powersgd import LowRankState
 
-__all__ = ["from_reference", "to_tensor"]
+__all__ = ["from_reference", "outer_from_reference", "to_tensor"]
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -63,3 +69,12 @@ def _comp_entry(st, worker, device):
         return LowRankState(q=to_tensor(worker(q), device),
                             err=to_tensor(worker(err), device))
     return to_tensor(np.asarray(worker(st), np.float32), device)
+
+
+def outer_from_reference(arrays_np: dict[str, Any], device="cpu"
+                         ) -> dict[str, Any]:
+    keep = lambda a: a
+    return {"outer_m": tree.tree_map(lambda a: to_tensor(a, device),
+                                     arrays_np["outer_m"]),
+            "outer_comp": {key: _comp_entry(st, keep, device)
+                           for key, st in arrays_np["outer_comp"].items()}}

@@ -10,14 +10,19 @@ data-parallel group, as the reference lays it out:
   mesh.get_group("pipe")   # this process's column: its stage peers
   mesh.get_group("data")   # this process's row: its stage's DP workers
 
-The ``model`` and ``pod`` axes (tensor parallelism and the multi-pod outer
-loop) are ROADMAP Queue 1 item 12: a size above 1 raises.
+The ``model`` and ``pod`` axes of a process mesh (tensor parallelism, and
+pods as processes across cards) are ROADMAP Queue 1 items 12 and 10b: a
+size above 1 raises. The elastic outer loop runs its pods in one process
+on ``make_pod_mesh``'s carrier, as the reference runs them on its
+1-device-per-pod mesh.
 """
 from __future__ import annotations
 
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_host_mesh", "pipe_size"]
+from repro_torch.dist.collectives import PodCarrier
+
+__all__ = ["make_host_mesh", "make_pod_mesh", "pipe_size"]
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
@@ -32,6 +37,12 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
         return init_device_mesh(device_type, (pipe, data),
                                 mesh_dim_names=("pipe", "data"))
     return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))
+
+
+def make_pod_mesh(n_pods: int, devices) -> PodCarrier:
+    """The ``pod`` axis of the outer loop: ``n_pods`` pods on ``devices``
+    (the reference's ``make_pod_mesh``, ``repro/launch/mesh.py:67-75``)."""
+    return PodCarrier(n_pods, devices)
 
 
 def pipe_size(mesh: DeviceMesh | None) -> int:

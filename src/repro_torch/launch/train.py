@@ -39,8 +39,19 @@ a ``(pipe, data)`` mesh; gloo on the CPU, NCCL with one card per process:
       --policy optimus --pipe 2 --data-mesh 2 --micro 4 --steps 6 \\
       --batch 8 --seq 32 --overlap --chunk-bytes 65536 --device cpu
 
-The flags are the reference launcher's, but for the elastic outer loop
-(``--outer-*``, ``--pods``, ``--rounds``) and ``--model-mesh``, plus
+``--outer-k K`` routes through the elastic (DiLoCo) outer loop:
+``--pods`` pod-local flat trainers, all in this process on the chosen
+device, K inner steps each per outer round, then the EDGC-compressed
+outer-delta all-reduce (``--outer-policy``, ``--outer-rank``,
+``--outer-window`` in rounds) and the Nesterov outer update; ``@rN``
+faults drop and join pods between rounds (a joiner needs a free pod slot:
+there are ``--pods`` of them):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 \\
+      --outer-k 5 --pods 2 --rounds 6 --recover \\
+      --inject nan_grad@7,pod_drop:1@r2,pod_join@r4 --device cpu
+
+The flags are the reference launcher's, but for ``--model-mesh``, plus
 ``--device``.
 """
 from __future__ import annotations
@@ -120,10 +131,10 @@ def main(argv=None) -> list[dict]:
                          "from the controller's entropy reading (quant8 "
                          "until the first one)")
     ap.add_argument("--inject", default=None,
-                    help="comma-separated fault specs kind[:arg]@N (step); "
-                         "kinds: nan_grad, corrupt_payload, torn_ckpt "
-                         "(pod_drop/pod_join@rN parse, for the elastic "
-                         "loop). e.g. 'nan_grad@40,torn_ckpt@20'")
+                    help="comma-separated fault specs kind[:arg]@N (step) "
+                         "or kind[:arg]@rN (outer round); kinds: nan_grad, "
+                         "corrupt_payload, torn_ckpt, pod_drop, pod_join. "
+                         "e.g. 'nan_grad@40,pod_drop:1@r3'")
     ap.add_argument("--recover", action="store_true",
                     help="arm the recovery policies: non-finite step guard "
                          "+ error-feedback reset, loss-spike rollback to "
@@ -137,6 +148,21 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="checkpoint cadence in steps (rollback needs > 0)")
     ap.add_argument("--ckpt-path", default="ckpt/state")
+    ap.add_argument("--outer-k", type=int, default=0,
+                    help="> 0 routes through the elastic outer loop: K "
+                         "inner steps per pod per outer round")
+    ap.add_argument("--pods", type=int, default=2,
+                    help="initial pod count (all pods share the device)")
+    ap.add_argument("--rounds", type=int, default=10,
+                    help="outer rounds to run")
+    ap.add_argument("--outer-lr", type=float, default=0.7)
+    ap.add_argument("--outer-momentum", type=float, default=0.9)
+    ap.add_argument("--outer-policy", default="edgc",
+                    choices=["none", "fixed", "edgc"],
+                    help="outer-delta compression policy")
+    ap.add_argument("--outer-rank", type=int, default=32)
+    ap.add_argument("--outer-window", type=int, default=2,
+                    help="outer DAC window, counted in ROUNDS")
     ap.add_argument("--metrics-dir", default=None,
                     help="write structured telemetry (scalars/series/events) "
                          "as JSONL to <dir>/metrics.jsonl; read it back with "
@@ -163,6 +189,10 @@ def main(argv=None) -> list[dict]:
     if args.trace and not args.pipe:
         raise SystemExit("--trace requires --pipe: the tick tracer renders "
                          "the pipeline schedule")
+    if args.outer_k and args.pipe:
+        raise SystemExit("--outer-k does not compose with --pipe: the outer "
+                         "loop wraps flat pod-local trainers")
+    total_steps = args.outer_k * args.rounds if args.outer_k else args.steps
     cfg = get_config(args.arch, args.variant)
     if args.pipe:
         if args.stages and args.stages != args.pipe:
@@ -186,19 +216,22 @@ def main(argv=None) -> list[dict]:
         chunk_bytes=args.chunk_bytes)
     sync_cfg = SyncConfig(use_kernels=args.use_kernels, wire=args.wire)
     edgc = EDGCConfig(
-        policy=args.policy, fixed_rank=args.rank, total_iterations=args.steps,
+        policy=args.policy, fixed_rank=args.rank,
+        total_iterations=total_steps,
         gds=GDSConfig(alpha=0.5, beta=0.25),
         dac=DACConfig(window=args.window, adjust_limit=4),
         pipeline=pipe_cfg, sync=sync_cfg,
     )
     tcfg = TrainerConfig(
-        total_steps=args.steps, log_every=max(1, args.steps // 20),
+        total_steps=total_steps, log_every=max(1, total_steps // 20),
         ckpt_every=args.ckpt_every, ckpt_path=args.ckpt_path,
         recovery=recovery, faults=faults, pipeline=pipe_cfg, sync=sync_cfg,
         metrics_dir=args.metrics_dir,
-        adam=AdamConfig(lr=args.lr, warmup_steps=max(10, args.steps // 10),
-                        total_steps=args.steps),
+        adam=AdamConfig(lr=args.lr, warmup_steps=max(10, total_steps // 10),
+                        total_steps=total_steps),
     )
+    if args.outer_k:
+        return _elastic(args, cfg, model, edgc, tcfg)
     trainer = Trainer(model, edgc, tcfg, seed=args.seed, device=args.device,
                       pipe=args.pipe or None, mesh=mesh)
     # one process of a mesh speaks and writes the files
@@ -261,6 +294,53 @@ def main(argv=None) -> list[dict]:
                        "comm_savings": trainer.comm_savings()}, f, indent=1)
     if mesh is not None:
         dist.destroy_process_group()
+    return hist
+
+
+def _elastic(args, cfg, model, edgc, tcfg) -> list[dict]:
+    """The elastic outer loop: ``--pods`` pod trainers on one device, each
+    on its own data (seeded ``seed + 1000 * pod``)."""
+    from repro_torch.optim.outer import OuterConfig
+    from repro_torch.train.elastic import ElasticTrainer
+    from repro_torch.train.trainer import resolve_device
+
+    def pod_batches(pod: int):
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                           batch_size=args.batch, seed=args.seed + 1000 * pod)
+        for b in data.batches():
+            yield add_modality_stubs(b, cfg.family,
+                                     audio_frames=cfg.audio_frames,
+                                     num_patches=cfg.num_patches,
+                                     d_model=cfg.d_model, seed=args.seed)
+
+    ocfg = OuterConfig(outer_k=args.outer_k, lr=args.outer_lr,
+                       momentum=args.outer_momentum, policy=args.outer_policy,
+                       fixed_rank=args.outer_rank, window=args.outer_window,
+                       total_rounds=args.rounds)
+    device = resolve_device(args.device)
+    et = ElasticTrainer(model, edgc, tcfg, ocfg, args.pods, pod_batches,
+                        seed=args.seed, devices=[device] * args.pods)
+    print(f"{cfg.name}: elastic outer loop, {args.pods} pods x "
+          f"K={args.outer_k} inner steps on {device}, outer policy="
+          f"{args.outer_policy}, {args.rounds} rounds"
+          + (f", inject={args.inject}" if args.inject else ""))
+    with profiler_session(bool(args.profile), args.profile or "profile"):
+        hist = et.run_rounds(args.rounds)
+    et.metrics.close()
+    for h in hist:
+        ev = f" {h['membership_events']}" if h["membership_events"] else ""
+        losses = "/".join(f"{x:.3f}" for x in h["pod_losses"])
+        print(f"round {h['round']:4d} pods {h['n_pods']} "
+              f"loss {losses} H {h['entropy']:+.3f} "
+              f"outer-bytes {h['bytes_synced']}/{h['bytes_full']}{ev}")
+    print(f"outer comm savings vs raw fp32: {et.outer.comm_savings():.2%}")
+    if et.pods[0].recovery is not None:
+        print(f"recovery: {et.pods[0].recovery.as_dict()}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"history": hist, "arch": cfg.name,
+                       "outer": dataclasses.asdict(ocfg),
+                       "comm_savings": et.outer.comm_savings()}, f, indent=1)
     return hist
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 from . import layers as L
@@ -129,7 +130,7 @@ def embed_frames(frames):
 
 def embed_tokens(params, tokens):
     """The decoder's input: token embeddings plus learned positions."""
-    x = params["embed"]["tok"][tokens]
+    x = F.embedding(tokens, params["embed"]["tok"])
     return x + params["dec_pos"][: tokens.shape[1]]
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 from . import layers as L
@@ -92,7 +93,7 @@ def forward(params, batch, cfg: ModelConfig):
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = params["embed"]["tok"][tokens]
+    x = F.embedding(tokens, params["embed"]["tok"])
     for stage, sizes in zip(params["stages"], stage_group_sizes(cfg)):
         off = 0
         for sz in sizes:

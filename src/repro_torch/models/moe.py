@@ -172,7 +172,7 @@ def forward(params, batch, cfg: ModelConfig, return_aux: bool = False):
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = params["embed"]["tok"][tokens]
+    x = F.embedding(tokens, params["embed"]["tok"])
     aux_total = torch.zeros((), dtype=F32, device=x.device)
 
     def block(bp, carry, cfg):

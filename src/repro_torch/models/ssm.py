@@ -288,7 +288,7 @@ def pair_apply(pair, x, cfg: ModelConfig):
 
 
 def xlstm_forward(params, batch, cfg: ModelConfig):
-    x = params["embed"]["tok"][batch["tokens"]]
+    x = F.embedding(batch["tokens"], params["embed"]["tok"])
     pairs = concat_stage_stacks([st["pairs"] for st in params["stages"]])
     x = L.apply_units(pair_apply, pairs, x, cfg)
     x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)

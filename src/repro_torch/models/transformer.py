@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 from . import layers as L
@@ -99,7 +100,7 @@ def apply_block_stack(blocks, x, cfg: ModelConfig, positions, window: int):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    x = params["embed"]["tok"][tokens]
+    x = F.embedding(tokens, params["embed"]["tok"])
     if cfg.pos == "learned":
         x = x + params["pos_embed"][: tokens.shape[-1]]
     return x

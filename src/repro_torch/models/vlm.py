@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 from . import layers as L
@@ -44,7 +45,7 @@ def _embed_multimodal(params, patches, tokens, cfg: ModelConfig):
     promoted dtype of the two."""
     proj = L._mm("bpd,de->bpe", patches, params["projector"]["w"])
     proj = (proj + params["projector"]["b"].to(F32)).to(patches.dtype)
-    tok = params["embed"]["tok"][tokens]
+    tok = F.embedding(tokens, params["embed"]["tok"])
     dt = torch.promote_types(proj.dtype, tok.dtype)
     return torch.cat([proj.to(dt), tok.to(dt)], dim=1)
 

@@ -36,6 +36,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
@@ -414,7 +415,7 @@ class MoEAdapter(StageAdapter):
         return {"blocks": self.cfg.stage_sizes()}
 
     def embed(self, shared, mb):
-        return shared["embed"]["tok"][mb["tokens"]]
+        return F.embedding(mb["tokens"], shared["embed"]["tok"])
 
     def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
         from repro_torch.models import moe as M
@@ -460,7 +461,7 @@ class XLSTMAdapter(StageAdapter):
         return {"pairs": xlstm_stage_sizes(self.cfg)}
 
     def embed(self, shared, mb):
-        return shared["embed"]["tok"][mb["tokens"]]
+        return F.embedding(mb["tokens"], shared["embed"]["tok"])
 
     def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
         from repro_torch.models import ssm
@@ -523,7 +524,7 @@ class ZambaAdapter(StageAdapter):
         return slots[i] if i < len(slots) else -1
 
     def embed(self, shared, mb):
-        return shared["embed"]["tok"][mb["tokens"]]
+        return F.embedding(mb["tokens"], shared["embed"]["tok"])
 
     def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
         from repro_torch.models import hybrid, ssm

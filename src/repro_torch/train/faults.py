@@ -12,9 +12,10 @@ syntax (``--inject``) and the recovery knobs the Trainer wires against it:
   * ``pod_drop:1@r2``        — pod 1 leaves before outer round 2.
   * ``pod_join@r4``          — a pod joins before outer round 4.
 
-``@N`` schedules on the inner global step, ``@rN`` on the outer round. The
-round kinds parse as the reference parses them; the elastic outer loop
-that consumes them is not ported yet (ROADMAP Queue 1 item 10).
+``@N`` schedules on the inner global step, ``@rN`` on the outer round.
+The round kinds are consumed by the elastic outer loop
+(``train.elastic.ElasticTrainer``), which rebuilds its pod fleet before
+the round; the step kinds hit its pod 0.
 
 Recovery (``RecoveryConfig``): a non-finite guard in the step skips the
 parameter/optimizer/compressor update and reports ``skipped``; the host

@@ -29,7 +29,8 @@ def test_port_has_files():
                    "launch/mesh.py", "models/moe.py", "models/vlm.py",
                    "models/ssm.py", "models/hybrid.py", "models/encdec.py",
                    "configs/xlstm_125m.py", "configs/zamba2_7b.py",
-                   "configs/whisper_base.py"):
+                   "configs/whisper_base.py", "optim/outer.py",
+                   "train/elastic.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 

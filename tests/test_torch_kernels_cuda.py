@@ -531,3 +531,54 @@ def test_cuda_flash_and_hist_wrappers_count_launches(cuda_device):
     fa.flash_attention(q, q, q)
     eh.hist_counts(q.reshape(-1), -4.0, 32.0)
     assert [w.launches - b for w, b in zip(kernels, before)] == [2, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pods", [2, 3])
+def test_cuda_pod_stacked_outer_sync_matches_plain(cuda_device, n_pods):
+    """The outer sync over a pod-stacked tree (a 2-D leaf as (N, m, n), a
+    stacked block leaf as (N, L, m, n), folded to (N L, m, n)) through the
+    kernels against the plain path on the same card, raw wire (under a
+    coded one a factor code may flip at a quantizer boundary): synced
+    delta, EF and Q, two rounds (the second adds back the first's EF)."""
+    from repro_torch import tree
+    from repro_torch.core import make_plan
+    from repro_torch.core.compressor import classify_leaves
+    from repro_torch.core.entropy import GDSConfig
+    from repro_torch.core.powersgd import LowRankState
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.optim.outer import make_outer_sync_step
+
+    shapes = {"a": (192, 320), "b": (3, 256, 130), "c": (64,)}
+    like = {k: torch.zeros(s) for k, s in shapes.items()}
+    plan = make_plan("fixed", classify_leaves(like, 3), fixed_rank=16)
+    assert sorted(p for p, _ in plan.ranks) == ["['a']", "['b']"]
+    carrier = make_pod_mesh(n_pods, [cuda_device] * n_pods)
+    states = {}
+    for path, r in plan.ranks:
+        shape = shapes[path[2]]
+        q = torch.from_numpy(_np(shape[:-2] + (shape[-1], r), 3))
+        states[path] = LowRankState(
+            q=q[None].expand((n_pods,) + tuple(q.shape)).clone().to(cuda_device),
+            err=torch.zeros((n_pods,) + shape, device=cuda_device))
+    comp = {True: states, False: {k: LowRankState(v.q.clone(), v.err.clone())
+                                  for k, v in states.items()}}
+    for rnd in range(2):
+        delta = {k: torch.from_numpy(_np((n_pods,) + s, 10 * rnd + i))
+                 .to(cuda_device) * 1e-2 for i, (k, s) in enumerate(shapes.items())}
+        out = {}
+        for kernels in (True, False):
+            step = make_outer_sync_step(carrier, plan, GDSConfig(),
+                                        use_kernels=kernels)
+            synced, comp[kernels], h = step(delta, comp[kernels])
+            out[kernels] = (synced, float(h))
+        for got, want in zip(tree.leaves(out[True][0]),
+                             tree.leaves(out[False][0])):
+            assert torch.equal(got[0], got[-1])
+            _close(got, want, 1e-5)
+        assert abs(out[True][1] - out[False][1]) < 1e-5
+        for path in comp[True]:
+            _close(comp[True][path].err, comp[False][path].err, 1e-5)
+            got, want = comp[True][path].q, comp[False][path].q
+            sign = torch.sign((got * want).sum(dim=-2, keepdim=True))
+            _close(got * sign, want, 1e-4)
