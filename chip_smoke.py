@@ -189,6 +189,34 @@ Phases, in order; any failure raises, so the exit code is not 0:
                ``launch.report``'s elastic line. (c) also runs one flat
                step twice from the same state and records whether the new
                states are bit-equal
+  (o) serve    serving through ``serve.Engine`` (no port kernel runs: each
+               wrapper's count is the same after the phase as before it;
+               one host thread draws each configuration's weights on the
+               CPU while the card decodes the ones before):
+               (o1) gpt2-2.5b with all 52 layers, bf16, ``generate``
+               greedily on batch 8, 128-token prompts, 128 new tokens, ms
+               a token for the prompt replay and the generation (CUDA
+               events after each ``decode_step``), tokens/s, the cache's
+               bytes (818 MB) and the peak; the decode logits over the
+               prompt within 2e-2 in norm of the port's teacher-forced
+               forward, and no further from an fp32 forward of the same
+               weights than 1.5 times the bf16 forward's own distance
+               (largest element over the largest logit; the decode-
+               against-forward distance by that measure is recorded);
+               ``decode_benchmark`` at context 1008; one token profiled:
+               launches, idle share, device ms by part (attention, MLP,
+               head, the rest); (o2) qwen2.5-3b with all 36 layers,
+               ``generate`` on batch 16, 256-token prompts, 64 new,
+               ``decode_benchmark`` at 4096 and the ``long`` variant's at
+               32768 (a ring of 8192 slots), one token profiled; (o3) one
+               ``generate`` each of qwen3-moe-235b-a22b (depth 1),
+               phi-3-vision-4.2b (32 layers), xlstm-125m and zamba2-7b
+               (depth 28, with the reckoning for all 81 layers) at their
+               published widths, and whisper-base's 64 greedy tokens from
+               1500 stub frames; (o4) the 11 reduced configs in fp32 and
+               two rings of 4 slots, card against CPU, logits within 5e-3
+               and token flips counted; (o5) ``launch.serve`` at
+               qwen2.5-3b's published widths and ``launch.serve_decode``
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -211,7 +239,8 @@ the pipelined paths of (j1) and (j4) quant8; the PowerSGD entries add
 config, ``families``, their rows at (l)'s expert and qwen3-32b groups
 and (m2k)'s Zamba2 groups, and ``elastic``, their rows at (n2)'s groups.
 The PowerSGD and pack entries add ``launches_elastic``, their launches
-on (n1)'s run (inner steps and outer syncs). The last
+on (n1)'s run (inner steps and outer syncs). Every entry adds
+``launches_serve``, its launches in phase (o): zero. The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -238,6 +267,7 @@ from pathlib import Path
 # in place do not fragment so (set before torch reaches the card)
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -3211,10 +3241,544 @@ def phase_elastic(report: dict, dev) -> dict:
     return out["full"]["launches"]
 
 
+# ------------------------------------------------------------------ (o) serve
+GPT2_CACHE_BYTES = 52 * 2 * 8 * 256 * 1920 * 2    # (o1)'s K/V: 818 MB
+# (o1): the bf16 decode logits against the bf16 forward's, relative in norm;
+# and each against an fp32 forward of the same weights, the decode within
+# 1.5x the forward's own distance (max element over the largest logit, as
+# tests/_torch_families.bf16_forward_matches holds bf16 on the CPU)
+DECODE_BAR = 2e-2
+DECODE_FP32_FACTOR = 1.5
+SERVE_CARD_CPU_BAR = 5e-3  # (o4): fp32 card against CPU, relative
+SERVE_PARTS = ("attention", "mlp", "head")
+
+
+class _TokenClock:
+    """Stands in for a model's ``decode_step``: records a CUDA event after
+    each call (no synchronise) and keeps the logits of the first ``keep``
+    calls, so ``Engine.generate`` runs unchanged and is timed per token."""
+
+    def __init__(self, model, keep: int = 0):
+        self.inner, self.keep = model.decode_step, keep
+        self.events: list = []
+        self.logits: list = []
+        self.model = model._replace(decode_step=self)
+
+    def __call__(self, params, cache, tokens):
+        logits, cache = self.inner(params, cache, tokens)
+        if len(self.logits) < self.keep:
+            self.logits.append(logits.clone())
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        return logits, cache
+
+    def ms_per_call(self, first: int, last: int) -> float:
+        """Mean ms a call between the ends of calls ``first`` and ``last``."""
+        return self.events[first].elapsed_time(self.events[last]) / (last - first)
+
+
+def _kernel_wrappers() -> list:
+    """Every port kernel's counting wrapper."""
+    from repro_torch.kernels import entropy_hist, lowrank as lr, pack
+    from repro_torch.kernels.flash_attention import flash_fwd
+    from repro_torch.kernels.flash_attention_bwd import flash_dkv, flash_dq
+    return list(lr.KERNELS + pack.KERNELS) + [flash_fwd, flash_dq, flash_dkv,
+                                              entropy_hist.hist_counts]
+
+
+def _cache_bytes(model, batch: int, max_len: int) -> int:
+    """Bytes of a decode cache's tensors (the 0-d length left out)."""
+    from repro_torch import tree
+    cache = model.init_cache(batch, max_len, device="meta")
+    return sum(a.numel() * a.element_size() for a in tree.leaves(cache)
+               if a.ndim)
+
+
+def _draw(model) -> tuple:
+    """``model.init`` on the CPU, where the port draws every weight from a
+    seeded generator before it moves them: phase (o) runs it on a host
+    thread while the card decodes the configuration before."""
+    t0 = time.perf_counter()
+    params = model.init(0, "cpu")
+    return params, time.perf_counter() - t0
+
+
+def _on_card(drawn, dev) -> tuple:
+    """The weights of ``_draw``'s future on the card: (params, seconds
+    drawing them, seconds waiting for them and moving them, count)."""
+    from repro_torch import tree
+    from repro_torch.models.model import param_count
+    t0 = time.perf_counter()
+    cpu, draw_s = drawn.result()
+    params = tree.tree_map(lambda a: a.to(dev), cpu)
+    del cpu
+    torch.cuda.synchronize(dev)
+    return params, draw_s, time.perf_counter() - t0, param_count(params)
+
+
+def _param_bytes(params) -> int:
+    from repro_torch import tree
+    return sum(a.numel() * a.element_size() for a in tree.leaves(params))
+
+
+def _generate(label: str, model, params, batch: int, prompt: int, new: int,
+              dev, keep: int = 0) -> tuple[dict, list, np.ndarray]:
+    """``Engine.generate`` greedily on ``batch`` seeded prompts of
+    ``prompt`` tokens, ``new`` new tokens, timed per token on the device's
+    clock: the prompt replay (calls 1 to prompt - 1, past the first) and
+    the generation; the peak and the cache's bytes. Returns the row, the
+    first ``keep`` calls' logits and the prompts."""
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = model.config
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    clock = _TokenClock(model, keep)
+    eng = Engine(clock.model, params, ServeConfig(max_new_tokens=new),
+                 device=dev)
+    _release()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    calls = len(clock.events)
+    if calls != prompt + new - 1 or out.shape != (batch, new) \
+            or out.dtype != np.int32 or out.min() < 0 \
+            or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"({label}) {calls} calls, tokens {out.shape} "
+                             f"{out.dtype} in [{out.min()}, {out.max()}]")
+    replay_ms = clock.ms_per_call(0, prompt - 1)
+    gen_ms = clock.ms_per_call(prompt - 1, calls - 1)
+    row = {"label": label, "config": cfg.name, "num_layers": cfg.num_layers,
+           "batch": batch, "prompt": prompt, "new": new,
+           "replay_ms_per_token": replay_ms, "gen_ms_per_token": gen_ms,
+           "tokens_per_s": batch * 1e3 / gen_ms, "wall_s": wall,
+           "peak_bytes": peak,
+           "cache_bytes": _cache_bytes(model, batch, prompt + new),
+           "first_row": out[0][:16].tolist()}
+    log(f"({label}) {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}) "
+        f"Engine.generate batch {batch}, prompt {prompt}, {new} new: replay "
+        f"{replay_ms:.3f} ms a token, generation {gen_ms:.3f} ms a token "
+        f"({row['tokens_per_s']:.1f} tokens/s), {wall:.2f} s in all; cache "
+        f"{row['cache_bytes'] / 1e6:.1f} MB, peak {peak / 2**30:.2f} GiB; "
+        f"row 0 {row['first_row']}")
+    return row, clock.logits, prompts
+
+
+def _bench(label: str, eng, batch: int, context: int, dev) -> dict:
+    """``decode_benchmark``: ms a token, the cache's bytes, and the peak
+    beside what was allocated before it (the parameters)."""
+    _release()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    s = eng.decode_benchmark(batch, context)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg = eng.model.config
+    row = {"label": label, "config": cfg.name, "batch": batch,
+           "context": context, "ms_per_token": 1e3 * s, "peak_bytes": peak,
+           "base_bytes": base,
+           "cache_bytes": _cache_bytes(eng.model, batch, context + 9)}
+    log(f"({label}) {cfg.name} decode_benchmark batch {batch}, context "
+        f"{context}: {row['ms_per_token']:.3f} ms a token, cache "
+        f"{row['cache_bytes'] / 1e6:.1f} MB, peak {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} GiB allocated before)")
+    return row
+
+
+def _decode_profile(model, params, batch: int, max_len: int, dev,
+                    token_ms: float) -> dict:
+    """One decode token under torch.profiler: kernel launches, device-busy
+    ms, the idle share of an unprofiled ``token_ms`` token, and device ms
+    by part: ``layers.attn_decode`` (projections, cache write, scores,
+    softmax, values), ``layers.mlp_apply``, ``transformer.final_logits``
+    (final norm and the tied head), each under a ``record_function`` range,
+    and the rest (norms, residual adds, the embedding)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L, transformer as TF
+    sites = [(L, "attn_decode", "attention"), (L, "mlp_apply", "mlp"),
+             (TF, "final_logits", "head")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+
+    def tagged(fn, tag):
+        def run(*args, **kw):
+            with record_function(tag):
+                return fn(*args, **kw)
+        return run
+
+    with torch.inference_mode():
+        cache = model.init_cache(batch, max_len, device=dev)
+        tok = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        for _ in range(2):
+            _, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize(dev)
+        try:
+            for (mod, name, fn), (_, _, tag) in zip(saved, sites):
+                setattr(mod, name, tagged(fn, tag))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, cache = model.decode_step(params, cache, tok)
+                torch.cuda.synchronize(dev)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    parts = {tag: sum(e.device_time_total for e in prof.events()
+                      if e.name == tag and e.device_type == DeviceType.CPU)
+             / 1e3 for tag in SERVE_PARTS}
+    parts["rest"] = busy - sum(parts.values())
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"launches": sum(e.count for e in rows), "busy_ms": busy,
+           "token_ms": token_ms, "idle_share": 1 - busy / token_ms,
+           "ms_by_part": parts,
+           "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                    "count": e.count} for e in top]}
+    log(f"    one decode token profiled: {out['launches']} kernel launches, "
+        f"device busy {busy:.3f} ms, idle share {out['idle_share']:.3f} of a "
+        f"{token_ms:.3f} ms token; device ms by part "
+        f"{ {k: round(v, 3) for k, v in parts.items()} }")
+    for r in out["top"]:
+        log(f"      {r['ms']:8.3f} ms {r['count']:5d}x  {r['name']}")
+    return out
+
+
+def _serve_gpt2(dev, model, drawn) -> dict:
+    """(o1): gpt2-2.5b, all 52 layers, bf16: ``Engine.generate`` greedily,
+    batch 8, 128-token prompts, 128 new tokens; the decode logits over the
+    prompt against the port's teacher-forced forward; ``decode_benchmark``
+    at context 1008 (``max_position`` is 1024); one token profiled."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Engine
+    params, init_s, move_s, n_params = _on_card(drawn, dev)
+    B, T, N = 8, 128, 128
+    row, logits, prompts = _generate("o1", model, params, B, T, N, dev,
+                                     keep=T)
+    row.update(init_s=init_s, move_s=move_s, n_params=n_params,
+               param_bytes=_param_bytes(params))
+    if row["cache_bytes"] != GPT2_CACHE_BYTES:
+        raise AssertionError(f"(o1) cache {row['cache_bytes']} B, not "
+                             f"{GPT2_CACHE_BYTES}")
+    from repro_torch import tree
+    plain = build_model(dataclasses.replace(model.config, remat=False))
+    wide = build_model(dataclasses.replace(model.config, remat=False,
+                                           dtype="float32"))
+    with torch.inference_mode():
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                           device=dev)}
+        want = plain.forward(params, batch)
+        got = torch.stack(logits, dim=1)
+        del logits
+        norm = lambda a, b: float(torch.linalg.vector_norm(a - b)
+                                  / torch.linalg.vector_norm(b))
+        row["decode_vs_forward"] = rel_err(got, want)
+        row["decode_vs_forward_norm"] = norm(got, want)
+        row["argmax_agree"] = float(
+            (got.argmax(-1) == want.argmax(-1)).float().mean())
+        # the same bf16 weights in fp32: how far each bf16 path lies from it
+        truth = wide.forward(tree.tree_map(lambda a: a.float(), params), batch)
+        row["forward_vs_fp32"] = rel_err(want, truth)[1]
+        row["decode_vs_fp32"] = rel_err(got, truth)[1]
+        row["forward_vs_fp32_norm"] = norm(want, truth)
+        row["decode_vs_fp32_norm"] = norm(got, truth)
+    del got, want, truth
+    log(f"    {n_params / 1e9:.3f} B params ({row['param_bytes'] / 1e9:.2f} "
+        f"GB), drawn in {init_s:.1f} s, on the card {move_s:.1f} s after "
+        f"(o1) asked; decode logits over the prompt "
+        f"against the forward: relative in norm "
+        f"{row['decode_vs_forward_norm']:.3e} (bar {DECODE_BAR}), max abs "
+        f"{row['decode_vs_forward'][0]:.3e}, over the largest logit "
+        f"{row['decode_vs_forward'][1]:.3e}; argmax agrees at "
+        f"{row['argmax_agree']:.4f} of positions; against the fp32 forward of "
+        f"the same weights: decode {row['decode_vs_fp32']:.3e}, forward "
+        f"{row['forward_vs_fp32']:.3e} (bar {DECODE_FP32_FACTOR}x; in norm "
+        f"{row['decode_vs_fp32_norm']:.3e} and "
+        f"{row['forward_vs_fp32_norm']:.3e})")
+    if not (row["decode_vs_forward_norm"] < DECODE_BAR
+            and row["decode_vs_fp32"]
+            < DECODE_FP32_FACTOR * row["forward_vs_fp32"]):
+        raise AssertionError(f"(o1) decode against forward {row}")
+    eng = Engine(model, params, device=dev)
+    row["bench"] = _bench("o1", eng, B, 1008, dev)
+    row["profile"] = _decode_profile(model, params, B, T + N, dev,
+                                     row["gen_ms_per_token"])
+    del params, eng
+    _release()
+    return row
+
+
+def _serve_qwen(dev, model, drawn) -> dict:
+    """(o2): qwen2.5-3b, all 36 layers, bf16: ``generate`` batch 16, 256-
+    token prompts, 64 new; ``decode_benchmark`` at 4096, and the ``long``
+    variant's at 32768 (a ring of 8192 slots)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Engine
+    params, init_s, move_s, n_params = _on_card(drawn, dev)
+    B = 16
+    row, _, _ = _generate("o2", model, params, B, 256, 64, dev)
+    row.update(init_s=init_s, move_s=move_s, n_params=n_params,
+               param_bytes=_param_bytes(params))
+    log(f"    {n_params / 1e9:.3f} B params ({row['param_bytes'] / 1e9:.2f} "
+        f"GB), drawn in {init_s:.1f} s, on the card {move_s:.1f} s after "
+        f"(o2) asked")
+    row["bench"] = _bench("o2", Engine(model, params, device=dev), B, 4096,
+                          dev)
+    long = build_model(get_config("qwen2.5-3b", "long"))
+    ring = long.init_cache(1, 32777, device="meta")["stages"][0]["k"].shape[2]
+    if ring != long.config.sliding_window:
+        raise AssertionError(f"(o2) the long variant's ring has {ring} slots")
+    row["bench_long"] = _bench("o2 long", Engine(long, params, device=dev),
+                               B, 32768, dev)
+    row["profile"] = _decode_profile(model, params, B, 320, dev,
+                                     row["gen_ms_per_token"])
+    del params
+    _release()
+    return row
+
+
+def _serve_whisper(dev, model, drawn) -> dict:
+    """(o3) whisper-base as published: the cross K/V of 1500 stub frames
+    from ``encdec.init_cache``, then 64 greedy tokens, batch 8."""
+    from repro_torch.models import encdec
+    cfg = model.config
+    params, init_s, move_s, n_params = _on_card(drawn, dev)
+    B, N = 8, 64
+    frames = torch.from_numpy((np.random.default_rng(1).standard_normal(
+        (B, cfg.audio_frames, cfg.d_model)) * 0.1).astype(np.float32)).to(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache = encdec.init_cache(cfg, B, N, frames=frames, params=params,
+                                  device=dev)
+        torch.cuda.synchronize(dev)
+        prefill_s = time.perf_counter() - t0
+        tok = torch.zeros((B,), dtype=torch.int64, device=dev)
+        events, toks = [], []
+        for _ in range(N):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        out = torch.stack(toks, dim=1).cpu()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = events[0].elapsed_time(events[-1]) / (N - 1)
+    row = {"label": "o3", "config": cfg.name, "num_layers": cfg.num_layers,
+           "batch": B, "new": N, "frames": cfg.audio_frames,
+           "init_s": init_s, "move_s": move_s, "n_params": n_params,
+           "cross_kv_s": prefill_s, "gen_ms_per_token": ms,
+           "tokens_per_s": B * 1e3 / ms, "peak_bytes": peak,
+           "cross_kv_dtype": str(cache["cross_k"].dtype),
+           "cache_bytes": _cache_bytes(model, B, N)
+           + 2 * cache["cross_k"].numel() * cache["cross_k"].element_size()}
+    log(f"(o3) {cfg.name} ({cfg.encoder_layers} + {cfg.num_layers} layers) "
+        f"batch {B}, {cfg.audio_frames} stub frames: cross K/V "
+        f"({row['cross_kv_dtype']}) in {prefill_s:.2f} s, then {N} greedy "
+        f"tokens at {ms:.3f} ms a token; peak {peak / 2**30:.2f} GiB")
+    if not (0 <= int(out.min()) and int(out.max()) < cfg.vocab_size):
+        raise AssertionError(f"(o3) whisper tokens out of range: {out}")
+    del params, cache
+    _release()
+    return row
+
+
+# (o3): the other families at their published widths, depth cut as named
+SERVE_FAMILIES = [("qwen3-moe-235b-a22b", dict(num_layers=1, num_stages=1)),
+                  ("phi-3-vision-4.2b", {}), ("xlstm-125m", {}),
+                  ("zamba2-7b", dict(num_layers=28)), ("whisper-base", {})]
+
+
+def _serve_families(dev, models: list, drawn: list) -> list:
+    """(o3): one ``generate`` per other family at published widths, batch
+    8, 16-token prompts and 16 new tokens (32 decode steps):
+    qwen3-moe-235b-a22b at depth 1, phi-3-vision-4.2b with all 32 layers,
+    xlstm-125m as published, zamba2-7b at (m2)'s depth of 28 (with the
+    reckoning for all 81 layers); then whisper-base (``_serve_whisper``).
+    ``models`` and ``drawn`` (futures, taken from the list as they are
+    used, so that each host copy is freed) follow ``SERVE_FAMILIES``."""
+    from repro_torch.configs import get_config
+    rows = []
+    for (arch, _), model in zip(SERVE_FAMILIES[:-1], models):
+        full = get_config(arch, "full")
+        params, init_s, move_s, n_params = _on_card(drawn.pop(0), dev)
+        row, _, _ = _generate("o3", model, params, 8, 16, 16, dev)
+        row.update(init_s=init_s, move_s=move_s, n_params=n_params,
+                   param_bytes=_param_bytes(params))
+        note = ""
+        if arch == "zamba2-7b":
+            from repro_torch import tree
+            per_layer = sum(a.numel() * a.element_size() for st in
+                            params["stages"] for a in tree.leaves(st)) \
+                / model.config.num_layers
+            row["reckoned_bytes_all_layers"] = (
+                row["param_bytes"] + (full.num_layers - model.config.num_layers)
+                * per_layer)
+            note = (f"; all {full.num_layers} layers reckoned at "
+                    f"{row['reckoned_bytes_all_layers'] / 1e9:.2f} GB")
+        log(f"    {n_params / 1e9:.3f} B params ({row['param_bytes'] / 1e9:.2f}"
+            f" GB), drawn in {init_s:.1f} s, on the card {move_s:.1f} s "
+            f"after (o3) asked{note}")
+        rows.append(row)
+        del params
+        _release()
+    rows.append(_serve_whisper(dev, models[-1], drawn.pop(0)))
+    return rows
+
+
+def _serve_card_against_cpu(dev) -> list:
+    """(o4): the 11 reduced configs in fp32, and qwen2-0.5b and zamba2-7b
+    at ``sliding_window=4`` (a ring that wraps), each decoding a 4-token
+    prompt and 16 greedy tokens from the same weights on the CPU and on the
+    card; the card is fed the CPU's tokens, so every step's logits compare
+    (within 5e-3 relative) and a token flip is a step where the card's
+    argmax differs from the CPU's."""
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.model import build_model
+    cases = [(a, get_config(a, "reduced")) for a in sorted(ARCHS)]
+    cases += [(a + " ring", dataclasses.replace(get_config(a, "reduced"),
+                                                sliding_window=4))
+              for a in ("qwen2-0.5b", "zamba2-7b")]
+    rows = []
+    for name, cfg in cases:
+        model = build_model(cfg)
+        params = {"cpu": model.init(0, "cpu")}
+        params["card"] = tree.tree_map(lambda a: a.to(dev), params["cpu"])
+        prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 4))
+        caches = {}
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            if cfg.family == "whisper":
+                frames = torch.from_numpy((np.random.default_rng(1)
+                    .standard_normal((2, cfg.audio_frames, cfg.d_model))
+                    * 0.1).astype(np.float32))
+                caches[where] = encdec.init_cache(
+                    cfg, 2, 20, frames=frames.to(d), params=params[where],
+                    device=d)
+            else:
+                caches[where] = model.init_cache(2, 20, device=d)
+        tok = torch.as_tensor(prompt[:, 0], dtype=torch.int64)
+        worst, flips = 0.0, 0
+        with torch.inference_mode():
+            for t in range(20):
+                cpu, caches["cpu"] = model.decode_step(params["cpu"],
+                                                       caches["cpu"], tok)
+                card, caches["card"] = model.decode_step(
+                    params["card"], caches["card"], tok.to(dev))
+                worst = max(worst, rel_err(card.cpu(), cpu)[1])
+                nxt = torch.argmax(cpu, dim=-1)
+                if t >= 3:
+                    flips += int((torch.argmax(card, -1).cpu() != nxt).sum())
+                tok = (torch.as_tensor(prompt[:, t + 1], dtype=torch.int64)
+                       if t + 1 < 4 else nxt)
+        rows.append({"config": name, "max_rel_err": worst,
+                     "token_flips": flips})
+        log(f"(o4) {name} fp32, 20 decode steps: card against CPU max "
+            f"relative error {worst:.2e} (bar {SERVE_CARD_CPU_BAR}), "
+            f"{flips} token flips of 34")
+        if not worst < SERVE_CARD_CPU_BAR:
+            raise AssertionError(f"(o4) {name}: {worst}")
+    _release()
+    return rows
+
+
+def _serve_cli() -> list:
+    """(o5): ``launch.serve`` at qwen2.5-3b's published widths and
+    ``launch.serve_decode``, on the card (their default device)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = [["repro_torch.launch.serve", "--arch", "qwen2.5-3b", "--variant",
+             "full", "--batch", "4", "--prompt-len", "16", "--new-tokens",
+             "32", "--bench-context", "4096"],
+            ["repro_torch.launch.serve_decode"]]
+    rows = []
+    for cmd in cmds:
+        t0 = time.perf_counter()
+        lines = subprocess.run([sys.executable, "-m", *cmd], env=env,
+                               capture_output=True, text=True, check=True,
+                               timeout=300).stdout.splitlines()
+        rows.append({"cmd": cmd, "seconds": time.perf_counter() - t0,
+                     "lines": lines})
+        log(f"(o5) {' '.join(cmd)} on the card, {rows[-1]['seconds']:.1f} s:")
+        for line in lines:
+            log(f"    serve | {line}")
+    serve, decode = rows[0]["lines"], rows[1]["lines"]
+    if not (len(serve) == 3 and serve[0].startswith("qwen2.5-3b: ")
+            and serve[1].startswith("generated (4, 32) tokens")
+            and serve[2].startswith("decode @ context=4096, batch=4: ")):
+        raise AssertionError(f"(o5) launch.serve printed {serve}")
+    if not (len(decode) == 2 and decode[0].startswith(
+            "qwen2 reduced: generated (4, 16)")
+            and decode[1].startswith("whisper reduced: decoded [[")):
+        raise AssertionError(f"(o5) launch.serve_decode printed {decode}")
+    return rows
+
+
+def phase_serve(report: dict, dev) -> dict:
+    """(o): serving on the card. No port kernel runs there (the reference's
+    serving calls no Pallas kernel): every wrapper's count is the same
+    after the phase as before it. One host thread draws every
+    configuration's weights on the CPU, in order, while the card decodes
+    the ones before (``_draw``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import get_config
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.models.model import build_model
+    _release()
+    wrappers = _kernel_wrappers()
+    before = {w.__name__: w.launches for w in wrappers}
+    t0 = time.perf_counter()
+    out = {"seconds_by_part": {}}
+    clock = t0
+
+    def took(part):
+        nonlocal clock
+        now = time.perf_counter()
+        out["seconds_by_part"][part] = now - clock
+        clock = now
+    models = [build_model(GPT2_2_5B),
+              build_model(get_config("qwen2.5-3b", "full"))]
+    models += [build_model(dataclasses.replace(get_config(arch, "full"),
+                                               **cut))
+               for arch, cut in SERVE_FAMILIES]
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        drawn = [pool.submit(_draw, m) for m in models]
+        out["gpt2"] = _serve_gpt2(dev, models[0], drawn.pop(0))
+        took("o1")
+        out["qwen"] = _serve_qwen(dev, models[1], drawn.pop(0))
+        took("o2")
+        out["families"] = _serve_families(dev, models[2:], drawn)
+        took("o3")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    del drawn
+    out["card_cpu"] = _serve_card_against_cpu(dev)
+    took("o4")
+    out["cli"] = _serve_cli()
+    took("o5")
+    launched = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+    out["kernel_launches"] = launched
+    if any(launched.values()):
+        raise AssertionError(f"(o) serving launched port kernels: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(o) serve: {out['seconds']:.1f} s (by part "
+        f"{ {k: round(v, 1) for k, v in out['seconds_by_part'].items()} }); "
+        f"no port kernel launched")
+    report["serve"] = out
+    return launched
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
                  moe_launches: dict, families2_launches: dict,
-                 elastic_launches: dict) -> dict:
+                 elastic_launches: dict, serve_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -3235,7 +3799,8 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "launches_overlapped": overlap_launches[wrapper],
                  "launches_moe": moe_launches[wrapper],
                  "launches_families2": families2_launches[wrapper],
-                 "launches_elastic": elastic_launches[wrapper]}
+                 "launches_elastic": elastic_launches[wrapper],
+                 "launches_serve": serve_launches[wrapper]}
         entry["device_ms"] = total("device_ms")
         # (l)'s groups (the MoE's expert stacks, qwen3-32b's mlp) and
         # (m2k)'s (zamba2-7b's Mamba2 projections)
@@ -3282,6 +3847,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                     "launches": pack_launches[name],
                     "launches_pipelined": pipe_launches[name],
                     "launches_elastic": elastic_launches[name],
+                    "launches_serve": serve_launches[name],
                     "max_abs_err": float(max(c[name] for c in
                                              report["pack_checks"])),
                     "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3300,6 +3866,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "fp32_source": FLASH_SOURCE,
                  "replaces": NEW_REPLACES[name],
                  "launches": attn["launches"][name],
+                 "launches_serve": serve_launches[name],
                  "max_abs_err": max(c["max_abs_err"][key]
                                     for c in attn["checks"] for key in keys),
                  **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
@@ -3317,6 +3884,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
     out.append({"name": "hist_counts", "route": "cuda", "source": HIST_SOURCE,
                 "replaces": NEW_REPLACES["hist_counts"],
                 "launches": hist["launches"]["hist_counts"],
+                "launches_serve": serve_launches["hist_counts"],
                 "max_abs_err": max(hist[k]["max_abs_err"]
                                    for k in ("pooled", "ragged", "outliers")),
                 **{key: hist["timing"][key] for key in
@@ -3363,10 +3931,11 @@ def main() -> int:
     moe_launches = phase_families(report, dev, args.profile)
     families2_launches = phase_families2(report, dev, args.profile)
     elastic_launches = phase_elastic(report, dev)
+    serve_launches = phase_serve(report, dev)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
                         overlap_launches, moe_launches, families2_launches,
-                        elastic_launches)
+                        elastic_launches, serve_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

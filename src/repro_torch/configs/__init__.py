@@ -1,7 +1,10 @@
 """Architecture registry of the port: every arch of the reference.
 
 ``get_config(arch, variant)`` returns a ModelConfig; variants are
-``full`` (published widths) and ``reduced`` (CPU-scale).
+``full`` (published widths), ``reduced`` (CPU-scale) and ``long``, the
+long-context decode variant (the full widths at ``sliding_window=8192``,
+xlstm-125m's recurrent state as published, ``None`` for gpt2 and
+whisper-base, whose contexts are bounded).
 """
 from __future__ import annotations
 
@@ -34,4 +37,6 @@ def get_config(arch: str, variant: str = "full"):
         return mod.FULL
     if variant == "reduced":
         return mod.REDUCED
+    if variant == "long":
+        return mod.LONG_CONTEXT
     raise ValueError(f"unknown variant {variant!r}")

@@ -36,3 +36,4 @@ GPT2_FIDELITY = ModelConfig(
 )
 FULL = GPT2_2_5B
 REDUCED = GPT2_FIDELITY
+LONG_CONTEXT = None

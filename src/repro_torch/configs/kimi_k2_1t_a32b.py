@@ -1,4 +1,5 @@
 """Kimi K2 — trillion-param MoE, 384 experts top-8 [arXiv:2501.kimi2]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -14,3 +15,4 @@ REDUCED = ModelConfig(
     d_ff=512, vocab_size=512,
     num_experts=4, experts_per_token=2, num_stages=2,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)  # long_500k variant

@@ -1,4 +1,5 @@
 """Llama-3-405B — dense, GQA kv=8, 128k vocab [arXiv:2407.21783]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -12,3 +13,4 @@ REDUCED = ModelConfig(
     num_layers=2, d_model=512, num_heads=8, num_kv_heads=2,
     d_ff=1024, vocab_size=512, head_dim=64,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)

@@ -1,5 +1,6 @@
 """Phi-3-vision — phi3-mini decoder + stubbed CLIP frontend
 [hf:microsoft/Phi-3-vision-128k-instruct]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -13,3 +14,4 @@ REDUCED = ModelConfig(
     num_layers=2, d_model=256, num_heads=4, num_kv_heads=4,
     d_ff=512, vocab_size=512, num_patches=16,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)

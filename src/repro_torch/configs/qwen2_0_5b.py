@@ -1,4 +1,5 @@
 """Qwen2-0.5B — dense, GQA kv=2, QKV bias, tied embeddings [arXiv:2407.10671]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -12,3 +13,4 @@ REDUCED = ModelConfig(
     num_layers=2, d_model=224, num_heads=7, num_kv_heads=1,
     d_ff=512, vocab_size=512, qkv_bias=True, tie_embeddings=True,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)

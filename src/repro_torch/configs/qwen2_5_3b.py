@@ -1,4 +1,5 @@
 """Qwen2.5-3B — dense, GQA kv=2, QKV bias [hf:Qwen/Qwen2.5-0.5B]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -12,3 +13,4 @@ REDUCED = ModelConfig(
     num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
     d_ff=512, vocab_size=512, qkv_bias=True, tie_embeddings=True,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)

@@ -1,4 +1,5 @@
 """Qwen3-32B — dense, GQA kv=8, qk-norm [hf:Qwen/Qwen3-8B]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -12,3 +13,4 @@ REDUCED = ModelConfig(
     num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
     d_ff=512, vocab_size=512, head_dim=64, qk_norm=True,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)

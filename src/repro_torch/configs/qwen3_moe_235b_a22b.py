@@ -1,4 +1,5 @@
 """Qwen3-MoE-235B-A22B — 128 experts top-8 [hf:Qwen/Qwen3-30B-A3B]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -13,3 +14,4 @@ REDUCED = ModelConfig(
     num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
     d_ff=256, vocab_size=512, num_experts=4, experts_per_token=2,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)

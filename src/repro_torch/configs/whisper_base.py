@@ -12,3 +12,4 @@ REDUCED = ModelConfig(
     num_layers=2, encoder_layers=2, d_model=128, num_heads=4, num_kv_heads=4,
     d_ff=256, vocab_size=512, audio_frames=30, max_position=4096,
 )
+LONG_CONTEXT = None  # skipped: whisper's decoder context is architecturally bounded

@@ -12,3 +12,4 @@ REDUCED = ModelConfig(
     num_layers=2, d_model=128, num_heads=2, num_kv_heads=2,
     d_ff=0, vocab_size=512, chunk=16,
 )
+LONG_CONTEXT = FULL  # recurrent state: long_500k runs natively

@@ -1,4 +1,5 @@
 """Zamba2-7B — Mamba2 backbone + shared attention blocks [arXiv:2411.15242]."""
+import dataclasses
 from repro_torch.models.model import ModelConfig
 
 FULL = ModelConfig(
@@ -12,3 +13,4 @@ REDUCED = ModelConfig(
     num_layers=3, d_model=128, num_heads=4, num_kv_heads=4,
     d_ff=256, vocab_size=512, ssm_state=16, chunk=16, attn_every=2,
 )
+LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)

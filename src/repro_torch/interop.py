@@ -21,6 +21,11 @@ the same way; its compressor leaves keep the stage dim and take worker
 ``outer_comp``, per-leaf (q, err) pairs) and returns them for the port's
 ``OuterOptimizer.load_arrays``. The outer state keeps every pod's rows in
 both packages, so the leading pod dim comes across whole.
+
+``cache_from_reference(cache_np, device)`` takes a reference decode cache
+(``jax.device_get(model.init_cache(...))`` or one a ``decode_step``
+returned) and returns the port's: the same tree, the same shapes and
+dtypes, with ``len`` a 0-d int32 tensor.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ import torch
 from repro_torch import tree
 from repro_torch.core.powersgd import LowRankState
 
-__all__ = ["from_reference", "outer_from_reference", "to_tensor"]
+__all__ = ["from_reference", "outer_from_reference", "cache_from_reference",
+           "to_tensor"]
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -78,3 +84,8 @@ def outer_from_reference(arrays_np: dict[str, Any], device="cpu"
                                      arrays_np["outer_m"]),
             "outer_comp": {key: _comp_entry(st, keep, device)
                            for key, st in arrays_np["outer_comp"].items()}}
+
+
+def cache_from_reference(cache_np: dict[str, Any], device="cpu"
+                         ) -> dict[str, Any]:
+    return tree.tree_map(lambda a: to_tensor(a, device), cache_np)

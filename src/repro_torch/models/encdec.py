@@ -14,7 +14,11 @@ promotes mixed operands as ``jnp.einsum`` does), as in the reference.
 Encoder and decoder blocks live under ``params['stages'][s]`` as
 ``enc_blocks`` and ``dec_blocks``: encoder stages first, decoder stages
 after (``stage_layout``); ``num_stages == 1`` keeps both halves in one
-stage. Decoding waits for serving (ROADMAP Queue 1 item 11).
+stage.
+
+Decoding carries the decoder's self-attention K/V cache and the cross K/V
+of the encoder memory, computed once by ``init_cache`` when it is given
+the parameters and the frames (or the encoder's output).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import tree
 from . import layers as L
+from . import transformer as TF
 from .model import (Model, ModelConfig, concat_stage_stacks, near_even_split,
                     register_family)
 
@@ -191,6 +196,82 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"loss": loss}
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_out=None,
+               frames=None, params=None, *, device):
+    """The decode cache: the (Ld, B, max_len, Hkv, Dh) self-attention K/V,
+    the (Ld, B, audio_frames, Hkv, Dh) cross K/V and the 0-d length. Given
+    ``params`` and ``frames`` (or ``enc_out``) the cross K/V are the
+    encoder memory's, one per decoder block, in the memory's dtype (fp32
+    from the fp32 stub frames); else zeros."""
+    dt = cfg.torch_dtype
+    shape = lambda T: (cfg.num_layers, batch, T, cfg.num_kv_heads, cfg.hd)
+    zeros = lambda T: torch.zeros(shape(T), dtype=dt, device=device)
+    cache = {"k": zeros(max_len), "v": zeros(max_len),
+             "cross_k": zeros(cfg.audio_frames),
+             "cross_v": zeros(cfg.audio_frames),
+             "len": torch.zeros((), dtype=torch.int32, device=device)}
+    if params is not None and (enc_out is not None or frames is not None):
+        with torch.no_grad():
+            if enc_out is None:
+                enc_out = encode(params, frames, cfg)
+            kvs = [L.cross_kv(bp, enc_out, num_kv_heads=cfg.num_kv_heads,
+                              head_dim=cfg.hd)
+                   for blocks in _dec_stacks(params)
+                   for bp in _units(blocks["cross"])]
+        cache["cross_k"] = torch.stack([k for k, _ in kvs])
+        cache["cross_v"] = torch.stack([v for _, v in kvs])
+    return cache
+
+
+def _dec_stacks(params) -> list:
+    """Each stage's stacked decoder blocks, in order."""
+    return [st["dec_blocks"] for st in params["stages"] if "dec_blocks" in st]
+
+
+def _units(stack):
+    """The unstacked units of a stacked tree."""
+    return [tree.unflatten(stack, xs)
+            for xs in zip(*(a.unbind(0) for a in tree.leaves(stack)))]
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, cfg: ModelConfig):
+    """One token for the batch; the self-attention K/V are written in place
+    and the returned cache holds them (the cache passed in is consumed).
+    The position row is ``dec_pos[cache_len]``, clamped to the last row as
+    ``jax.lax.dynamic_slice_in_dim`` clamps."""
+    cache_len = cache["len"]
+    x = F.embedding(tokens[:, None], params["embed"]["tok"])
+    pos = torch.clamp(cache_len, max=params["dec_pos"].shape[0] - 1)
+    x = x + F.embedding(pos.reshape(1), params["dec_pos"])
+
+    def block(bp, h, c):
+        a = _ln(h, bp, "attn_norm", cfg)
+        a = L.attn_decode(bp["attn"], a, c["k"], c["v"], cache_len,
+                          num_heads=cfg.num_heads,
+                          num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                          use_rope=False, norm_eps=cfg.norm_eps)[0]
+        h = h + a
+        a = _ln(h, bp, "cross_norm", cfg)
+        a = L.cross_attn_apply(bp["cross"], a, c["cross_k"], c["cross_v"],
+                               num_heads=cfg.num_heads,
+                               num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd)
+        h = h + a
+        m = _ln(h, bp, "mlp_norm", cfg)
+        return h + L.mlp_apply(bp["mlp"], m, act="gelu")
+
+    off = 0
+    for blocks in _dec_stacks(params):
+        n = tree.leaves(blocks)[0].shape[0]
+        kv = {key: cache[key][off: off + n]
+              for key in ("k", "v", "cross_k", "cross_v")}
+        x = TF.decode_units(blocks, kv, x, block)
+        off += n
+    x = _ln(x, params, "final_norm", cfg)
+    logits = L.lm_logits(x, params["embed"]["tok"], tie=True)[:, 0]
+    return logits, {**cache, "len": cache_len + 1}
+
+
 @register_family("whisper")
 def _build(cfg: ModelConfig) -> Model:
     return Model(
@@ -198,4 +279,7 @@ def _build(cfg: ModelConfig) -> Model:
         init=lambda seed, device: init(cfg, seed, device),
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         forward=lambda p, b: forward(p, b, cfg),
+        init_cache=lambda bs, max_len=448, *, device: init_cache(
+            cfg, bs, max_len, device=device),
+        decode_step=lambda p, c, t: decode_step(p, c, t, cfg),
     )

@@ -9,7 +9,11 @@ stacked per stage; stage boundaries fall on group boundaries (a run and
 its shared-attention site stay whole), so per-stage layer counts are
 generally ragged, and ``stage_group_sizes`` is the one source of the
 group -> stage assignment. The shared block sits at top level under
-``params['shared']``. Decoding waits for serving (ROADMAP Queue 1 item 11).
+``params['shared']``.
+
+Decoding carries each Mamba2 layer's state (SSM state and conv tail) and
+one K/V cache per shared-attention site: the parameters are shared, the
+caches are not.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch import tree
 from . import layers as L
 from . import ssm
+from . import transformer as TF
 from .model import Model, ModelConfig, near_even_split, register_family
 
 
@@ -111,6 +116,48 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"loss": loss}
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Per group: its Mamba2 layers' states stacked, and the group's own
+    (B, C, Hkv, Dh) K/V cache of the shared attention."""
+    C = cfg.sliding_window if cfg.sliding_window > 0 else max_len
+    kv = lambda: torch.zeros((batch, C, cfg.num_kv_heads, cfg.hd),
+                             dtype=cfg.torch_dtype, device=device)
+    groups = [{"mamba": ssm.stacked_state(
+                   ssm.mamba2_state_init(cfg, batch, device), sz),
+               "attn_k": kv(), "attn_v": kv()}
+              for sz in _group_sizes(cfg)]
+    return {"groups": groups,
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, cfg: ModelConfig):
+    """One token for the batch; every state and cache is updated in place
+    and the returned cache holds them (the cache passed in is consumed)."""
+    cache_len = cache["len"]
+    x = F.embedding(tokens, params["embed"]["tok"])            # (B, d)
+    sp = params["shared"]
+    mamba = lambda m, h, st: ssm.mamba2_decode(m, h, st, cfg)[0]
+    groups = iter(cache["groups"])
+    for stage, sizes in zip(params["stages"], stage_group_sizes(cfg)):
+        off = 0
+        for sz in sizes:
+            gc = next(groups)
+            run = tree.tree_map(lambda a: a[off: off + sz], stage["mamba"])
+            off += sz
+            x = TF.decode_units(run, gc["mamba"], x, mamba)
+            # the shared attention on the single token
+            h = L.rms_norm(x[:, None], sp["attn_norm_scale"], cfg.norm_eps)
+            x1 = x[:, None] + TF.attn_decode_cfg(
+                sp["attn"], h, gc["attn_k"], gc["attn_v"], cache_len, cfg,
+                use_rope=True)
+            h = L.rms_norm(x1, sp["mlp_norm_scale"], cfg.norm_eps)
+            x = (x1 + L.mlp_apply(sp["mlp"], h, act="silu"))[:, 0]
+    x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    logits = L._mm("bd,dv->bv", x, params["lm_head"])
+    return logits, {"groups": cache["groups"], "len": cache_len + 1}
+
+
 @register_family("zamba")
 def _build(cfg: ModelConfig) -> Model:
     return Model(
@@ -118,4 +165,7 @@ def _build(cfg: ModelConfig) -> Model:
         init=lambda seed, device: init(cfg, seed, device),
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         forward=lambda p, b: forward(p, b, cfg),
+        init_cache=lambda bs, max_len=32768, *, device: init_cache(
+            cfg, bs, max_len, device),
+        decode_step=lambda p, c, t: decode_step(p, c, t, cfg),
     )

@@ -1,5 +1,5 @@
-"""Shared layers on torch (port of ``repro/models/layers.py`` without the
-decode path, ``attn_decode``, which waits for serving).
+"""Shared layers on torch (port of ``repro/models/layers.py``), the
+single-token decode path ``attn_decode`` included.
 
 Conventions follow the reference: weights are stored ``(in, out)``, stacked
 layer leaves carry a leading layer dim, products come back in fp32, and
@@ -99,17 +99,18 @@ def mlp_init(gen, n: int, d_model: int, d_ff: int, dtype, gated: bool = True,
 
 
 def mlp_apply(p, x, act: str = "silu"):
-    up = _mm("btd,df->btf", x, p["up"])
+    """x: (..., d_model) -> (..., d_model)."""
+    up = _mm("...d,df->...f", x, p["up"])
     if "up_bias" in p:
         up = up + p["up_bias"].to(F32)
     if "gate" in p:
-        gate = _mm("btd,df->btf", x, p["gate"])
+        gate = _mm("...d,df->...f", x, p["gate"])
         h = (F.silu(gate) if act == "silu"
              else F.gelu(gate, approximate="tanh")) * up
     else:
         h = F.gelu(up, approximate="tanh") if act == "gelu" else F.silu(up)
     h = h.to(x.dtype)
-    out = _mm("btf,fd->btd", h, p["down"])
+    out = _mm("...f,fd->...d", h, p["down"])
     if "down_bias" in p:
         out = out + p["down_bias"].to(F32)
     return out.to(x.dtype)
@@ -207,6 +208,71 @@ def attn_apply(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
                             block_q=block_q)
     o = o.reshape(B, T, num_heads * head_dim)
     return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype)
+
+
+def _bmm_f32(a, b):
+    """Batched product of two same-dtype operands, returned in fp32 with
+    fp32 accumulation (the reference's ``preferred_element_type=F32``): on
+    the card cuBLAS writes the fp32 result of bf16 operands directly
+    (``out_dtype``), so no fp32 copy of an operand is made; the CPU has no
+    such product, and its operands are cast to fp32 there."""
+    if a.dtype == F32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=F32)
+    return torch.bmm(a.to(F32), b.to(F32))
+
+
+def attn_decode(p, x, cache_k, cache_v, cache_len, *, num_heads: int,
+                num_kv_heads: int, head_dim: int, rope_theta: float = 1e4,
+                use_rope: bool = True, window: int = 0,
+                norm_eps: float = 1e-5):
+    """Single-token GQA decode against a KV cache.
+
+    x: (B, 1, d); cache_k/v: (B, C, Hkv, Dh), C the longest context (a full
+    cache) or the window (``window > 0``: a ring buffer); cache_len: a 0-d
+    int tensor, the tokens already in the cache and so the new token's
+    position. The new K/V row is written INTO ``cache_k``/``cache_v`` at
+    slot ``cache_len`` (``cache_len % C`` in a ring), so the returned
+    caches are the given tensors. Past C a full cache's slot stays at C - 1,
+    as ``jax.lax.dynamic_update_slice`` clamps its start. Nothing here
+    reads a value back to the host.
+
+    Scores and values are products of cache-dtype operands accumulated and
+    returned in fp32 (``_bmm_f32``), as the reference's; scores are masked
+    with -1e30 and softmaxed in fp32, and P is cast to the cache's dtype
+    before the value product. Each product reads the cache through one
+    copy in its own layout (batch and kv-head dims together), in the
+    cache's dtype. Returns (out (B, 1, d), cache_k, cache_v).
+    """
+    B = x.shape[0]
+    C = cache_k.shape[1]
+    positions = cache_len.reshape(1, 1).expand(B, 1)
+    q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
+                           positions, rope_theta, use_rope, norm_eps)
+    slot = cache_len % C if window > 0 else torch.clamp(cache_len, max=C - 1)
+    idx = slot.reshape(1).long()
+    cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
+
+    rep = num_heads // num_kv_heads
+    G = B * num_kv_heads
+    qh = q.reshape(G, rep, head_dim).to(cache_k.dtype)
+    kt = cache_k.permute(0, 2, 3, 1).reshape(G, head_dim, C)
+    s = _bmm_f32(qh, kt) / math.sqrt(head_dim)                  # (G, rep, C)
+    k_idx = torch.arange(C, device=x.device)
+    if window > 0:
+        # ring buffer: valid slots are the last min(cache_len + 1, C) writes
+        age = (slot - k_idx) % C
+        valid = age <= torch.clamp(cache_len, max=C - 1)
+    else:
+        valid = k_idx <= cache_len
+    s = s.masked_fill(~valid, -1e30)
+    pattn = torch.softmax(s, dim=-1).to(cache_v.dtype)
+    vt = cache_v.permute(0, 2, 1, 3).reshape(G, C, head_dim)
+    o = _bmm_f32(pattn, vt)                                      # (G, rep, Dh)
+    o = o.reshape(B, 1, num_heads * head_dim).to(x.dtype)
+    return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype), cache_k, cache_v
 
 
 def cross_attn_apply(p, x, enc_k, enc_v, *, num_heads: int,

@@ -5,13 +5,18 @@
   * ``init(seed, device) -> params``   nested dict/list tree of tensors
   * ``loss_fn(params, batch) -> (loss, metrics)``
   * ``forward(params, batch) -> logits``
+  * ``init_cache(batch_size, max_len=..., *, device) -> cache``  decode state
+  * ``decode_step(params, cache, tokens) -> (logits, cache)``  ONE token:
+    tokens (B,), logits (B, V) fp32; the cache's tensors are updated in
+    place and returned (the cache passed in is consumed)
 
 ``batch`` holds ``tokens``/``labels`` (B, T) int64 tensors; the VLM family
 adds ``patches`` (B, P, d_model), the stubbed vision frontend's output
 (``data.pipeline.add_modality_stubs``) and the Whisper family ``frames``
 (B, audio_frames, d_model), the stubbed audio frontend's. All six families
-of the reference are ported (dense, MoE, VLM, xLSTM, Zamba2, Whisper).
-Serving (``init_cache``/``decode_step``) is ROADMAP Queue 1 item 11.
+of the reference are ported (dense, MoE, VLM, xLSTM, Zamba2, Whisper),
+each with its decode path; ``max_len`` defaults to the reference's (32768,
+Whisper 448; xLSTM's state has none).
 """
 from __future__ import annotations
 
@@ -102,6 +107,9 @@ class Model(NamedTuple):
     init: Callable[..., Any]
     loss_fn: Callable[[Any, dict], tuple[torch.Tensor, dict]]
     forward: Callable[[Any, dict], torch.Tensor]
+    init_cache: Callable[..., Any]
+    decode_step: Callable[[Any, Any, torch.Tensor],
+                          tuple[torch.Tensor, Any]]
 
 
 _REGISTRY: dict[str, Callable[[ModelConfig], Model]] = {}

@@ -11,8 +11,9 @@ EDGC note: the expert weights are (L, E, d, f) leaves, compressed per
 expert by the batched PowerSGD path; the router is excluded (small and
 sensitive to routing noise), as in the reference. Block parameters are
 stacked per stage under ``['stages'][s]['blocks']``; the head is an
-untied ``lm_head``. Decoding (``init_cache``/``decode_step``) is ROADMAP
-Queue 1 item 11.
+untied ``lm_head``. Decoding routes the batch's B tokens as one group at
+capacity C = B, so no token is dropped there (the forward drops at
+``capacity_factor``).
 
 Where the reference's primitives differ from torch's, the port keeps the
 reference's meaning: ``jax.lax.top_k`` breaks ties toward the lower
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch import tree
 from . import layers as L
+from . import transformer as TF
 from .model import Model, ModelConfig, register_family
 
 F32 = torch.float32
@@ -196,6 +198,31 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"loss": ce, "aux": aux}
 
 
+# --------------------------------------------------------------------- decode
+@torch.no_grad()
+def decode_step(params, cache, tokens, cfg: ModelConfig):
+    """One token for the batch; the cache is written in place, as the
+    dense family's (``transformer.decode_step``)."""
+    B = tokens.shape[0]
+    cache_len = cache["len"]
+    x = F.embedding(tokens[:, None], params["embed"]["tok"])
+
+    def block(bp, x, kv):
+        h = L.rms_norm(x, bp["attn_norm_scale"], cfg.norm_eps)
+        x = x + TF.attn_decode_cfg(bp["attn"], h, kv["k"], kv["v"], cache_len,
+                                   cfg, use_rope=True)
+        h = L.rms_norm(x, bp["mlp_norm_scale"], cfg.norm_eps)
+        # full capacity (C = B): no token is ever dropped
+        y, _ = moe_ffn_apply(bp["moe"], h, cfg, group_size=B, capacity=B)
+        return x + y
+
+    for stage, sc in zip(params["stages"], cache["stages"]):
+        x = TF.decode_units(stage["blocks"], sc, x, block)
+    x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    logits = L.lm_logits(x, params["lm_head"], tie=False)[:, 0]
+    return logits, {"stages": cache["stages"], "len": cache_len + 1}
+
+
 @register_family("moe")
 def build(cfg: ModelConfig) -> Model:
     return Model(
@@ -203,4 +230,7 @@ def build(cfg: ModelConfig) -> Model:
         init=lambda seed, device: init(cfg, seed, device),
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         forward=lambda p, b: forward(p, b, cfg),
+        init_cache=lambda bs, max_len=32768, *, device: TF.init_cache(
+            cfg, bs, max_len, device),
+        decode_step=lambda p, c, t: decode_step(p, c, t, cfg),
     )

@@ -29,7 +29,12 @@ xLSTM (mLSTM, sLSTM) pairs under ``['stages'][s]['pairs']`` and the Mamba2
 layers of the hybrid family under ``['stages'][s]['mamba']``. The gates,
 recurrences, ``dt`` and ``log_a`` run in fp32, and ``gate_bias``,
 ``a_log``, ``dt_bias`` and ``d_skip`` are fp32 leaves under any
-``cfg.dtype``. Decoding waits for serving (ROADMAP Queue 1 item 11).
+``cfg.dtype``.
+
+Decoding carries a constant-size state per layer: the recurrence's fp32
+matrix state and the causal conv's last k - 1 inputs (mLSTM, Mamba2), or
+the sLSTM's h, c, n and m. ``*_decode`` updates the state tensors it is
+given in place and returns them.
 """
 from __future__ import annotations
 
@@ -95,6 +100,15 @@ def chunked_linear_recurrence(q, k, v, log_a, chunk: int, s0=None):
     return y, s
 
 
+def recurrence_decode(q, k, v, log_a, s):
+    """One-token update, in place: q, k (B, H, Dk), v (B, H, Dv), log_a
+    (B, H); s (B, H, Dk, Dv) fp32 becomes a s + k (x) v. Returns (y, s)."""
+    a = torch.exp(log_a.to(F32))[..., None, None]
+    s.mul_(a).add_(torch.einsum("bhk,bhv->bhkv", k.to(F32), v.to(F32)))
+    y = torch.einsum("bhk,bhkv->bhv", q.to(F32), s)
+    return y, s
+
+
 def _pad_time(pad: int, *arrays):
     """Zero-pad dim 1 (time) of each array at its end."""
     return [F.pad(a, [0, 0] * (a.ndim - 2) + [0, pad]) for a in arrays]
@@ -114,6 +128,16 @@ def causal_conv_apply(p, x):
     w = p["w"].to(F32)
     out = sum(xp[:, i: i + T] * w[i] for i in range(k))
     return (out + p["b"].to(F32)).to(x.dtype)
+
+
+def causal_conv_decode(p, x_t, tail):
+    """x_t: (B, C) the new input; tail: (B, k-1, C) the previous inputs,
+    shifted in place to end with x_t. Returns (out, tail)."""
+    window = torch.cat([tail, x_t[:, None].to(tail.dtype)], dim=1)   # (B,k,C)
+    out = torch.einsum("bkc,kc->bc", window.to(F32), p["w"].to(F32))
+    out = out + p["b"].to(F32)
+    tail.copy_(window[:, 1:])
+    return out.to(x_t.dtype), tail
 
 
 # ======================================================================= mLSTM
@@ -180,6 +204,39 @@ def mlstm_apply(p, x, cfg: ModelConfig):
     y = y * F.silu(xz.to(F32)).to(x.dtype)
     out = L._mm("bte,ed->btd", y, p["down"])
     return x + out.to(x.dtype)
+
+
+def mlstm_decode(p, x_t, state, cfg: ModelConfig):
+    """x_t: (B, d); state: {'s': (B, H, Dk, Dv + 1), 'conv': (B, k-1,
+    d_inner)}, updated in place."""
+    B = x_t.shape[0]
+    h = L.rms_norm(x_t, p["norm_scale"], cfg.norm_eps)
+    xz = L._mm("bd,de->be", h, p["up_z"]).to(x_t.dtype)
+    xc = L._mm("bd,de->be", h, p["up_x"]).to(x_t.dtype)
+    xc, conv_tail = causal_conv_decode(p["conv"], xc, state["conv"])
+    xc = F.silu(xc.to(F32)).to(x_t.dtype)
+    q, k, v, log_a = _mlstm_qkv_gates(p, xc, xz, cfg.num_heads)
+    v_aug = torch.cat([v, torch.ones(tuple(v.shape[:-1]) + (1,),
+                                     dtype=v.dtype, device=v.device)], dim=-1)
+    y_aug, s = recurrence_decode(q, k, v_aug, log_a, state["s"])
+    y, norm = y_aug[..., :-1], y_aug[..., -1:]
+    y = y / torch.maximum(torch.abs(norm), torch.ones_like(norm))
+    y = y.reshape(B, -1).to(x_t.dtype)
+    y = L.rms_norm(y, p["head_norm_scale"], cfg.norm_eps)
+    y = y * F.silu(xz.to(F32)).to(x_t.dtype)
+    out = L._mm("be,ed->bd", y, p["down"])
+    return x_t + out.to(x_t.dtype), {"s": s, "conv": conv_tail}
+
+
+def mlstm_state_init(cfg: ModelConfig, batch: int, device):
+    d_inner = 2 * cfg.d_model
+    dh = d_inner // cfg.num_heads
+    return {
+        "s": torch.zeros((batch, cfg.num_heads, dh, dh + 1), dtype=F32,
+                         device=device),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, d_inner),
+                            dtype=cfg.torch_dtype, device=device),
+    }
 
 
 # ======================================================================= sLSTM
@@ -249,6 +306,32 @@ def slstm_apply(p, x, cfg: ModelConfig):
     return x + L.mlp_apply(p["ffn"], h2, act="silu")
 
 
+def slstm_decode(p, x_t, state, cfg: ModelConfig):
+    """x_t: (B, d); state: h, c, n, m, each (B, d) fp32, updated in place."""
+    hx = L.rms_norm(x_t, p["norm_scale"], cfg.norm_eps)
+    x_pre = L._mm("bd,de->be", hx, p["w_in"])
+    new = _slstm_cell(p["r_blocks"].to(F32), p["gate_bias"], x_pre,
+                      state["h"], state["c"], state["n"], state["m"],
+                      cfg.num_heads)
+    for key, val in zip("hcnm", new):
+        state[key].copy_(val)
+    y = L.rms_norm(state["h"].to(x_t.dtype), p["head_norm_scale"],
+                   cfg.norm_eps)
+    x = x_t + y
+    h2 = L.rms_norm(x, p["ffn_norm_scale"], cfg.norm_eps)
+    return x + L.mlp_apply(p["ffn"], h2, act="silu"), state
+
+
+def slstm_state_init(cfg: ModelConfig, batch: int, device):
+    z = lambda: torch.zeros((batch, cfg.d_model), dtype=F32, device=device)
+    return {"h": z(), "c": z(), "n": z(), "m": z() - 10.0}
+
+
+def stacked_state(state: dict, n: int) -> dict:
+    """``n`` copies of a state tree, stacked on a leading layer dim."""
+    return tree.tree_map(lambda a: a.expand((n,) + a.shape).clone(), state)
+
+
 # ================================================================ xLSTM model
 def xlstm_stage_sizes(cfg: ModelConfig) -> list[int]:
     """(mLSTM, sLSTM) pairs per virtual pipeline stage, near-even split.
@@ -301,6 +384,41 @@ def xlstm_loss(params, batch, cfg: ModelConfig):
     return loss, {"loss": loss}
 
 
+def xlstm_cache_init(cfg: ModelConfig, batch: int, device):
+    """Every pair's mLSTM and sLSTM state, stacked over all pairs."""
+    n_pairs = cfg.num_layers // 2
+    return {"mlstm": stacked_state(mlstm_state_init(cfg, batch, device),
+                                   n_pairs),
+            "slstm": stacked_state(slstm_state_init(cfg, batch, device),
+                                   n_pairs),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _state_views(stack: dict, i: int) -> dict:
+    return {k: v[i] for k, v in stack.items()}
+
+
+@torch.no_grad()
+def xlstm_decode(params, cache, tokens, cfg: ModelConfig):
+    """One token for the batch; the states are updated in place and the
+    returned cache holds them (the cache passed in is consumed)."""
+    x = F.embedding(tokens, params["embed"]["tok"])            # (B, d)
+    i = 0
+    for stage in params["stages"]:
+        pairs = stage["pairs"]
+        for leaves in zip(*(a.unbind(0) for a in tree.leaves(pairs))):
+            pair = tree.unflatten(pairs, leaves)
+            x, _ = mlstm_decode(pair["mlstm"], x,
+                                _state_views(cache["mlstm"], i), cfg)
+            x, _ = slstm_decode(pair["slstm"], x,
+                                _state_views(cache["slstm"], i), cfg)
+            i += 1
+    x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    logits = L._mm("bd,dv->bv", x, params["lm_head"])
+    return logits, {"mlstm": cache["mlstm"], "slstm": cache["slstm"],
+                    "len": cache["len"] + 1}
+
+
 @register_family("xlstm")
 def _build_xlstm(cfg: ModelConfig) -> Model:
     return Model(
@@ -308,6 +426,9 @@ def _build_xlstm(cfg: ModelConfig) -> Model:
         init=lambda seed, device: xlstm_init(cfg, seed, device),
         loss_fn=lambda p, b: xlstm_loss(p, b, cfg),
         forward=lambda p, b: xlstm_forward(p, b, cfg),
+        init_cache=lambda bs, max_len=0, *, device: xlstm_cache_init(
+            cfg, bs, device),
+        decode_step=lambda p, c, t: xlstm_decode(p, c, t, cfg),
     )
 
 
@@ -379,3 +500,29 @@ def mamba2_apply(p, x, cfg: ModelConfig):
     y = L.rms_norm(y.to(x.dtype), p["out_norm_scale"], cfg.norm_eps)
     out = L._mm("bte,ed->btd", y, p["out_proj"])
     return x + out.to(x.dtype)
+
+
+def mamba2_decode(p, x_t, state, cfg: ModelConfig):
+    """x_t: (B, d); state: {'s': (B, H, n, 64) fp32, 'conv': (B, k-1,
+    d_inner + 2n)}, updated in place."""
+    h = L.rms_norm(x_t, p["norm_scale"], cfg.norm_eps)
+    z, xbc, dt_raw = _mamba2_project(p, h, cfg)
+    xbc, conv_tail = causal_conv_decode(p["conv"], xbc, state["conv"])
+    xbc = F.silu(xbc.to(F32)).to(x_t.dtype)
+    q, k, v, log_a, xh = _mamba2_ssm_inputs(p, xbc, dt_raw, cfg)
+    y, s = recurrence_decode(q, k, v, log_a, state["s"])
+    y = y + p["d_skip"][:, None] * xh.to(F32)
+    y = y.reshape(x_t.shape[0], -1)
+    y = y * F.silu(z)
+    y = L.rms_norm(y.to(x_t.dtype), p["out_norm_scale"], cfg.norm_eps)
+    out = L._mm("be,ed->bd", y, p["out_proj"])
+    return x_t + out.to(x_t.dtype), {"s": s, "conv": conv_tail}
+
+
+def mamba2_state_init(cfg: ModelConfig, batch: int, device):
+    d_inner, n, H = _mamba2_dims(cfg)
+    return {
+        "s": torch.zeros((batch, H, n, 64), dtype=F32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, d_inner + 2 * n),
+                            dtype=cfg.torch_dtype, device=device),
+    }

@@ -7,6 +7,13 @@ pipeline stage under ``['stages'][s]['blocks']``, every leaf with a leading
 layer dim, exactly as in the reference; the forward loops over the stack
 where the reference scans it. ``cfg.remat`` checkpoints each block with
 ``torch.utils.checkpoint``.
+
+Decoding (``init_cache``/``decode_step``) runs one token for the whole
+batch against a KV cache stacked per stage like the blocks. The reference
+cannot decode a learned-position config (its ``embed_tokens`` sends the
+0-d cache length to a ``vmap`` branch that raises); the port adds
+position ``cache_len``'s row of ``pos_embed``, which is what that code
+means.
 """
 from __future__ import annotations
 
@@ -99,10 +106,20 @@ def apply_block_stack(blocks, x, cfg: ModelConfig, positions, window: int):
     return L.apply_units(block, blocks, x, cfg)
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
+def embed_tokens(params, tokens, cfg: ModelConfig, offset=0):
+    """Token embeddings plus, for learned positions, ``pos_embed`` rows
+    ``offset + arange(T)``. A tensor ``offset`` (0-d, or one per batch row)
+    stays on the device; its start is clamped to ``max_position - T``, as
+    ``jax.lax.dynamic_slice_in_dim`` clamps."""
     x = F.embedding(tokens, params["embed"]["tok"])
     if cfg.pos == "learned":
-        x = x + params["pos_embed"][: tokens.shape[-1]]
+        T = tokens.shape[-1]
+        if isinstance(offset, torch.Tensor):
+            start = torch.clamp(offset, max=params["pos_embed"].shape[0] - T)
+            rows = start[..., None] + torch.arange(T, device=tokens.device)
+            x = x + F.embedding(rows, params["pos_embed"])
+        else:
+            x = x + params["pos_embed"][offset: offset + T]
     return x
 
 
@@ -133,6 +150,64 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"loss": loss}
 
 
+# --------------------------------------------------------------------- decode
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device):
+    """Per-stage stacked (L_s, B, C, Hkv, Dh) K/V caches and the 0-d int32
+    length; C is the window under ``sliding_window``, else ``max_len``."""
+    C = cfg.sliding_window if cfg.sliding_window > 0 else max_len
+    zeros = lambda n: torch.zeros((n, batch_size, C, cfg.num_kv_heads, cfg.hd),
+                                  dtype=cfg.torch_dtype, device=device)
+    return {"stages": [{"k": zeros(n), "v": zeros(n)}
+                       for n in cfg.stage_sizes()],
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def decode_units(units, caches, x, fn):
+    """``x = fn(unit_i, x, cache_i)`` over a stacked tree's units; each
+    ``cache_i`` is a view of one layer of the stacked ``caches``, so what
+    ``fn`` writes into it lands in the stack."""
+    flat = tree.leaves(caches)
+    for xs in zip(*(a.unbind(0) for a in tree.leaves(units) + flat)):
+        n = len(xs) - len(flat)
+        x = fn(tree.unflatten(units, xs[:n]), x,
+               tree.unflatten(caches, xs[n:]))
+    return x
+
+
+def attn_decode_cfg(p, h, k, v, cache_len, cfg: ModelConfig,
+                    use_rope: bool):
+    """``layers.attn_decode`` with the config's widths and window; returns
+    the attention's output (the caches ``k``/``v`` are written in place)."""
+    return L.attn_decode(
+        p, h, k, v, cache_len, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta, use_rope=use_rope,
+        window=cfg.sliding_window, norm_eps=cfg.norm_eps)[0]
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, cfg: ModelConfig):
+    """One token for the whole batch: tokens (B,) -> logits (B, V) fp32.
+
+    The new K/V rows are written into ``cache``'s tensors, which the
+    returned cache holds (as the donated train step reuses its state):
+    the cache passed in is consumed. Its ``len`` is a new 0-d tensor."""
+    cache_len = cache["len"]
+    x = embed_tokens(params, tokens[:, None], cfg, offset=cache_len)
+    act = "gelu" if "gelu" in cfg.act else "silu"
+
+    def block(bp, x, kv):
+        h = _norm(x, bp, "attn_norm", cfg)
+        x = x + attn_decode_cfg(bp["attn"], h, kv["k"], kv["v"], cache_len,
+                                cfg, use_rope=(cfg.pos == "rope"))
+        return x + L.mlp_apply(bp["mlp"], _norm(x, bp, "mlp_norm", cfg), act)
+
+    for stage, sc in zip(params["stages"], cache["stages"]):
+        x = decode_units(stage["blocks"], sc, x, block)
+    logits = final_logits(params, x, cfg)[:, 0]
+    return logits, {"stages": cache["stages"], "len": cache_len + 1}
+
+
 @register_family("dense")
 def build(cfg: ModelConfig) -> Model:
     return Model(
@@ -140,4 +215,7 @@ def build(cfg: ModelConfig) -> Model:
         init=lambda seed, device: init(cfg, seed, device),
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         forward=lambda p, b: forward(p, b, cfg),
+        init_cache=lambda bs, max_len=None, *, device: init_cache(
+            cfg, bs, max_len if max_len else 32768, device),
+        decode_step=lambda p, c, t: decode_step(p, c, t, cfg),
     )

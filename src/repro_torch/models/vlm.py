@@ -10,7 +10,9 @@ The stub patches are fp32, and the projected patches keep their dtype, so
 the concatenation with the token embeddings promotes: under
 ``dtype="bfloat16"`` the residual stream, and the logits, are fp32 with
 bf16 weights, as in the reference (whose ``jnp.concatenate`` promotes the
-same way). Decoding is ROADMAP Queue 1 item 11.
+same way). Decoding is the dense decoder's, on text tokens only: it
+never sees a patch prefix, as in the reference, whose ``prefill_patches``
+raises.
 """
 from __future__ import annotations
 
@@ -69,6 +71,12 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, {"loss": loss}
 
 
+def prefill_patches(params, cache, patches, cfg: ModelConfig):
+    """Feeding the patch prefix through the decode path is not implemented,
+    in the reference either."""
+    raise NotImplementedError("use engine-level prefill via forward()")
+
+
 @register_family("vlm")
 def build(cfg: ModelConfig) -> Model:
     return Model(
@@ -76,4 +84,7 @@ def build(cfg: ModelConfig) -> Model:
         init=lambda seed, device: init(cfg, seed, device),
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         forward=lambda p, b: forward(p, b, cfg),
+        init_cache=lambda bs, max_len=32768, *, device: TF.init_cache(
+            cfg, bs, max_len, device),
+        decode_step=lambda p, c, t: TF.decode_step(p, c, t, cfg),
     )
