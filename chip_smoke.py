@@ -217,6 +217,33 @@ Phases, in order; any failure raises, so the exit code is not 0:
                two rings of 4 slots, card against CPU, logits within 5e-3
                and token flips counted; (o5) ``launch.serve`` at
                qwen2.5-3b's published widths and ``launch.serve_decode``
+  (p) model axis  tensor parallelism on a ``(data, model)`` mesh of one
+               card (NCCL, world size 1, set up and torn down in the phase;
+               the DTensor placements and the model-group collectives run
+               at model size 1): (p1) (c)'s run (gpt2-2.5b, depth 8, batch
+               8 x 1024, rank 64, kernels on, bf16) with the per-leaf sync
+               (``bucketed=False``) through ``Trainer(..., mesh=)``, 3
+               steps against the same trainer without a mesh from the same
+               state: losses within 5e-3, every state leaf within 2e-3 in
+               norm (the largest differences recorded; bit-equal is
+               expected), step ms of both, the host's ms to queue a step
+               and to queue the loss's forward alone,
+               the PowerSGD launches a step (4 a compressed leaf), the
+               model-group collectives a step (``CommDebugMode``), the
+               peak beside (c)'s, and, from one more step each under the
+               allocator's history, the bytes live at each step's peak by
+               the port's line that allocated them and the all-gathers'
+               output bytes; (p2) ``make_train_step(mode="auto")``
+               with FSDP and the ``none`` plan on the same mesh, 3 steps
+               against the flat step with the ``none`` plan from the same
+               state: losses within 5e-3, step ms and peak; (p3) the
+               vocab-parallel embedding at gpt2-2.5b's vocab and width, its
+               forward and the table's gradient against ``F.embedding``
+               (bit-equality recorded, held within 1e-2 relative); (p4)
+               ``torch.distributed.run --nproc_per_node 1 -m
+               repro_torch.launch.train --arch gpt2 --variant reduced
+               --model-mesh 1 --steps 3`` on the card, run beside (o5)'s
+               launchers to share their wait
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -240,7 +267,8 @@ config, ``families``, their rows at (l)'s expert and qwen3-32b groups
 and (m2k)'s Zamba2 groups, and ``elastic``, their rows at (n2)'s groups.
 The PowerSGD and pack entries add ``launches_elastic``, their launches
 on (n1)'s run (inner steps and outer syncs). Every entry adds
-``launches_serve``, its launches in phase (o): zero. The last
+``launches_serve``, its launches in phase (o): zero, and ``launches_tp``,
+its launches on (p1)'s mesh run (the PowerSGD kernels only). The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -260,6 +288,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # (l1) runs within 6 GiB of the card's memory, where the caching allocator's
@@ -768,11 +797,11 @@ def check_pack(dev) -> list[dict]:
 
 # ------------------------------------------------------------------ trainers
 def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw",
-             log_every=1, pipe=None, **tkw):
+             log_every=1, pipe=None, mesh=None, **tkw):
     """A Trainer with the PowerSGD kernels on, AdamW at lr 1e-3; ``tkw``
     goes to ``TrainerConfig`` (faults, recovery, metrics, checkpoints, the
     pipeline's schedule and stash policy); ``pipe`` runs that many stages
-    through the pipelined executor."""
+    through the pipelined executor, ``mesh`` on a process mesh."""
     from repro_torch.core import EDGCConfig, GDSConfig
     from repro_torch.core.dac import DACConfig
     from repro_torch.models.model import build_model
@@ -788,7 +817,7 @@ def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw",
                          adam=AdamConfig(lr=1e-3, warmup_steps=1,
                                          total_steps=steps), **tkw)
     return Trainer(build_model(model_cfg), edgc, tcfg, seed=0, device=dev,
-                   pipe=pipe)
+                   pipe=pipe, mesh=mesh)
 
 
 def _timed_steps(trainer, batches, steps: int) -> list[float]:
@@ -2514,8 +2543,8 @@ def _route_spy(calls: list):
     from repro_torch.models import moe
     orig = moe.route
 
-    def spy(x_flat, ffn, cfg, group_size, capacity=None):
-        out = orig(x_flat, ffn, cfg, group_size, capacity)
+    def spy(x_flat, ffn, cfg, group_size, capacity=None, **kw):
+        out = orig(x_flat, ffn, cfg, group_size, capacity, **kw)
         with torch.no_grad():
             xg = out[0]
             probs = torch.softmax(torch.einsum(
@@ -2770,22 +2799,47 @@ def _families2_pipelines(dev) -> list:
     return rows
 
 
+def _run_all(cmds: list) -> list:
+    """Run the port's launchers (``python -m <args>``) all at once on the
+    card; (seconds, stdout lines) of each, raising where one fails."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+             for _ in cmds]
+    procs = [subprocess.Popen([sys.executable, "-m", *cmd], env=env,
+                              stdout=o, stderr=e, text=True)
+             for cmd, (o, e) in zip(cmds, files)]
+    out = []
+    try:
+        for cmd, proc, (o, e) in zip(cmds, procs, files):
+            proc.wait(timeout=300)
+            o.seek(0)
+            e.seek(0)
+            if proc.returncode:
+                raise AssertionError(f"{' '.join(cmd)} exited "
+                                     f"{proc.returncode}: {e.read()[-3000:]}")
+            out.append((time.perf_counter() - t0, o.read().splitlines()))
+    finally:
+        for proc, (o, e) in zip(procs, files):
+            proc.kill()
+            o.close()
+            e.close()
+    return out
+
+
 def _families2_cli() -> list:
     """(m6): the launcher's ``--pipe 2`` on the card for the reduced
-    zamba2-7b (a ragged [2, 1] plan) and whisper-base (encoder | decoder)."""
+    zamba2-7b (a ragged [2, 1] plan) and whisper-base (encoder | decoder),
+    both at once."""
     rows = []
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for arch in ("zamba2-7b", "whisper-base"):
-        t0 = time.perf_counter()
-        tail = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-             "--variant", "reduced", "--policy", "fixed", "--rank", "8",
-             "--pipe", "2", "--micro", "2", "--steps", "4", "--batch", "4",
-             "--seq", "64", "--use-kernels"],
-            env=env, capture_output=True, text=True, check=True,
-            timeout=300).stdout.splitlines()
-        rows.append({"arch": arch, "seconds": time.perf_counter() - t0,
-                     "tail": tail[-6:]})
+    archs = ("zamba2-7b", "whisper-base")
+    runs = _run_all([["repro_torch.launch.train", "--arch", arch,
+                      "--variant", "reduced", "--policy", "fixed", "--rank",
+                      "8", "--pipe", "2", "--micro", "2", "--steps", "4",
+                      "--batch", "4", "--seq", "64", "--use-kernels"]
+                     for arch in archs])
+    for arch, (seconds, tail) in zip(archs, runs):
+        rows.append({"arch": arch, "seconds": seconds, "tail": tail[-6:]})
         log(f"(m6) launch.train --arch {arch} --variant reduced --pipe 2 on "
             f"the card, {rows[-1]['seconds']:.1f} s:")
         for line in tail[-6:]:
@@ -3689,22 +3743,19 @@ def _serve_card_against_cpu(dev) -> list:
     return rows
 
 
-def _serve_cli() -> list:
+def _serve_cli(also: list) -> tuple[list, list]:
     """(o5): ``launch.serve`` at qwen2.5-3b's published widths and
-    ``launch.serve_decode``, on the card (their default device)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ``launch.serve_decode``, on the card (their default device), both at
+    once and beside ``also``'s launchers (a later phase's, run here to
+    share the wait), whose (seconds, lines) come back unread."""
     cmds = [["repro_torch.launch.serve", "--arch", "qwen2.5-3b", "--variant",
              "full", "--batch", "4", "--prompt-len", "16", "--new-tokens",
              "32", "--bench-context", "4096"],
             ["repro_torch.launch.serve_decode"]]
+    runs = _run_all(cmds + list(also))
     rows = []
-    for cmd in cmds:
-        t0 = time.perf_counter()
-        lines = subprocess.run([sys.executable, "-m", *cmd], env=env,
-                               capture_output=True, text=True, check=True,
-                               timeout=300).stdout.splitlines()
-        rows.append({"cmd": cmd, "seconds": time.perf_counter() - t0,
-                     "lines": lines})
+    for cmd, (seconds, lines) in zip(cmds, runs):
+        rows.append({"cmd": cmd, "seconds": seconds, "lines": lines})
         log(f"(o5) {' '.join(cmd)} on the card, {rows[-1]['seconds']:.1f} s:")
         for line in lines:
             log(f"    serve | {line}")
@@ -3717,16 +3768,16 @@ def _serve_cli() -> list:
             "qwen2 reduced: generated (4, 16)")
             and decode[1].startswith("whisper reduced: decoded [[")):
         raise AssertionError(f"(o5) launch.serve_decode printed {decode}")
-    return rows
+    return rows, runs[len(cmds):]
 
 
-def phase_serve(report: dict, dev) -> dict:
+def phase_serve(report: dict, dev, also: list = ()) -> tuple[dict, list]:
     """(o): serving on the card. No port kernel runs there (the reference's
     serving calls no Pallas kernel): every wrapper's count is the same
     after the phase as before it. One host thread draws every
     configuration's weights on the CPU, in order, while the card decodes
-    the ones before (``_draw``)."""
-    from concurrent.futures import ThreadPoolExecutor
+    the ones before (``_draw``). ``also``: launchers run beside (o5)'s;
+    their results come back with the launches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.gpt2 import GPT2_2_5B
     from repro_torch.models.model import build_model
@@ -3761,7 +3812,7 @@ def phase_serve(report: dict, dev) -> dict:
     del drawn
     out["card_cpu"] = _serve_card_against_cpu(dev)
     took("o4")
-    out["cli"] = _serve_cli()
+    out["cli"], extra = _serve_cli(also)
     took("o5")
     launched = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
     out["kernel_launches"] = launched
@@ -3772,13 +3823,361 @@ def phase_serve(report: dict, dev) -> dict:
         f"{ {k: round(v, 1) for k, v in out['seconds_by_part'].items()} }); "
         f"no port kernel launched")
     report["serve"] = out
-    return launched
+    return launched, extra
+
+
+# ---------------------------------------------------------- (p) model axis
+TP_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _state_gap(a, b) -> dict:
+    """The largest elementwise difference and the largest relative
+    difference in norm over two states' leaves (DTensors gathered)."""
+    from repro_torch import tree
+    from repro_torch.train.step import full_state
+    worst_abs, worst_rel, where = 0.0, 0.0, None
+    for (path, x), y in zip(tree.flatten_with_path(full_state(a)),
+                            tree.leaves(full_state(b))):
+        x, y = x.float(), y.to(x.device).float()
+        d = (x - y).abs().max().item() if x.numel() else 0.0
+        rel = ((x - y).norm() / y.norm().clamp(min=1e-30)).item()
+        worst_abs = max(worst_abs, d)
+        if rel > worst_rel:
+            worst_rel, where = rel, path
+    return {"max_abs": worst_abs, "max_rel_norm": worst_rel, "leaf": where}
+
+
+def _tp_steps(tr, batches, steps: int) -> dict:
+    """``steps`` steps of a trainer's step function on its state: host ms
+    to queue each step (before the device finishes it), step ms, losses."""
+    step = tr._get_step(False)
+    host, total, losses = [], [], []
+    for _ in range(steps):
+        batch = tr._device_batch(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, mets = step(tr.state, batch)
+        host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        total.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(mets["loss"]))
+    return {"host_ms": host, "step_ms": total, "loss": losses}
+
+
+def _alloc_site(frames: list) -> str:
+    """The innermost frame of the port that allocated a block (file:line
+    function), beside the innermost frame of all."""
+    inner = frames[0]["name"] if frames else "autograd (no Python frame)"
+    for f in frames:
+        if f"{os.sep}repro_torch{os.sep}" in f["filename"]:
+            return f"{Path(f['filename']).name}:{f['line']} {f['name']} <- {inner}"
+    return inner
+
+
+def _memory_at_peak(run, dev) -> dict:
+    """Run ``run()`` with the allocator's history recorded: the bytes
+    allocated before it, its peak, and the blocks live at the peak that it
+    allocated, summed by ``_alloc_site``; also every block allocated under
+    an all-gather (its output), by site."""
+    mem = torch.cuda.memory
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem._record_memory_history(max_entries=1_000_000, stacks="python")
+    try:
+        run()
+        torch.cuda.synchronize(dev)
+        trace = mem._snapshot()["device_traces"][dev.index or 0]
+    finally:
+        mem._record_memory_history(enabled=None)
+    live, cur, top, at_top, gathers = {}, 0, 0, {}, {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > top:
+                top, at_top = cur, dict(live)
+            if any("all_gather" in f["name"] for f in ev.get("frames", [])):
+                site = _alloc_site(ev["frames"])
+                gathers[site] = gathers.get(site, 0) + ev["size"]
+        elif ev["action"] == "free_completed":
+            cur -= ev["size"]
+            live.pop(ev["addr"], None)
+    by_site: dict = {}
+    for ev in at_top.values():
+        site = _alloc_site(ev.get("frames", []))
+        by_site[site] = by_site.get(site, 0) + ev["size"]
+    return {"base_bytes": base,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "traced_peak_bytes": base + top,
+            "live_at_peak": dict(sorted(by_site.items(),
+                                        key=lambda kv: -kv[1])),
+            "gather_bytes": gathers}
+
+
+def _tp_trainer_pair(dev, mesh) -> dict:
+    """(p1): (c)'s run with the per-leaf sync, without and with the mesh,
+    3 steps each from the same state (seed); then one more step each under
+    the allocator's history, and one more of the mesh run with its
+    collectives counted."""
+    from repro_torch import tree
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import tp
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    out, flat_end = {}, None
+    for label, m in (("flat", None), ("mesh", mesh)):
+        _release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = _trainer(cfg, "fixed", 64, TP_STEPS + 2, 50, dev, bucketed=False,
+                      mesh=m)
+        batches = SyntheticLM(cfg.vocab_size, 1024, 8, seed=0).batches()
+        wrappers = _kernel_wrappers()
+        for w in wrappers:
+            w.launches = 0
+        res = _tp_steps(tr, batches, TP_STEPS)
+        res["launches"] = {w.__name__: w.launches for w in wrappers}
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["compressed_leaves"] = len(tr.controller.plan.ranks)
+        end = {k: tr.state[k] for k in ("params", "opt_m", "opt_v", "comp")}
+        if m is None:
+            # held on the host, so that the mesh run's peak is its own
+            flat_end = tree.tree_map(lambda t: t.detach().to("cpu"), end)
+        else:
+            out["state_gap"] = _state_gap(end, flat_end)
+            flat_end = None
+        del end
+        # the host's cost of queueing the loss's forward alone (the step's
+        # own host time waits for the card: the CUDA embedding backward
+        # reads its segment count back to the host)
+        batch = tr._device_batch(next(batches))
+        fwd = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad(), tp.model_context(m is not None):
+                tr.model.loss_fn(tr.state["params"], batch)
+            fwd.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        res["forward_host_ms"] = fwd
+        # one more step with the allocator's history: what is live at its
+        # peak, by the port's line that allocated it
+        step = tr._get_step(False)
+        batch = tr._device_batch(next(batches))
+
+        def one():
+            tr.state, _ = step(tr.state, batch)
+        res["memory"] = _memory_at_peak(one, dev)
+        if m is not None:
+            # one more step, counted: every collective is the model
+            # group's (the data group has one process)
+            comm = CommDebugMode()
+            with comm:
+                tr.state, _ = tr._get_step(False)(
+                    tr.state, tr._device_batch(next(batches)))
+            torch.cuda.synchronize()
+            res["collectives"] = {str(k): v for k, v in
+                                  comm.get_comm_counts().items()}
+            res["collectives_total"] = comm.get_total_counts()
+        out[label] = res
+        mem = res["memory"]
+        log(f"(p1) {label}: one step's peak {mem['peak_bytes'] / 2**30:.2f} "
+            f"GiB ({mem['base_bytes'] / 2**30:.2f} before it; traced "
+            f"{mem['traced_peak_bytes'] / 2**30:.2f}); live at the peak by "
+            f"site, GiB: " + "; ".join(
+                f"{k} {v / 2**30:.3f}" for k, v in
+                list(mem["live_at_peak"].items())[:8])
+            + f"; all-gather outputs by site, GiB: "
+            + "; ".join(f"{k} {v / 2**30:.3f}"
+                        for k, v in mem["gather_bytes"].items()))
+        log(f"(p1) {label}: losses {res['loss']} step ms "
+            f"{[round(x, 1) for x in res['step_ms']]} host ms "
+            f"{[round(x, 1) for x in res['host_ms']]} (the forward's "
+            f"{[round(x, 1) for x in res['forward_host_ms']]}) peak "
+            f"{res['peak_bytes'] / 2**30:.2f} GiB")
+        del tr
+    _release()
+    out["loss_gap"] = max(abs(a - b) for a, b in zip(out["flat"]["loss"],
+                                                     out["mesh"]["loss"]))
+    # the mesh step's extra bytes at its peak, by site (mesh minus flat)
+    sites = {**out["flat"]["memory"]["live_at_peak"],
+             **out["mesh"]["memory"]["live_at_peak"]}
+    extra = {k: out["mesh"]["memory"]["live_at_peak"].get(k, 0)
+             - out["flat"]["memory"]["live_at_peak"].get(k, 0) for k in sites}
+    out["extra_at_peak"] = dict(sorted(((k, v) for k, v in extra.items() if v),
+                                       key=lambda kv: -abs(kv[1])))
+    log("(p1) mesh minus flat, live at the peak by site, GiB: " + "; ".join(
+        f"{k} {v / 2**30:+.3f}" for k, v in
+        list(out["extra_at_peak"].items())[:10]))
+    launched = out["mesh"]["launches"]
+    out["powersgd_per_leaf_step"] = sum(launched[k] for k in POWERSGD) / (
+        TP_STEPS * out["mesh"]["compressed_leaves"])
+    return out
+
+
+def _tp_auto(dev, mesh) -> dict:
+    """(p2): the auto step (FSDP over data, TP over model, the none plan)
+    against the flat dp_tp step with the none plan, 3 steps each from one
+    state."""
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.core.compressor import NO_COMPRESSION
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adam
+    from repro_torch.train.step import (TrainStepConfig, distribute_state,
+                                        make_train_step)
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    model = build_model(cfg)
+    acfg = adam.AdamConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for label in ("flat", "auto"):
+        _release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = model.init(0, dev)
+        ost = adam.init(params, acfg)
+        state = {"params": params, "opt_m": ost.m, "opt_v": ost.v,
+                 "opt_step": ost.step, "comp": {}}
+        scfg = TrainStepConfig(mode="dp_tp" if label == "flat" else "auto",
+                               policy_plan=NO_COMPRESSION, remat=False,
+                               adam=acfg)
+        if label == "auto":
+            state = distribute_state(state, mesh, fsdp=True)
+            step = make_train_step(model, scfg, mesh=mesh)
+        else:
+            step = make_train_step(model, scfg, psum_mean=lambda x: x)
+        batches = SyntheticLM(cfg.vocab_size, 1024, 8, seed=0).batches()
+        ms, losses = [], []
+        for _ in range(TP_STEPS):
+            batch = {k: torch.as_tensor(v).long().to(dev)
+                     for k, v in next(batches).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mets = step(state, batch)
+            losses.append(float(mets["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[label] = {"loss": losses, "step_ms": ms,
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        log(f"(p2) {label}: losses {losses} step ms "
+            f"{[round(x, 1) for x in ms]} peak "
+            f"{out[label]['peak_bytes'] / 2**30:.2f} GiB")
+        del state, params, ost, step
+    out["loss_gap"] = max(abs(a - b) for a, b in zip(out["flat"]["loss"],
+                                                     out["auto"]["loss"]))
+    return out
+
+
+def _tp_embedding(dev, mesh) -> dict:
+    """(p3): the vocab-parallel embedding against ``F.embedding`` at
+    gpt2-2.5b's vocab and width."""
+    import torch.nn.functional as F
+    from repro_torch.dist import sharding, tp
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = (0.02 * torch.randn((50257, 1920), generator=gen, device=dev)
+             ).to(torch.bfloat16)
+    tokens = torch.randint(0, 50257, (8, 1024), generator=gen, device=dev)
+    grad = torch.randn((8, 1024, 1920), generator=gen, device=dev
+                       ).to(torch.bfloat16)
+    want_t = table.clone().requires_grad_(True)
+    want = F.embedding(tokens, want_t)
+    want.backward(grad)
+    split = sharding.distribute(table, sharding.to_placements(
+        ("model", None), mesh["model"]), mesh["model"])
+    split.requires_grad_(True)
+    with tp.model_context():
+        got = L.embedding(tokens, split)
+        got.backward(tp.rewrap(got, grad))
+    got_out, got_grad = got.full_tensor(), split.grad.full_tensor()
+    res = {"forward_bit_equal": bool(torch.equal(got_out, want)),
+           "grad_bit_equal": bool(torch.equal(got_grad, want_t.grad)),
+           "forward_err": rel_err(got_out, want),
+           "grad_err": rel_err(got_grad, want_t.grad)}
+    log(f"(p3) vocab-parallel embedding (50257 x 1920, 8 x 1024 tokens): "
+        f"forward bit-equal {res['forward_bit_equal']}, table gradient "
+        f"bit-equal {res['grad_bit_equal']} (rel {res['grad_err'][1]:.2e})")
+    if res["forward_err"][1] > 1e-2 or res["grad_err"][1] > 1e-2:
+        raise AssertionError(f"(p3) vocab-parallel embedding: {res}")
+    return res
+
+
+def _tp_cli_cmd() -> list:
+    """(p4)'s launcher: ``--model-mesh 1`` under ``torch.distributed.run``
+    on the card (``_run_all``'s form: the arguments after ``-m``)."""
+    return ["torch.distributed.run", "--nproc_per_node", "1", "--master-port",
+            str(_free_port()), "-m", "repro_torch.launch.train", "--arch",
+            "gpt2", "--variant", "reduced", "--model-mesh", "1", "--steps",
+            "3"]
+
+
+def _tp_cli(run: tuple) -> dict:
+    """(p4): the launcher's run (``_tp_cli_cmd``; seconds, stdout lines),
+    made beside (o5)'s launchers."""
+    seconds, lines = run
+    out = {"seconds": seconds,
+           "lines": [l for l in lines if l.startswith(("step", "gpt2",
+                                                       "final"))]}
+    log(f"(p4) launch.train --model-mesh 1 under torch.distributed.run "
+        f"(beside (o5)'s launchers): exit 0 in {seconds:.1f} s: "
+        f"{out['lines']}")
+    if not any("mesh data=1 x model=1" in l for l in lines):
+        raise AssertionError(f"(p4) launcher printed {lines[-20:]}")
+    return out
+
+
+def phase_tp(report: dict, dev, cli: tuple) -> dict:
+    """(p): the model axis on one card (NCCL, world size 1); ``cli`` is
+    (p4)'s launcher run (``_tp_cli``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    _release()
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_host_mesh(data=1, model=1, device_type="cuda")
+        out = _tp_trainer_pair(dev, mesh)
+        m, f = out["mesh"], out["flat"]
+        log(f"(p1) mesh against flat: loss gap {out['loss_gap']:.3e} (tol "
+            f"5e-3); state {out['state_gap']} (tol 2e-3 in norm); PowerSGD "
+            f"launches a compressed leaf a step "
+            f"{out['powersgd_per_leaf_step']:.2f} over "
+            f"{m['compressed_leaves']} leaves; model-group collectives a "
+            f"step {m['collectives_total']} {m['collectives']}; peak "
+            f"{m['peak_bytes'] / 2**30:.2f} GiB (flat "
+            f"{f['peak_bytes'] / 2**30:.2f}, (c) "
+            f"{report['main']['peak_bytes'] / 2**30:.2f})")
+        if not out["loss_gap"] < 5e-3:
+            raise AssertionError(f"(p1) losses {m['loss']} vs {f['loss']}")
+        if not out["state_gap"]["max_rel_norm"] < 2e-3:
+            raise AssertionError(f"(p1) state gap {out['state_gap']}")
+        if out["powersgd_per_leaf_step"] != 4:
+            raise AssertionError(f"(p1) PowerSGD launches {m['launches']}")
+        out["auto"] = _tp_auto(dev, mesh)
+        if not out["auto"]["loss_gap"] < 5e-3:
+            raise AssertionError(f"(p2) auto losses {out['auto']}")
+        out["embedding"] = _tp_embedding(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["cli"] = _tp_cli(cli)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(p) model axis: {out['seconds']:.1f} s")
+    report["tp"] = out
+    return out["mesh"]["launches"]
 
 
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
                  moe_launches: dict, families2_launches: dict,
-                 elastic_launches: dict, serve_launches: dict) -> dict:
+                 elastic_launches: dict, serve_launches: dict,
+                 tp_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -3800,7 +4199,8 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "launches_moe": moe_launches[wrapper],
                  "launches_families2": families2_launches[wrapper],
                  "launches_elastic": elastic_launches[wrapper],
-                 "launches_serve": serve_launches[wrapper]}
+                 "launches_serve": serve_launches[wrapper],
+                 "launches_tp": tp_launches[wrapper]}
         entry["device_ms"] = total("device_ms")
         # (l)'s groups (the MoE's expert stacks, qwen3-32b's mlp) and
         # (m2k)'s (zamba2-7b's Mamba2 projections)
@@ -3848,6 +4248,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                     "launches_pipelined": pipe_launches[name],
                     "launches_elastic": elastic_launches[name],
                     "launches_serve": serve_launches[name],
+                    "launches_tp": tp_launches[name],
                     "max_abs_err": float(max(c[name] for c in
                                              report["pack_checks"])),
                     "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3867,6 +4268,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "replaces": NEW_REPLACES[name],
                  "launches": attn["launches"][name],
                  "launches_serve": serve_launches[name],
+                 "launches_tp": tp_launches[name],
                  "max_abs_err": max(c["max_abs_err"][key]
                                     for c in attn["checks"] for key in keys),
                  **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
@@ -3885,6 +4287,7 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                 "replaces": NEW_REPLACES["hist_counts"],
                 "launches": hist["launches"]["hist_counts"],
                 "launches_serve": serve_launches["hist_counts"],
+                "launches_tp": tp_launches["hist_counts"],
                 "max_abs_err": max(hist[k]["max_abs_err"]
                                    for k in ("pooled", "ragged", "outliers")),
                 **{key: hist["timing"][key] for key in
@@ -3931,11 +4334,13 @@ def main() -> int:
     moe_launches = phase_families(report, dev, args.profile)
     families2_launches = phase_families2(report, dev, args.profile)
     elastic_launches = phase_elastic(report, dev)
-    serve_launches = phase_serve(report, dev)
+    # (p4)'s launcher runs beside (o5)'s
+    serve_launches, (tp_cli,) = phase_serve(report, dev, also=[_tp_cli_cmd()])
+    tp_launches = phase_tp(report, dev, tp_cli)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
                         overlap_launches, moe_launches, families2_launches,
-                        elastic_launches, serve_launches)
+                        elastic_launches, serve_launches, tp_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

@@ -4,7 +4,9 @@
 ``full`` (published widths), ``reduced`` (CPU-scale) and ``long``, the
 long-context decode variant (the full widths at ``sliding_window=8192``,
 xlstm-125m's recurrent state as published, ``None`` for gpt2 and
-whisper-base, whose contexts are bounded).
+whisper-base, whose contexts are bounded). ``sharding_mode(arch)`` is the
+step mode a config trains under on a mesh: ``dp_tp``, or ``auto`` for the
+three whose replicated parameters cannot fit (``train.step``).
 """
 from __future__ import annotations
 
@@ -40,3 +42,7 @@ def get_config(arch: str, variant: str = "full"):
     if variant == "long":
         return mod.LONG_CONTEXT
     raise ValueError(f"unknown variant {variant!r}")
+
+
+def sharding_mode(arch: str) -> str:
+    return arch_module(arch).SHARDING_MODE

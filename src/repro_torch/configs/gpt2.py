@@ -37,3 +37,4 @@ GPT2_FIDELITY = ModelConfig(
 FULL = GPT2_2_5B
 REDUCED = GPT2_FIDELITY
 LONG_CONTEXT = None
+SHARDING_MODE = "dp_tp"

@@ -16,3 +16,4 @@ REDUCED = ModelConfig(
     num_experts=4, experts_per_token=2, num_stages=2,
 )
 LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)  # long_500k variant
+SHARDING_MODE = "auto"

@@ -14,3 +14,4 @@ REDUCED = ModelConfig(
     d_ff=1024, vocab_size=512, head_dim=64,
 )
 LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)
+SHARDING_MODE = "auto"

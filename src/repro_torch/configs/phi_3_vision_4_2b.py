@@ -15,3 +15,4 @@ REDUCED = ModelConfig(
     d_ff=512, vocab_size=512, num_patches=16,
 )
 LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)
+SHARDING_MODE = "dp_tp"

@@ -14,3 +14,4 @@ REDUCED = ModelConfig(
     d_ff=512, vocab_size=512, qkv_bias=True, tie_embeddings=True,
 )
 LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)
+SHARDING_MODE = "dp_tp"

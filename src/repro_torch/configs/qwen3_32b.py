@@ -14,3 +14,4 @@ REDUCED = ModelConfig(
     d_ff=512, vocab_size=512, head_dim=64, qk_norm=True,
 )
 LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)
+SHARDING_MODE = "dp_tp"

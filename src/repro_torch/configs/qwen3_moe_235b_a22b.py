@@ -15,3 +15,4 @@ REDUCED = ModelConfig(
     d_ff=256, vocab_size=512, num_experts=4, experts_per_token=2,
 )
 LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)
+SHARDING_MODE = "auto"

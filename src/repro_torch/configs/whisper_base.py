@@ -13,3 +13,4 @@ REDUCED = ModelConfig(
     d_ff=256, vocab_size=512, audio_frames=30, max_position=4096,
 )
 LONG_CONTEXT = None  # skipped: whisper's decoder context is architecturally bounded
+SHARDING_MODE = "dp_tp"

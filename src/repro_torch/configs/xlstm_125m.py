@@ -13,3 +13,4 @@ REDUCED = ModelConfig(
     d_ff=0, vocab_size=512, chunk=16,
 )
 LONG_CONTEXT = FULL  # recurrent state: long_500k runs natively
+SHARDING_MODE = "dp_tp"

@@ -14,3 +14,4 @@ REDUCED = ModelConfig(
     d_ff=256, vocab_size=512, ssm_state=16, chunk=16, attn_every=2,
 )
 LONG_CONTEXT = dataclasses.replace(FULL, sliding_window=8192)
+SHARDING_MODE = "dp_tp"

@@ -38,6 +38,7 @@ __all__ = [
     "SyncChunk", "make_bucket_layout", "layout_for_tree", "sync_chunks",
     "is_stacked_state", "init_flat_ef", "stack_state", "unstack_state",
     "resize_stacked_state", "bucketed_sync_grads", "sync_chunk_grads",
+    "bucketing_supported",
 ]
 
 PsumFn = Callable[[torch.Tensor], torch.Tensor]
@@ -253,6 +254,16 @@ def init_flat_ef(layout: BucketLayout, device="cpu") -> dict[str, torch.Tensor]:
     next step's payload before quantizing."""
     return {EF_PREFIX + path: torch.zeros(shape, dtype=F32, device=device)
             for bucket in layout.buckets for path, shape in bucket.members}
+
+
+def bucketing_supported(mesh) -> bool:
+    """Whether the bucketed executor serves this mesh: model size 1 only.
+    Stacked group state mixes leaves with different TP splits in one
+    array, so its EF would be replicated over ``model``, and adding it
+    would gather every split gradient (the reference's rule)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return True
+    return mesh.size(mesh.mesh_dim_names.index("model")) == 1
 
 
 # ------------------------------------------------------------ state plumbing

@@ -24,14 +24,17 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
+from repro_torch.dist import tp
+from repro_torch.dist.collectives import make_model_psum, model_all_gather
 from . import bucketing
 from . import wire as _wire
 from .bucketing import BucketLayout
 from .config import DEFAULT_BUCKET_BYTES
-from .powersgd import (LowRankState, compress_leaf, compressed_bytes, fold_in,
-                       init_leaf_state, resize_rank)
+from .powersgd import (LowRankState, compress_leaf, compress_leaf_tp,
+                       compressed_bytes, fold_in, init_leaf_state, resize_rank)
 
 __all__ = ["LeafInfo", "CompressionPlan", "NO_COMPRESSION", "classify_leaves",
            "make_plan", "init_compressor_state", "sync_grads",
@@ -238,12 +241,19 @@ def sync_grads(grads: Any, comp_state: dict[str, LowRankState],
     executor) writes the new EF residuals into ``comp_state``'s buffers
     (``bucketing.bucketed_sync_grads``). Returns (synced grads, new
     compressor state).
+
+    Tensor parallelism: gradients and compressor state that are DTensors
+    (each placed as its parameter, no ``Partial`` left) sync through
+    ``_sync_tp`` on their local shards.
     """
     if bucketed is None:
         bucketed = bucketing.is_stacked_state(comp_state)
     if codec is not None and not bucketed:
         raise ValueError("wire coding (codec) requires the bucketed executor; "
                          "the per-leaf path is the raw parity oracle")
+    if any(isinstance(g, DTensor) for g in tree.leaves(grads)):
+        return _sync_tp(grads, comp_state, plan, psum_mean, use_kernels,
+                        bucketed, bucket_bytes, codec, donate)
     if bucketed:
         layout = bucketing.layout_for_tree(grads, plan, bucket_bytes)
         return bucketing.bucketed_sync_grads(grads, comp_state, layout,
@@ -261,6 +271,52 @@ def sync_grads(grads: Any, comp_state: dict[str, LowRankState],
             out_leaves.append(g_hat)
         else:
             out_leaves.append(psum_mean(g))
+    return tree.unflatten(grads, out_leaves), new_state
+
+
+def _sync_tp(grads, comp_state, plan, psum_mean, use_kernels, bucketed,
+             bucket_bytes, codec, donate):
+    """The sync of DTensor gradients (the ``dp_tp`` step on a ``model``
+    axis). The bucketed executor runs at model size 1 only
+    (``bucketing.bucketing_supported``), where a shard is the whole leaf:
+    it syncs the local tensors. The per-leaf executor runs every leaf in
+    sorted-path order on every process: compressed leaves through
+    ``compress_leaf_tp`` by where the parameter is split, the others
+    through the DP mean of the local shard."""
+    like = next(g for g in tree.leaves(grads) if isinstance(g, DTensor))
+    mesh = like.device_mesh
+    local_state = lambda st: (type(st)(*(tp.local(t) for t in st))
+                              if isinstance(st, LowRankState) else tp.local(st))
+    rewrap_state = lambda old, new: (
+        type(old)(*(tp.rewrap(o, n) for o, n in zip(old, new)))
+        if isinstance(old, LowRankState) else tp.rewrap(old, new))
+    if bucketed:
+        if tp.model_size(mesh) != 1:
+            raise ValueError("the bucketed sync needs model size 1 "
+                             "(bucketing_supported); use bucketed=False")
+        synced, new = sync_grads(
+            tree.tree_map(tp.local, grads),
+            {k: local_state(v) for k, v in comp_state.items()}, plan,
+            psum_mean, use_kernels, True, bucket_bytes, codec, donate)
+        return (tree.tree_map(tp.rewrap, grads, synced),
+                {k: rewrap_state(comp_state[k], v) for k, v in new.items()})
+    group = mesh.get_group("model")
+    index = mesh.get_local_rank("model")
+    model_psum = make_model_psum(group)
+    gather = lambda t, dim: model_all_gather(t, dim, group)
+    rank_by_path = plan.as_dict()
+    out_leaves = []
+    new_state = dict(comp_state)
+    for path, g in tree.flatten_with_path(grads):
+        if path in rank_by_path:
+            st = comp_state[path]
+            g_hat, new = compress_leaf_tp(
+                tp.local(g), local_state(st), tp.shard_dim(g), index,
+                psum_mean, model_psum, gather, use_kernels=use_kernels)
+            new_state[path] = rewrap_state(st, new)
+            out_leaves.append(tp.rewrap(g, g_hat))
+        else:
+            out_leaves.append(tp.rewrap(g, psum_mean(tp.local(g))))
     return tree.unflatten(grads, out_leaves), new_state
 
 

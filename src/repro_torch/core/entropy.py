@@ -12,19 +12,30 @@ alpha (fraction of iterations measured; the gate lives in the controller).
 
 The measurement stays on the device: ``grads_entropy`` returns a 0-d tensor
 and the trainer reads it at its next flush.
+
+Tensor parallelism: a DTensor leaf is sampled at the positions
+``strided_sample`` takes from the whole leaf (``split_sample``: each
+process reads the ones in its shard), and its moments are summed over the
+mesh dims it is split on; no process gathers a gradient leaf. The
+histogram estimator gathers the sample itself (a beta-fraction).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import math
+
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
+from repro_torch.dist import tp
 
 __all__ = ["GDSConfig", "strided_sample", "gaussian_entropy",
            "histogram_entropy", "sample_moments", "entropy_from_moments",
-           "grads_entropy"]
+           "grads_entropy", "split_sample"]
 
 # log(2*pi*e), rounded through float32 as the reference computes it
 _LOG_2PI_E = float(np.log(np.float32(2.0 * np.pi)) + np.float32(1.0))
@@ -43,6 +54,44 @@ def strided_sample(x: torch.Tensor, beta: float) -> torch.Tensor:
     k = max(1, int(n * beta))
     stride = max(1, n // k)
     return flat[: stride * k: stride]
+
+
+def split_sample(x: DTensor, beta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``strided_sample`` of the whole leaf ``x`` read from this process's
+    shard: (values, owned), both over the sample's positions; a position
+    outside the shard reads 0 and is not owned. The global flat positions
+    ``0, stride, ...`` are mapped to global coordinates and, where every
+    coordinate falls in the shard, to the shard's flat index."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    loc = x.to_local()
+    shape = tuple(x.shape)
+    n = math.prod(shape)
+    k = n if beta >= 1.0 else max(1, int(n * beta))
+    stride = 1 if beta >= 1.0 else max(1, n // k)
+    lshape, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    pos = torch.arange(k, device=loc.device, dtype=torch.int64) * stride
+    own = torch.ones((k,), dtype=torch.bool, device=loc.device)
+    lidx = torch.zeros((k,), dtype=torch.int64, device=loc.device)
+    gstride, lstride = n, math.prod(lshape)
+    for d in range(len(shape)):
+        gstride //= shape[d]
+        lstride //= max(1, lshape[d])
+        c = (pos // gstride) % shape[d] - offset[d]
+        own &= (c >= 0) & (c < lshape[d])
+        lidx += c * lstride
+    vals = loc.reshape(-1)[torch.where(own, lidx, torch.zeros_like(lidx))]
+    return torch.where(own, vals.float(), torch.zeros((), device=loc.device)), own
+
+
+def _sum_over_split(t: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """``t`` summed over the mesh dims ``like`` is split on."""
+    t = t.contiguous()
+    for name in tp.sharded_dims(like):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                        group=like.device_mesh.get_group(name))
+    return t
 
 
 def gaussian_entropy(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -88,8 +137,35 @@ class GDSConfig:
 
 
 def _sampled_leaves(grads, cfg: GDSConfig) -> list[torch.Tensor]:
-    return [strided_sample(l, cfg.beta).float()
-            for l in tree.leaves(grads) if l.numel() > 16]
+    out = []
+    for l in tree.leaves(grads):
+        if l.numel() <= 16:
+            continue
+        if isinstance(l, DTensor):
+            out.append(_sum_over_split(split_sample(l, cfg.beta)[0], l))
+        else:
+            out.append(strided_sample(l, cfg.beta).float())
+    return out
+
+
+def _split_moments(leaves, cfg: GDSConfig):
+    """The pooled moments of DTensor leaves: per-leaf local (count, sum,
+    sum of squares), each summed over the leaf's split in one collective
+    per mesh dim, then added in leaf order."""
+    parts, likes = [], []
+    for l in leaves:
+        if isinstance(l, DTensor):
+            v, own = split_sample(l, cfg.beta)
+            parts += [torch.sum(own.to(torch.float32)), torch.sum(v),
+                      torch.sum(v * v)]
+        else:
+            v = strided_sample(l, cfg.beta).float()
+            parts += [torch.full((), float(v.shape[0]), device=v.device),
+                      torch.sum(v), torch.sum(v * v)]
+        likes += [l] * 3
+    sums = tp.leafwise_sums(parts, likes)
+    n, s1, s2 = (sum(sums[i::3]) for i in range(3))
+    return n, s1, s2
 
 
 def sample_moments(grads, cfg: GDSConfig = GDSConfig(), lead_mask=None):
@@ -109,6 +185,8 @@ def sample_moments(grads, cfg: GDSConfig = GDSConfig(), lead_mask=None):
     if not leaves:
         z = torch.zeros(())
         return z, z, z
+    if lead_mask is None and any(isinstance(l, DTensor) for l in leaves):
+        return _split_moments(leaves, cfg)
     samples = [strided_sample(l, cfg.beta).float() for l in leaves]
     if lead_mask is None:
         n = torch.tensor(float(sum(s.shape[0] for s in samples)),

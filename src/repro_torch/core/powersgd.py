@@ -10,6 +10,12 @@ bucketed shape groups are (E, m, n) stacks compressed per slice with one
 collective per factor; >3-D leaves fold to one batch dim. Compression
 internals run in fp32 whatever the gradient dtype.
 
+``compress_leaf_tp`` compresses one tensor-parallel shard of a leaf (the
+``model`` mesh axis): the same round on this process's columns or rows,
+with the sums GSPMD inserts in the reference as explicit model-group
+collectives, so every shard ends up with its part of the whole leaf's ĝ
+and EF, and every process with the whole Q.
+
 Random warm starts come from explicit ``torch.Generator``s seeded by
 ``fold_in(seed, i)``, the port's counterpart of ``jax.random.fold_in``;
 they are not the reference's numbers, so parity tests copy Q across.
@@ -23,7 +29,7 @@ import torch
 from repro_torch.kernels.ref import gram_schmidt
 
 __all__ = ["LowRankState", "gram_schmidt", "fold_in", "normal",
-           "init_leaf_state", "compress_leaf", "resize_rank",
+           "init_leaf_state", "compress_leaf", "compress_leaf_tp", "resize_rank",
            "compressed_bytes", "ef_norm_sq"]
 
 PsumFn = Callable[[torch.Tensor], torch.Tensor]
@@ -70,39 +76,17 @@ def init_leaf_state(shape: tuple[int, ...], rank: int, seed: int,
 
 
 def ef_norm_sq(comp: dict) -> torch.Tensor:
-    """Total squared error-feedback residual across a compressor dict."""
+    """Total squared error-feedback residual across a compressor dict (a
+    DTensor residual's local squares summed over its split)."""
+    from repro_torch.dist import tp
+    errs = [st.err for st in comp.values() if isinstance(st, LowRankState)]
+    sq = [torch.sum(tp.local(e).to(F32) ** 2) for e in errs]
+    if any(tp.sharded_dims(e) for e in errs):
+        sq = tp.leafwise_sums(sq, errs)
     total = torch.zeros((), dtype=F32)
-    for st in comp.values():
-        if isinstance(st, LowRankState):
-            total = total.to(st.err.device) + torch.sum(st.err.to(F32) ** 2)
+    for e, v in zip(errs, sq):
+        total = total.to(e.device) + v
     return total
-
-
-def _compress_kernels(grad, state, psum_mean):
-    """One PowerSGD round through the Hopper kernels (EF add fused)."""
-    from repro_torch.kernels import ops as kops
-    if grad.ndim == 2:
-        p_fn, orth, q_fn, dec = (kops.lowrank_p, kops.orthonormalize,
-                                 kops.lowrank_q, kops.decompress_residual)
-    else:
-        p_fn, orth, q_fn, dec = (kops.lowrank_p3, kops.orthonormalize3,
-                                 kops.lowrank_q3, kops.decompress_residual3)
-    p = psum_mean(p_fn(grad, state.err, state.q))       # DP collective #1
-    p_hat = orth(p)
-    q_new = psum_mean(q_fn(grad, state.err, p_hat))     # DP collective #2
-    g_hat, err = dec(p_hat, q_new, grad, state.err)
-    return g_hat.to(grad.dtype), LowRankState(q=q_new, err=err.to(grad.dtype))
-
-
-def _compress_plain(grad, state, psum_mean):
-    """One PowerSGD round in plain torch (2-D or batched (E, m, n))."""
-    m_mat = grad.to(F32) + state.err.to(F32)          # error feedback add
-    p = psum_mean(m_mat @ state.q)                     # DP collective #1
-    p_hat = _orthonormalize(p)
-    q_new = psum_mean(m_mat.transpose(-1, -2) @ p_hat)  # DP collective #2
-    g_hat = p_hat @ q_new.transpose(-1, -2)            # decompress
-    err = (m_mat - g_hat).to(grad.dtype)               # new residual
-    return g_hat.to(grad.dtype), LowRankState(q=q_new, err=err)
 
 
 @torch.no_grad()
@@ -124,9 +108,96 @@ def compress_leaf(grad: torch.Tensor, state: LowRankState,
             err=st2.err.reshape(shape))
     if grad.ndim not in (2, 3):
         raise ValueError(f"unsupported grad ndim {grad.ndim}")
+    return _round(grad, state.err, state.q, use_kernels, psum_mean, psum_mean)
+
+
+def _round_fns(ndim: int, use_kernels: bool):
+    """(P, orthonormalize, Q, decompress) of one PowerSGD round on (m, n)
+    or (E, m, n) operands: the Hopper kernels (EF add fused) or plain torch
+    in fp32."""
     if use_kernels:
-        return _compress_kernels(grad, state, psum_mean)
-    return _compress_plain(grad, state, psum_mean)
+        from repro_torch.kernels import ops as kops
+        if ndim == 2:
+            return (kops.lowrank_p, kops.orthonormalize, kops.lowrank_q,
+                    kops.decompress_residual)
+        return (kops.lowrank_p3, kops.orthonormalize3, kops.lowrank_q3,
+                kops.decompress_residual3)
+    m_of = lambda g, e: g.to(F32) + e.to(F32)
+
+    def dec(p_hat, q, g, e):
+        g_hat = p_hat @ q.transpose(-1, -2)
+        return g_hat, m_of(g, e) - g_hat
+
+    return (lambda g, e, q: m_of(g, e) @ q, _orthonormalize,
+            lambda g, e, p: m_of(g, e).transpose(-1, -2) @ p, dec)
+
+
+def _round(grad, err, q, use_kernels: bool, reduce_p: PsumFn,
+           reduce_q: PsumFn, local_rows: PsumFn = _identity_psum):
+    """One PowerSGD round: P = (G+E)·Q, reduced (the DP collective #1 and
+    any model-group sum or gather) and orthonormalized, cut to this
+    process's rows; Q' = (G+E)ᵀ·P̂, reduced (collective #2); ĝ = P̂Q'ᵀ and
+    E' = G+E-ĝ. Returns (ĝ, new state) in the gradient's dtype."""
+    p_fn, orth, q_fn, dec = _round_fns(grad.ndim, use_kernels)
+    p_hat = local_rows(orth(reduce_p(p_fn(grad, err, q))))
+    q_new = reduce_q(q_fn(grad, err, p_hat))
+    g_hat, new_err = dec(p_hat, q_new, grad, err)
+    return g_hat.to(grad.dtype), LowRankState(q=q_new,
+                                              err=new_err.to(grad.dtype))
+
+
+@torch.no_grad()
+def compress_leaf_tp(grad: torch.Tensor, state: LowRankState, dim: int | None,
+                     index: int, psum_mean: PsumFn, model_psum: PsumFn,
+                     model_gather, use_kernels: bool = False):
+    """One PowerSGD round on this process's shard of a leaf split over the
+    model group on ``dim`` (of the whole leaf's dims; None: held whole).
+
+    ``grad`` and ``state.err`` are the local shards, ``state.q`` the whole
+    warm-start Q; ``index`` is this process's place in the model group,
+    ``model_psum`` sums over it and ``model_gather(t, dim)`` concatenates
+    its shards. By where the split falls:
+
+      * column (the last dim): P = (G+E)·Q over the local columns and their
+        rows of Q is a partial sum: summed over the model group, then the
+        DP mean; Q' = (G+E)ᵀ·P̂ is local rows of the whole Q';
+      * row (dim -2): P is local rows: the DP mean, then gathered over the
+        model group and orthonormalized whole; Q' = (G+E)ᵀ·P̂ over the
+        local rows is a partial sum: summed, then the DP mean;
+      * a leading dim (MoE experts): every slice is local, no model sum.
+
+    Returns (the local shard of ĝ, the new state: whole Q, local EF).
+    """
+    nd = grad.ndim
+    if dim is None:
+        return compress_leaf(grad, state, psum_mean, use_kernels)
+    if dim < nd - 2:
+        # expert slices: the round is local to each; Q's slices follow
+        q_loc = state.q.narrow(dim, index * grad.shape[dim], grad.shape[dim])
+        g_hat, st = compress_leaf(grad, LowRankState(q_loc.contiguous(),
+                                                     state.err),
+                                  psum_mean, use_kernels)
+        return g_hat, LowRankState(model_gather(st.q, dim), st.err)
+    if nd > 3:
+        shape = grad.shape
+        fold = lambda t: t.reshape((-1,) + tuple(t.shape[-2:]))
+        g_hat, st = compress_leaf_tp(
+            fold(grad), LowRankState(fold(state.q), fold(state.err)),
+            dim - nd + 3, index, psum_mean, model_psum, model_gather,
+            use_kernels)
+        return g_hat.reshape(shape), LowRankState(
+            st.q.reshape(state.q.shape), st.err.reshape(shape))
+    if dim == nd - 1:                                   # column-parallel
+        n_loc = grad.shape[-1]
+        q_loc = state.q.narrow(-2, index * n_loc, n_loc).contiguous()
+        g_hat, st = _round(grad, state.err, q_loc, use_kernels,
+                           lambda p: psum_mean(model_psum(p)), psum_mean)
+        return g_hat, LowRankState(model_gather(st.q, -2), st.err)
+    m_loc = grad.shape[-2]                              # row-parallel
+    return _round(grad, state.err, state.q, use_kernels,
+                  lambda p: model_gather(psum_mean(p), -2),
+                  lambda q: psum_mean(model_psum(q)),
+                  lambda p: p.narrow(-2, index * m_loc, m_loc).contiguous())
 
 
 def resize_rank(state: LowRankState, new_rank: int, seed: int) -> LowRankState:

@@ -6,8 +6,16 @@ divided by the world size. Without an initialised process group (or at
 world size 1) it is the identity, the reference's single-worker case.
 
 Every function takes an optional process ``group``: the data group of a
-``(pipe, data)`` mesh (``launch/mesh.py``), where each pipeline stage owns
-a DP group of its own. Without one they act on the default group.
+``(pipe, data)`` or ``(data, model)`` mesh (``launch/mesh.py``), where each
+pipeline stage or tensor-parallel rank owns a DP group of its own. Without
+one they act on the default group.
+
+The model group of a ``(data, model)`` mesh has its own two collectives:
+``make_model_psum`` sums a tensor over it and ``model_all_gather``
+concatenates its shards along a dim. They are what GSPMD inserts on the
+reference's AUTO ``model`` axis, made explicit for the compressed sync of
+tensor-parallel leaves; they run at model size 1 too, so the card, which
+has one device, drives them.
 
 ``PodCarrier`` is the outer loop's pod axis in one process (the port of
 the reference's 1-device-per-pod ``pod`` mesh, which runs every pod in one
@@ -24,7 +32,7 @@ import torch.distributed as dist
 from repro_torch import tree
 
 __all__ = ["dp_world_size", "dp_rank", "make_dp_pmean", "dp_all_gather",
-           "dp_barrier", "PodCarrier"]
+           "dp_barrier", "make_model_psum", "model_all_gather", "PodCarrier"]
 
 
 def dp_world_size(group=None) -> int:
@@ -61,6 +69,27 @@ def dp_all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(world)]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
+
+
+def make_model_psum(group) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Sum over the model group (a contiguous copy is reduced; the input
+    is never written)."""
+
+    def psum(t: torch.Tensor) -> torch.Tensor:
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    return psum
+
+
+def model_all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The model group's shards of a tensor concatenated along ``dim``, in
+    rank order."""
+    parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def dp_barrier(group=None) -> None:

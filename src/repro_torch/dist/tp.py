@@ -1,0 +1,235 @@
+"""Tensor parallelism over DTensor: the helpers the step, the sync, the
+entropy sample and the optimizer share.
+
+The parameters of a run on a mesh with a ``model`` axis are DTensors
+placed by ``dist.sharding``'s rules (on the ``model`` sub-mesh in the
+``dp_tp`` step, on the whole ``(data, model)`` mesh in ``auto``). The
+forward runs under :func:`model_context`, where DTensor's sharding
+propagation plays the part of GSPMD's AUTO axis and plain tensors made
+inside the model (positions, masks) count as replicated. Everything after
+the gradients works on the local shards (``local``): the kernels are
+ctypes launches on ``data_ptr()`` and never see a DTensor, and the sums
+that GSPMD inserts in the reference are explicit collectives over the
+mesh dims a leaf is split on (``sharded_dims``, ``leafwise_sums``), issued in
+one order on every process.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.dist.sharding import contiguous_stride
+
+__all__ = ["TP_FAMILIES", "BatchSplit", "check_family", "gather_unless_divides",
+           "leafwise_sums", "local", "model_context", "model_size",
+           "normalize_grad", "rewrap", "shard_dim", "sharded_dims"]
+
+# the families whose layers run under DTensor; the others refuse a model
+# axis above 1 (ROADMAP item 12a')
+TP_FAMILIES = ("dense", "moe")
+
+
+def model_size(mesh) -> int:
+    """Size of the mesh's ``model`` axis (1 without one)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("model"))
+
+
+def check_family(family: str, mesh) -> None:
+    """Refuse tensor parallelism for a family whose layers do not run it."""
+    if model_size(mesh) > 1 and family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"family {family!r} on a model axis of {model_size(mesh)}: "
+            "tensor parallelism of the recurrent, hybrid, encoder-decoder "
+            "and VLM families is ROADMAP item 12a'")
+
+
+@contextlib.contextmanager
+def model_context(active: bool = True):
+    """Run a model whose parameters are DTensors: plain tensors made
+    inside count as replicated on the mesh."""
+    if not active:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        yield
+
+
+def local(t):
+    """The local shard of a DTensor (a view of its storage), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def rewrap(like: Any, t: torch.Tensor):
+    """``t`` (a local shard shaped as ``like``'s) as a DTensor placed as
+    ``like``; ``t`` itself when ``like`` is a plain tensor."""
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def shard_dim(t, mesh_dim: str = "model") -> int | None:
+    """The tensor dim a DTensor splits over ``mesh_dim`` (None if none)."""
+    if not isinstance(t, DTensor):
+        return None
+    names = t.device_mesh.mesh_dim_names
+    if mesh_dim not in names:
+        return None
+    p = t.placements[names.index(mesh_dim)]
+    return p.dim if isinstance(p, Shard) else None
+
+
+def sharded_dims(t) -> tuple[str, ...]:
+    """The mesh dims a DTensor is split over, in mesh order."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(n for n, p in zip(t.device_mesh.mesh_dim_names,
+                                   t.placements) if isinstance(p, Shard))
+
+
+def normalize_grad(g, like):
+    """A gradient placed as its parameter ``like``: DTensor's backward
+    hands back ``Partial`` sums or other splits, which must not reach the
+    sync or the optimizer."""
+    if not isinstance(like, DTensor):
+        return g
+    if not isinstance(g, DTensor):
+        return rewrap(like, g)
+    if tuple(g.placements) != tuple(like.placements):
+        g = g.redistribute(like.device_mesh, like.placements)
+    return g
+
+
+def leafwise_sums(values: list[torch.Tensor], likes: list) -> list[torch.Tensor]:
+    """Per-leaf global sums of local partial sums: ``values[i]`` (0-d) is
+    this process's sum over its shard of leaf ``likes[i]`` (a DTensor, or
+    a plain tensor held whole). Each value is summed over the mesh dims its
+    leaf is split on, every leaf's in one all-reduce per mesh dim: a value
+    not split on that dim enters from the dim's first process only. Plain
+    leaves come back as given, so a caller that adds the returned values in
+    order adds the same numbers in the same order as it would unsplit."""
+    meshes = [l.device_mesh for l in likes if isinstance(l, DTensor)]
+    if not meshes:
+        return list(values)
+    mesh = meshes[0]
+    vals = [v.to(torch.float32).reshape(()) for v in values]
+    splits = [sharded_dims(l) for l in likes]
+    for i, name in enumerate(mesh.mesh_dim_names):
+        first = mesh.get_local_rank(i) == 0
+        # built on the host's knowledge alone: no copy to the device
+        vec = torch.stack([v if first or name in split else torch.zeros_like(v)
+                           for v, split in zip(vals, splits)])
+        dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=mesh.get_group(name))
+        vals = list(vec.unbind(0))
+    return vals
+
+
+class BatchSplit:
+    """A batch-major tensor's local rows: ``local`` holds them, replicated
+    over every mesh dim but the batch split over the data axes; ``wrap`` makes a DTensor split
+    the same way from local rows, ``mean`` averages a per-shard mean over
+    the shards, and ``partial`` are the gradient placements of a
+    replicated weight used on these rows only. For a plain tensor ``wrap``
+    and ``mean`` are identities. ``split=False`` gathers every row."""
+
+    def __init__(self, t, split: bool = True) -> None:
+        self.mesh = t.device_mesh if isinstance(t, DTensor) else None
+        if self.mesh is None:
+            self.local, self.placements, self.partial, self.n = t, None, None, 1
+            return
+        self.placements = tuple(
+            Shard(0) if split and p == Shard(0) and n in ("pod", "data")
+            else Replicate()
+            for n, p in zip(self.mesh.mesh_dim_names, t.placements))
+        self.n = 1
+        for i, p in enumerate(self.placements):
+            if p == Shard(0):
+                self.n *= self.mesh.size(i)
+        self.local = t.redistribute(self.mesh, self.placements).to_local()
+        # the gradient of a replicated weight applied to these rows only
+        self.partial = tuple(Partial() if p == Shard(0) else Replicate()
+                             for p in self.placements)
+
+    def wrap(self, x: torch.Tensor):
+        if self.mesh is None:
+            return x
+        shape = torch.Size((x.shape[0] * self.n,) + tuple(x.shape[1:]))
+        return DTensor.from_local(x, self.mesh, self.placements,
+                                  run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        if self.n == 1:
+            return x
+        summed = tuple(Partial() if p == Shard(0) else Replicate()
+                       for p in self.placements)
+        return DTensor.from_local(x / self.n, self.mesh, summed,
+                                  run_check=False).full_tensor()
+
+
+def gather_unless_divides(t, dim: int, groups: int):
+    """``t`` with its split of ``dim`` gathered where the split does not
+    divide ``groups``, the number of whole groups (heads) ``dim`` is about
+    to be reshaped into: a shard boundary inside a group cannot be viewed
+    (GQA with fewer KV heads than the model axis)."""
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.ndim
+    mesh = t.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % t.ndim == dim
+          and groups % mesh.size(i) else p for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    DTensor view in the backward (of the head split before it) cannot view
+    the strided gradients of the local attention."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def local_heads(q, k, v, kv_heads: int):
+    """Attention's operands (B, T, heads, Dh) as local tensors, with
+    ``wrap(o, shape)``, which makes a DTensor of global ``shape`` from a
+    local output whose dim 0 holds the local batch rows and dim 2 the
+    local heads (merged with Dh or not). Attention is independent per batch
+    row and head, so a split of the batch over the data axes and of the
+    heads over ``model`` is kept where all three operands share it and it
+    divides the KV heads (a shard never cuts a GQA group); every other
+    split is gathered first."""
+    mesh = q.device_mesh
+
+    def keep(t):
+        return tuple(
+            p if (p == Shard(0) and n in ("pod", "data"))
+            or (p == Shard(2) and n == "model" and kv_heads % mesh.size(i) == 0)
+            else Replicate()
+            for i, (n, p) in enumerate(zip(mesh.mesh_dim_names, t.placements)))
+
+    kept = [keep(t) for t in (q, k, v)]
+    pl = tuple(p if all(kp[i] == p for kp in kept) else Replicate()
+               for i, p in enumerate(kept[0]))
+    locals_ = [_ContiguousGrad.apply(t.redistribute(mesh, pl).to_local())
+               for t in (q, k, v)]
+
+    def wrap(o: torch.Tensor, shape):
+        shape = torch.Size(shape)
+        return DTensor.from_local(o, mesh, pl, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+
+    return (*locals_, wrap)

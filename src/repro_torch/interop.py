@@ -10,6 +10,11 @@ dim; the port keeps one worker's state per process, so replica 0 is taken.
 Compressor entries are ``LowRankState`` pairs (q, err), or, under a coded
 wire, raw ``ef:<path>`` residuals, which come across as fp32 tensors.
 
+``from_reference(..., mesh=)`` places the state on a ``(data, model)``
+mesh as the port's trainer holds it (``train.step.distribute_state``): on
+the ``model`` sub-mesh, or with ``fsdp=True`` (the ``auto`` step) on the
+whole mesh; each process takes its own DP worker's compressor replica.
+
 The pipelined reference trainer's state (``stage_params`` with leaves
 (S, Lmax, ...), ``shared_params``, ``opt_m``/``opt_v`` as ``{"stage",
 "shared"}``, ``opt_step`` and ``comp`` with leaves (S, W, ...)) converts
@@ -50,8 +55,10 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_reference(state_np: dict[str, Any], device="cpu") -> dict[str, Any]:
+def from_reference(state_np: dict[str, Any], device="cpu", mesh=None,
+                   fsdp: bool = False) -> dict[str, Any]:
     conv = lambda t: tree.tree_map(lambda a: to_tensor(a, device), t)
+    w = 0 if mesh is None else mesh.get_local_rank("data")
     out: dict[str, Any] = {}
     for key in ("params", "opt_m", "opt_v", "stage_params", "shared_params"):
         if key in state_np:
@@ -61,11 +68,15 @@ def from_reference(state_np: dict[str, Any], device="cpu") -> dict[str, Any]:
                                     device)
     if "comp" in state_np:
         # flat: (W, ...) leaves; pipelined: (S, W, ...), worker after stage
-        worker = ((lambda a: np.asarray(a)[:, 0])
+        worker = ((lambda a: np.asarray(a)[:, w])
                   if "stage_params" in state_np
-                  else (lambda a: np.asarray(a)[0]))
+                  else (lambda a: np.asarray(a)[w]))
         out["comp"] = {key: _comp_entry(st, worker, device)
                        for key, st in state_np["comp"].items()}
+    if mesh is not None:
+        from repro_torch.train.step import distribute_state
+        out = distribute_state(out, mesh if fsdp else mesh["model"],
+                               fsdp=fsdp)
     return out
 
 

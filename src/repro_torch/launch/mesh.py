@@ -2,19 +2,23 @@
 
 Port of ``make_host_mesh`` from ``repro/launch/mesh.py``. Each process is
 one device of the mesh; the caller initialises the default process group
-with a world of ``pipe * data`` processes. The pipe axis is the outer one,
-so rank = s * data + w and each pipeline stage s owns a contiguous
-data-parallel group, as the reference lays it out:
+with a world of ``pipe * data`` or ``data * model`` processes. The outer
+axis is the slow one, so rank = s * data + w on a ``(pipe, data)`` mesh
+and rank = w * model + t on a ``(data, model)`` mesh: each pipeline stage
+owns a contiguous data-parallel group, and each DP worker a contiguous
+tensor-parallel group, as the reference lays them out:
 
   mesh = make_host_mesh(pipe=2, data=2, device_type="cpu")   # gloo
   mesh.get_group("pipe")   # this process's column: its stage peers
   mesh.get_group("data")   # this process's row: its stage's DP workers
+  mesh = make_host_mesh(data=2, model=2, device_type="cpu")
+  mesh["model"]            # the sub-mesh the dp_tp parameters live on
 
-The ``model`` and ``pod`` axes of a process mesh (tensor parallelism, and
-pods as processes across cards) are ROADMAP Queue 1 items 12 and 10b: a
-size above 1 raises. The elastic outer loop runs its pods in one process
-on ``make_pod_mesh``'s carrier, as the reference runs them on its
-1-device-per-pod mesh.
+``model`` > 0 builds the ``(data, model)`` mesh, at model size 1 too.
+A ``pipe`` or ``pod`` axis beside ``model`` > 1 raises (ROADMAP item
+12a'); pods as processes across cards are item 10b. The elastic outer
+loop runs its pods in one process on ``make_pod_mesh``'s carrier, as the
+reference runs them on its 1-device-per-pod mesh.
 """
 from __future__ import annotations
 
@@ -22,21 +26,43 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.dist.collectives import PodCarrier
 
-__all__ = ["make_host_mesh", "make_pod_mesh", "pipe_size"]
+__all__ = ["dp_axes", "make_host_mesh", "make_pod_mesh", "pipe_size",
+           "tp_axis"]
 
 
-def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
+def make_host_mesh(data: int = 1, model: int = 0, pod: int = 0,
                    pipe: int = 0, device_type: str = "cuda") -> DeviceMesh:
-    """A ``("pipe", "data")`` mesh (``("data",)`` with ``pipe=0``) over the
-    default process group's ranks; ``device_type`` is "cuda" (NCCL, one
-    card per process) or "cpu" (gloo)."""
-    if model > 1 or pod > 1:
-        raise ValueError(f"model={model}, pod={pod}: the model and pod mesh "
-                         "axes are not ported yet (ROADMAP Queue 1 item 12)")
+    """A mesh over the default process group's ranks: ``("data", "model")``
+    with ``model`` > 0, ``("pipe", "data")`` with ``pipe``, else
+    ``("data",)``; ``device_type`` is "cuda" (NCCL, one card per process)
+    or "cpu" (gloo)."""
+    if (pipe or pod > 1) and model > 1:
+        raise ValueError(f"pipe={pipe}, pod={pod}, model={model}: a pipe or "
+                         "pod axis beside a model axis is ROADMAP item 12a'")
+    if pod > 1:
+        raise ValueError(f"pod={pod}: pods as processes across cards are "
+                         "ROADMAP Queue 1 item 10b")
     if pipe:
         return init_device_mesh(device_type, (pipe, data),
                                 mesh_dim_names=("pipe", "data"))
+    if model:
+        return init_device_mesh(device_type, (data, model),
+                                mesh_dim_names=("data", "model"))
     return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes of a mesh, pod-major."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def tp_axis(mesh) -> str | None:
+    """The tensor-parallel axis of a mesh (None without one)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    return "model"
 
 
 def make_pod_mesh(n_pods: int, devices) -> PodCarrier:

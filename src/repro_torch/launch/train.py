@@ -51,8 +51,17 @@ there are ``--pods`` of them):
       --outer-k 5 --pods 2 --rounds 6 --recover \\
       --inject nan_grad@7,pod_drop:1@r2,pod_join@r4 --device cpu
 
-The flags are the reference launcher's, but for ``--model-mesh``, plus
-``--device``.
+``--model-mesh M`` runs the flat ``dp_tp`` step with tensor parallelism
+on a ``(data, model)`` mesh of ``data-mesh * M`` processes (rank = w * M
++ t; one process is enough for M = 1, which still runs the DTensor
+placements and the model-group collectives):
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch gpt2 --variant reduced \
+      --policy fixed --rank 8 --data-mesh 2 --model-mesh 2 --steps 4 \
+      --batch 8 --seq 32 --device cpu
+
+The flags are the reference launcher's, plus ``--device``.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ import argparse
 import dataclasses
 import json
 import os
+import socket
 
 import torch
 import torch.distributed as dist
@@ -121,6 +131,10 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--data-mesh", type=int, default=1,
                     help="data-parallel workers per stage in a world of "
                          "several processes")
+    ap.add_argument("--model-mesh", type=int, default=0,
+                    help="tensor-parallel processes per data-parallel "
+                         "worker: a (data, model) mesh of data-mesh * this "
+                         "many processes (0: no model axis)")
     ap.add_argument("--use-kernels", action="store_true",
                     help="run the PowerSGD products through the Hopper kernels")
     ap.add_argument("--wire", default="raw",
@@ -239,8 +253,11 @@ def main(argv=None) -> list[dict]:
     pipe_tag = (f", pipe={args.pipe} ({args.schedule}, stash={args.stash}"
                 f"{', overlapped sync' if args.overlap else ''})"
                 if args.pipe else "")
+    mesh_tag = (f", mesh data={args.data_mesh} x model={args.model_mesh}"
+                if args.model_mesh else "")
     say(f"{cfg.name}: {trainer.n_params/1e6:.1f}M params on {trainer.device}, "
-        f"policy={args.policy}{pipe_tag}, {trainer.controller.describe()}")
+        f"policy={args.policy}{pipe_tag}{mesh_tag}, "
+        f"{trainer.controller.describe()}")
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        batch_size=args.batch, seed=args.seed)
     # the Whisper and VLM families' batches carry the stubbed frontends'
@@ -349,20 +366,33 @@ def _process_mesh(args):
     default group from the environment ``torch.distributed.run`` sets, gloo
     on the CPU, NCCL with one card per process."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    want = max(1, args.pipe) * args.data_mesh
-    if world == 1 and args.data_mesh == 1:
+    model = args.model_mesh
+    want = max(1, args.pipe) * args.data_mesh * max(1, model)
+    if world == 1 and args.data_mesh == 1 and not model:
         return None          # every stage in this process (LocalPipe)
     if world != want:
         raise SystemExit(f"--pipe {args.pipe} --data-mesh {args.data_mesh} "
-                         f"needs {want} processes, the world has {world}")
+                         f"--model-mesh {model} needs {want} processes, the "
+                         f"world has {world}")
+    if model and (args.pipe or args.outer_k):
+        raise SystemExit("--model-mesh beside --pipe or --outer-k is ROADMAP "
+                         "item 12a'")
     cpu = args.device is not None and torch.device(args.device).type == "cpu"
     if not cpu:
         local = int(os.environ.get("LOCAL_RANK", "0"))
         torch.cuda.set_device(local)
         args.device = f"cuda:{local}"
     if not dist.is_initialized():
-        dist.init_process_group("gloo" if cpu else "nccl")
-    return make_host_mesh(pipe=args.pipe, data=args.data_mesh,
+        if "MASTER_ADDR" in os.environ:
+            dist.init_process_group("gloo" if cpu else "nccl")
+        else:                # one process started without the launcher
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            dist.init_process_group(
+                "gloo" if cpu else "nccl",
+                init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    return make_host_mesh(pipe=args.pipe, data=args.data_mesh, model=model,
                           device_type="cpu" if cpu else "cuda")
 
 

@@ -5,6 +5,14 @@ Conventions follow the reference: weights are stored ``(in, out)``, stacked
 layer leaves carry a leading layer dim, products come back in fp32, and
 results are cast to the activation dtype where the reference casts.
 
+Tensor parallelism (the ``model`` mesh axis): parameters may be DTensors
+(``dist.sharding``), and the layers then run under DTensor's sharding
+propagation (``dist.tp.model_context``). Two layers take the tensors'
+shards by hand: ``embedding`` looks up a vocab-sharded table with the
+vocab-parallel :class:`VocabParallelEmbedding` (DTensor's own lookup on a
+``Shard(0)`` table fails in its backward), and ``cross_entropy`` gathers
+vocab-sharded logits before it reduces them.
+
 One difference in bf16: the reference keeps the fp32 accumulator of a
 bf16 product (``preferred_element_type``); here the projection products
 run in the working dtype and are rounded to it before the fp32 cast. The
@@ -16,10 +24,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
+from repro_torch.dist import tp
+from repro_torch.dist.sharding import contiguous_stride
 
 F32 = torch.float32
 
@@ -44,6 +56,72 @@ def _mm(eq: str, x, w):
     mixed operands: fp32 x bf16 runs in fp32), returned in fp32."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return torch.einsum(eq, x.to(dt), w.to(dt)).to(F32)
+
+
+# --------------------------------------------------------------------------- embedding
+class VocabParallelEmbedding(torch.autograd.Function):
+    """Lookup in a table whose rows are split over a process group.
+
+    Each process holds rows ``[lo, lo + rows)``; it looks up the tokens it
+    owns, zero-fills the others and sums the result over ``group``, so
+    every process gets the whole lookup. The backward scatters the
+    gradient into the owned rows only (``embedding_dense_backward``, the
+    same deterministic sum as ``F.embedding``'s backward; at one process
+    the two agree bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, tokens, table, lo: int, group):
+        rows = table.shape[0]
+        ids = tokens - lo
+        own = (ids >= 0) & (ids < rows)
+        ids = torch.where(own, ids, torch.zeros_like(ids))
+        out = F.embedding(ids, table).masked_fill(~own[..., None], 0)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        ctx.save_for_backward(ids, own)
+        ctx.rows = rows
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, own = ctx.saved_tensors
+        grad = grad.masked_fill(~own[..., None], 0)
+        table_grad = torch.ops.aten.embedding_dense_backward(
+            grad.contiguous(), ids, ctx.rows, -1, False)
+        return None, table_grad, None, None
+
+
+def embedding(tokens, table):
+    """``F.embedding(tokens, table)``; for a DTensor table the lookup runs
+    on the local shards and comes back a DTensor placed as ``tokens``
+    (replicated over ``model``): a table split over ``model`` on its rows
+    through :class:`VocabParallelEmbedding`, any other split (FSDP over
+    ``data``) gathered first."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    keep = tuple(p if n == "model" else Replicate()
+                 for n, p in zip(names, table.placements))
+    if keep != tuple(table.placements):
+        table = table.redistribute(mesh, keep)
+    if isinstance(tokens, DTensor):
+        tok, tok_pl = tokens.to_local(), tokens.placements
+    else:
+        tok, tok_pl = tokens, (Replicate(),) * len(names)
+    # a process that looks up only its batch rows holds a partial sum of
+    # the table's gradient over the batch split
+    local = table.to_local(grad_placements=tuple(
+        Partial() if t == Shard(0) else p for p, t in zip(keep, tok_pl)))
+    if "model" in names and keep[names.index("model")] == Shard(0):
+        out = VocabParallelEmbedding.apply(
+            tok, local, mesh.get_local_rank("model") * local.shape[0],
+            mesh.get_group("model"))
+    else:
+        out = F.embedding(tok, local)
+    shape = tuple(tokens.shape) + (table.shape[-1],)
+    return DTensor.from_local(out, mesh, tok_pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 # --------------------------------------------------------------------------- norms
@@ -147,9 +225,11 @@ def _project_qkv(p, x, num_heads, num_kv_heads, head_dim, positions,
         q = q + p["q_bias"].to(F32)
         k = k + p["k_bias"].to(F32)
         v = v + p["v_bias"].to(F32)
-    q = q.reshape(B, T, num_heads, head_dim)
-    k = k.reshape(B, T, num_kv_heads, head_dim)
-    v = v.reshape(B, T, num_kv_heads, head_dim).to(x.dtype)
+    heads = tp.gather_unless_divides
+    q = heads(q, -1, num_heads).reshape(B, T, num_heads, head_dim)
+    k = heads(k, -1, num_kv_heads).reshape(B, T, num_kv_heads, head_dim)
+    v = heads(v, -1, num_kv_heads).reshape(
+        B, T, num_kv_heads, head_dim).to(x.dtype)
     if "q_norm_scale" in p:
         q = rms_norm(q, p["q_norm_scale"], norm_eps)
         k = rms_norm(k, p["k_norm_scale"], norm_eps)
@@ -204,9 +284,15 @@ def attn_apply(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
         positions = torch.arange(T, device=x.device).expand(B, T)
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            positions, rope_theta, use_rope, norm_eps)
+    wrap = None
+    if isinstance(q, DTensor):
+        # attention is per batch row and head: it runs on the local shards
+        q, k, v, wrap = tp.local_heads(q, k, v, num_kv_heads)
     o = blockwise_attention(q, k, v, causal=causal, window=window,
                             block_q=block_q)
-    o = o.reshape(B, T, num_heads * head_dim)
+    o = o.reshape(o.shape[0], T, -1)
+    if wrap is not None:
+        o = wrap(o, (B, T, num_heads * head_dim))
     return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype)
 
 
@@ -323,7 +409,14 @@ def lm_logits(x, embed_or_head, tie: bool):
 
 
 def cross_entropy(logits, labels, mask=None):
-    """Mean next-token CE in nats; logits (B,T,V) fp32, labels (B,T) int64."""
+    """Mean next-token CE in nats; logits (B,T,V) fp32, labels (B,T) int64.
+
+    DTensor logits (tensor parallelism) are gathered over every mesh dim
+    but the labels' batch split over the data axes; each process then
+    takes the CE of its batch rows, and the sums are added over the
+    split."""
+    if isinstance(logits, DTensor):
+        return _cross_entropy_dtensor(logits, labels, mask)
     logits = logits.to(F32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -331,3 +424,25 @@ def cross_entropy(logits, labels, mask=None):
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _cross_entropy_dtensor(logits, labels, mask):
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    rows = tuple(Shard(0) if n in ("pod", "data") and isinstance(labels, DTensor)
+                 and labels.placements[i] == Shard(0) else Replicate()
+                 for i, n in enumerate(names))
+    local = logits.redistribute(mesh, rows).to_local()
+    plain = lambda t: t.to_local() if isinstance(t, DTensor) else t
+    if Shard(0) not in rows:
+        return cross_entropy(local, plain(labels), plain(mask))
+    lse = torch.logsumexp(local.to(F32), dim=-1)
+    nll = lse - torch.gather(local.to(F32), -1, plain(labels)[..., None])[..., 0]
+    summed = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+    total = lambda t: DTensor.from_local(t, mesh, summed,
+                                         run_check=False).full_tensor()
+    if mask is not None:
+        m = plain(mask)
+        return total(torch.sum(nll * m)) / torch.clamp(
+            total(torch.sum(m).detach()), min=1.0)
+    return total(torch.sum(nll)) / (labels.shape[0] * labels.shape[1])

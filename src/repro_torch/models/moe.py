@@ -27,8 +27,10 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import tree
+from repro_torch.dist import tp
 from . import layers as L
 from . import transformer as TF
 from .model import Model, ModelConfig, register_family
@@ -89,13 +91,15 @@ def capacity_of(cfg: ModelConfig, group: int) -> int:
 
 
 def route(x_flat, ffn, cfg: ModelConfig, group_size: int,
-          capacity: int | None = None):
+          capacity: int | None = None, mean=None):
     """Top-k dispatch/combine for flattened tokens (N, d).
 
     Returns (grouped tokens (G, S, d), dispatch (G, S, E, C) bool, combine
     (G, S, E, C) fp32, aux loss). ``capacity`` overrides the
     capacity-factor rule. Tokens past the last whole group (a ragged
-    tail) are not routed.
+    tail) are not routed. ``mean`` turns the aux loss's per-expert means
+    over these groups into means over every group of the batch (the
+    identity when ``x_flat`` is the whole batch).
     """
     N, d = x_flat.shape
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -131,16 +135,35 @@ def route(x_flat, ffn, cfg: ModelConfig, group_size: int,
     assign1 = F.one_hot(top_idx[..., 0], E).to(F32)
     f_e = torch.mean(assign1, dim=(0, 1))
     p_e = torch.mean(probs, dim=(0, 1))
+    if mean is not None:
+        f_e, p_e = mean(f_e), mean(p_e)
     aux = E * torch.sum(f_e * p_e)
     return xg, dispatch, combine, aux
 
 
 def moe_ffn_apply(ffn, x, cfg: ModelConfig, group_size: int = 1024,
                   capacity: int | None = None):
-    """x: (B, T, d) -> (B, T, d), plus the router aux loss."""
+    """x: (B, T, d) -> (B, T, d), plus the router aux loss.
+
+    Under tensor parallelism (DTensor ``x`` and parameters) the routing
+    runs on this process's batch rows with the replicated router (on the
+    whole batch where a dispatch group would straddle the batch split),
+    and the expert products on the expert-split stacks under DTensor."""
     B, T, d = x.shape
-    x_flat = x.reshape(B * T, d)
-    xg, dispatch, combine, aux = route(x_flat, ffn, cfg, group_size, capacity)
+    rows = tp.BatchSplit(x)
+    if (rows.local.shape[0] * T) % min(group_size, B * T):
+        # the batch's dispatch groups straddle the split: route them whole
+        rows = tp.BatchSplit(x, split=False)
+    x_loc = rows.local
+    x_flat = x_loc.reshape(x_loc.shape[0] * T, d)
+    router = ffn["router"]
+    if isinstance(router, DTensor):
+        router = router.redistribute(
+            router.device_mesh, (Replicate(),) * len(router.placements)
+        ).to_local(grad_placements=rows.partial)
+    xg, dispatch, combine, aux = route(x_flat, {"router": router}, cfg,
+                                       group_size, capacity, mean=rows.mean)
+    xg, dispatch, combine = (rows.wrap(t) for t in (xg, dispatch, combine))
     G, S, E, C = combine.shape
     ein = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
     w = ffn["experts"]
@@ -174,7 +197,7 @@ def forward(params, batch, cfg: ModelConfig, return_aux: bool = False):
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = F.embedding(tokens, params["embed"]["tok"])
+    x = L.embedding(tokens, params["embed"]["tok"])
     aux_total = torch.zeros((), dtype=F32, device=x.device)
 
     def block(bp, carry, cfg):

@@ -111,7 +111,7 @@ def embed_tokens(params, tokens, cfg: ModelConfig, offset=0):
     ``offset + arange(T)``. A tensor ``offset`` (0-d, or one per batch row)
     stays on the device; its start is clamped to ``max_position - T``, as
     ``jax.lax.dynamic_slice_in_dim`` clamps."""
-    x = F.embedding(tokens, params["embed"]["tok"])
+    x = L.embedding(tokens, params["embed"]["tok"])
     if cfg.pos == "learned":
         T = tokens.shape[-1]
         if isinstance(offset, torch.Tensor):

@@ -8,6 +8,11 @@ of the state (the flat trainer donates its state to the step, as the
 reference's ``jit`` does). Weight decay applies to leaves with ndim >= 2,
 as in the reference (which makes it reach the stacked (L, d) norm scales
 too). Moments are fp32 unless ``opt_dtype`` says otherwise.
+
+Tensor parallelism: DTensor leaves update on their local shards (the
+in-place path writes into the shards' storage) and come back placed as
+given; ``global_norm`` sums each leaf's local squares over the mesh dims
+it is split on.
 """
 from __future__ import annotations
 
@@ -16,8 +21,10 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
+from repro_torch.dist import tp
 
 F32 = torch.float32
 INPLACE_CHUNK = 1 << 26        # elements per slice of an in-place update
@@ -55,7 +62,8 @@ def lr_at(cfg: AdamConfig, step) -> torch.Tensor:
 
 def init(params, cfg: AdamConfig) -> AdamState:
     dt = getattr(torch, cfg.opt_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: tp.rewrap(p, torch.zeros(
+        tp.local(p).shape, dtype=dt, device=p.device))
     device = tree.leaves(params)[0].device
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
                      m=tree.tree_map(zeros, params),
@@ -63,7 +71,11 @@ def init(params, cfg: AdamConfig) -> AdamState:
 
 
 def global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(l.to(F32) ** 2) for l in tree.leaves(grads)))
+    leaves = tree.leaves(grads)
+    sq = [torch.sum(tp.local(l).to(F32) ** 2) for l in leaves]
+    if any(isinstance(l, DTensor) for l in leaves):
+        sq = tp.leafwise_sums(sq, leaves)
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
@@ -97,7 +109,10 @@ def update(params, grads, state: AdamState, cfg: AdamConfig, gnorm=None,
         return (p.to(F32) - lr * upd).to(p.dtype), m32.to(dt), v32.to(dt)
 
     def leaf_inplace(p, g, m, v, decay):
-        flat = [t.view(-1) for t in (p, g, m, v)]     # raises unless contiguous
+        # the state is written through views (raises unless contiguous);
+        # the gradient is only read (a split gradient may be strided)
+        flat = [t.view(-1) if t is not g else t.reshape(-1)
+                for t in (p, g, m, v)]
         for lo in range(0, p.numel(), INPLACE_CHUNK):
             part = [t[lo:lo + INPLACE_CHUNK] for t in flat]
             for dst, new in zip((part[0], part[2], part[3]),
@@ -106,10 +121,15 @@ def update(params, grads, state: AdamState, cfg: AdamConfig, gnorm=None,
         return p, m, v
 
     one = leaf_inplace if inplace else leaf
-    out = [one(p, g, m, v, cfg.weight_decay > 0 and p.ndim >= 2)
-           for p, g, m, v in zip(
-               tree.leaves(params), tree.leaves(grads), tree.leaves(state.m),
-               tree.leaves(state.v))]
+
+    def placed(p, g, m, v):
+        new = one(*(tp.local(t) for t in (p, g, m, v)),
+                  cfg.weight_decay > 0 and p.ndim >= 2)
+        return tuple(tp.rewrap(like, t) for like, t in zip((p, m, v), new))
+
+    out = [placed(p, g, m, v) for p, g, m, v in zip(
+        tree.leaves(params), tree.leaves(grads), tree.leaves(state.m),
+        tree.leaves(state.v))]
     new_p = tree.unflatten(params, [o[0] for o in out])
     new_m = tree.unflatten(params, [o[1] for o in out])
     new_v = tree.unflatten(params, [o[2] for o in out])

@@ -1,4 +1,4 @@
-"""Flat data-parallel train step (port of the flat branch of ``repro/train/step.py``).
+"""Flat train step (port of the flat branch of ``repro/train/step.py``).
 
 One step: loss and gradients on this worker's batch shard, the DP sync
 through the :class:`SyncExecutor` (compressed factor means for planned
@@ -16,12 +16,30 @@ where any element is > 0 the gradients become NaN before the sync,
 selected on the device with no host sync. ``guard_nonfinite`` computes
 the whole update and keeps the old state leaf-wise where the loss or the
 synced gradients' norm is not finite, reporting ``metrics["skipped"]``.
+
+The two distribution modes of the reference, on a ``(data, model)``
+process mesh (``launch.mesh.make_host_mesh``):
+
+  * ``dp_tp`` (every config but three): each process computes the
+    gradients of its batch rows; the parameters are DTensors on the
+    mesh's ``model`` axis placed by ``dist.sharding``'s rules
+    (``state_shardings``), the forward runs under DTensor's sharding
+    propagation, and the DP sync is explicit over the data group:
+    compressed factor means for planned leaves on their local shards
+    (``core.compressor``), plain means for the rest.
+  * ``auto`` (``SHARDING_MODE`` of llama3-405b, kimi-k2-1t-a32b and
+    qwen3-moe-235b-a22b): the parameters and moments are DTensors on the
+    whole mesh, FSDP over ``data`` (``apply_fsdp``) and TP over
+    ``model``, the batch is split over ``data``, and the gradient reduce
+    is DTensor's. No sync runs, so the plan must be ``none`` (the
+    reference: "compression policy must be 'none' in this mode").
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
@@ -30,12 +48,16 @@ from repro_torch.core.compressor import CompressionPlan
 from repro_torch.core.config import SYNC_FIELDS, alias_property, resolve_embedded
 from repro_torch.core.entropy import GDSConfig, grads_entropy
 from repro_torch.core.sync_executor import SyncExecutor
+from repro_torch.dist import sharding, tp
+from repro_torch.dist.sharding import contiguous_stride
 from repro_torch.dist.collectives import make_dp_pmean
 from repro_torch.models.model import Model
 from repro_torch.optim import adam
 from repro_torch.pipeline.config import PIPELINE_FIELDS
 
-__all__ = ["TrainStepConfig", "make_train_step"]
+__all__ = ["TrainStepConfig", "batch_shardings", "distribute_comp",
+           "distribute_state", "full_state", "make_train_step",
+           "state_shardings"]
 
 
 @dataclasses.dataclass(frozen=True, init=False)
@@ -82,7 +104,7 @@ del _name
 
 
 def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
-                    pipe=None, donate: bool = False):
+                    pipe=None, donate: bool = False, mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     state = {params, opt_m, opt_v, opt_step, comp}; metrics = {loss,
@@ -104,42 +126,74 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
     ``cfg.num_stages > 1`` or a ``pipe`` transport (``LocalPipe``,
     ``DistPipe``) returns the pipelined step instead, with the
     stage-partitioned state of ``pipeline.executor``.
+
+    ``mesh`` (a ``(data, model)`` mesh): the state's tensors are DTensors
+    placed by ``distribute_state`` (on the ``model`` sub-mesh in
+    ``dp_tp``; on the whole mesh with ``fsdp=True`` in ``auto``), and each
+    process passes its own rows of the batch; the DP mean defaults to the
+    mesh's data group. A mesh with a ``model`` axis runs
+    the DTensor placements and the model-group collectives at model size
+    1 too.
     """
     if cfg.num_stages > 1 or pipe is not None:
         if donate:
             raise ValueError("donate applies to the flat step only")
         from repro_torch.pipeline.executor import make_pipeline_train_step
         return make_pipeline_train_step(model, cfg, psum_mean, pipe)
-    if cfg.mode != "dp_tp":
-        raise NotImplementedError(f"mode={cfg.mode!r}: only the flat dp_tp "
-                                  "step is ported")
+    if cfg.mode not in ("dp_tp", "auto"):
+        raise ValueError(f"unknown mode {cfg.mode!r} (want dp_tp or auto)")
+    if cfg.mode == "auto":
+        if mesh is None:
+            raise ValueError("mode='auto' needs a (data, model) mesh")
+        if cfg.policy_plan.ranks:
+            raise NotImplementedError(
+                "mode='auto' syncs through DTensor's gradient reduce: the "
+                "compression policy must be 'none' in this mode")
+    if mesh is not None:
+        tp.check_family(model.config.family, mesh)
     if donate and cfg.guard_nonfinite:
         raise ValueError("donate conflicts with guard_nonfinite: the guard "
                          "keeps the old state where it refuses an update")
-    pmean = psum_mean or make_dp_pmean()
+    auto = cfg.mode == "auto"
+    if auto:
+        pmean = lambda x: x          # the loss is already the global mean
+    else:
+        pmean = psum_mean or make_dp_pmean(
+            None if mesh is None else mesh.get_group("data"))
     sync_exec = SyncExecutor(cfg.sync, mode="flat", plan=cfg.policy_plan,
                              donate=donate)
     loss_fn = model.loss_fn
+    on_mesh = mesh is not None
 
     def step(state, batch):
         batch = dict(batch)
         inject = batch.pop("_inject", None)
+        if auto:
+            batch = {k: _split_rows(v, mesh) for k, v in batch.items()}
         params = tree.tree_map(lambda p: p.detach().requires_grad_(True),
                                state["params"])
-        with torch.enable_grad():
+        with torch.enable_grad(), tp.model_context(on_mesh):
             if cfg.remat:
                 loss, mets = checkpoint(loss_fn, params, batch,
                                         use_reentrant=False)
             else:
                 loss, mets = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, tree.leaves(params))
+        grads = [tp.normalize_grad(g, p)
+                 for g, p in zip(grads, tree.leaves(params))]
         if inject is not None:
             bad = torch.amax(inject) > 0
-            grads = [g.masked_fill(bad, float("nan")) for g in grads]
+            grads = [tp.rewrap(g, tp.local(g).masked_fill(bad, float("nan")))
+                     for g in grads]
         grads = tree.unflatten(params, grads)
+        mets = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                for k, v in mets.items()}
         loss = pmean(loss.detach())
         comp_in = state["comp"]
-        synced, comp = sync_exec.sync(grads, comp_in, pmean)
+        if auto:
+            synced, comp = grads, comp_in
+        else:
+            synced, comp = sync_exec.sync(grads, comp_in, pmean)
         del grads
         entropy = (grads_entropy(synced, cfg.gds) if cfg.measure_entropy
                    else torch.zeros((), device=loss.device))
@@ -156,7 +210,8 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
             new_params, new_opt, opt_mets = adam.update(
                 state["params"], synced, opt_state, cfg.adam, gnorm=gnorm)
             keep = lambda new, old: tree.tree_map(
-                lambda a, b: torch.where(ok, a, b, out=a), new, old)
+                lambda a, b: tp.rewrap(a, torch.where(
+                    ok, tp.local(a), tp.local(b), out=tp.local(a))), new, old)
             new_params = keep(new_params, state["params"])
             opt_state = adam.AdamState(
                 step=keep(new_opt.step, opt_state.step),
@@ -179,3 +234,83 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
         return new_state, metrics
 
     return step
+
+
+def _split_rows(t, mesh):
+    """This process's batch rows as a DTensor split over the mesh's data
+    axes (and replicated over ``model``)."""
+    pl = tuple(Shard(0) if n in ("pod", "data") else Replicate()
+               for n in mesh.mesh_dim_names)
+    n = 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name in ("pod", "data"):
+            n *= mesh.size(i)
+    shape = torch.Size((t.shape[0] * n,) + tuple(t.shape[1:]))
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def state_shardings(state, mesh, fsdp: bool = False) -> dict:
+    """The specs of a flat state (``repro/train/step.py:245-289``):
+    parameters and their moments by the TP rules (plus FSDP over the
+    ("pod", "data") axes with ``fsdp``), ``opt_step`` replicated; each
+    compressor residual as its parameter, its Q replicated, and the
+    group-keyed (bucketed) and ``ef:`` entries replicated. The port keeps
+    one worker's compressor state per process, so no entry has the
+    reference's leading replica dim."""
+    pspec = sharding.param_specs(state["params"], mesh, fsdp=fsdp)
+    by_path = dict(zip((p for p, _ in tree.flatten_with_path(state["params"])),
+                       sharding.spec_leaves(pspec)))
+    comp = {}
+    for path, st in state["comp"].items():
+        if isinstance(st, powersgd.LowRankState):
+            comp[path] = powersgd.LowRankState(q=(), err=by_path.get(path, ()))
+        else:
+            comp[path] = ()
+    return {"params": pspec, "opt_m": pspec, "opt_v": pspec,
+            "opt_step": (), "comp": comp}
+
+
+def distribute_state(state, mesh, fsdp: bool = False) -> dict:
+    """A state of whole tensors (every process holds the same) placed on
+    ``mesh`` by ``state_shardings``: in ``dp_tp`` the mesh is the
+    ``model`` sub-mesh, in ``auto`` the whole ``(data, model)`` mesh."""
+    specs = state_shardings(dict({"comp": {}}, **state), mesh, fsdp=fsdp)
+    out = dict(state)
+    for key in ("params", "opt_m", "opt_v"):
+        if key in state:
+            out[key] = sharding.distribute_tree(state[key], specs[key], mesh)
+    if "comp" in state:
+        out["comp"] = distribute_comp(state["comp"], state["params"], mesh,
+                                      specs=specs)
+    return out
+
+
+def distribute_comp(comp: dict, params, mesh, fsdp: bool = False,
+                    specs=None) -> dict:
+    """Whole compressor state placed by ``state_shardings`` (``params``
+    may be placed already: only their shapes are read)."""
+    specs = specs or state_shardings({"params": params, "comp": comp}, mesh,
+                                     fsdp=fsdp)
+    return {k: _place_entry(v, specs["comp"][k], mesh)
+            for k, v in comp.items()}
+
+
+def _place_entry(st, spec, mesh):
+    if isinstance(st, powersgd.LowRankState):
+        return powersgd.LowRankState(*(
+            sharding.distribute(t, sharding.to_placements(s, mesh), mesh)
+            for t, s in zip(st, spec)))
+    return sharding.distribute(st, sharding.to_placements(spec, mesh), mesh)
+
+
+def full_state(state) -> dict:
+    """A placed state's whole tensors (collectives over each split)."""
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    return tree.tree_map(whole, state)
+
+
+def batch_shardings(batch, mesh, batch_size: int) -> dict:
+    """The spec of every batch entry: its batch dim over the data axes."""
+    return {k: sharding.batch_pspec(v.ndim, mesh, batch_size)
+            for k, v in batch.items()}

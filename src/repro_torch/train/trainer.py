@@ -29,6 +29,16 @@ checkpoint gathers the reference's whole layout. Without ``pipe``,
 ``num_stages`` > 1 stays virtual: the DAC emits per-stage ranks and the
 flat step runs.
 
+A ``(data, model)`` mesh (``launch.mesh.make_host_mesh(data=D, model=M)``)
+runs the ``dp_tp`` step with tensor parallelism: the state's tensors are
+DTensors on the mesh's ``model`` axis placed by the reference's rules
+(``train.step.state_shardings``), every process of a DP worker's model
+group reads that worker's batch rows, and the sync is the per-leaf one on
+the local shards unless the model axis is 1 (``bucketing_supported``). A
+coded wire needs the bucketed sync, so it is refused above model size 1.
+Checkpoints hold whole tensors, gathered over the model group, and a
+restore places them on this trainer's mesh, whatever mesh wrote them.
+
 ``overlap_sync`` (pipelined runs) launches each stage's sync chunks in the
 drain ticks ``pipeline.schedule.plan_overlap`` assigns and feeds the plan's
 Eq. 4 slack to the DAC, which aligns and clamps the stage ranks against it.
@@ -42,15 +52,17 @@ import time
 from typing import Any, Iterator
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
 from repro_torch.core import (EDGCConfig, EDGCController, classify_leaves,
                               init_compressor_state, plan_wire_bytes,
                               resize_compressor_state, wire)
-from repro_torch.core.bucketing import make_bucket_layout
+from repro_torch.core.bucketing import bucketing_supported, make_bucket_layout
 from repro_torch.core.config import SYNC_FIELDS, alias_property, resolve_embedded
 from repro_torch.core.sync_executor import SyncExecutor
 from repro_torch.core.powersgd import fold_in, resize_rank
+from repro_torch.dist import tp
 from repro_torch.dist.collectives import (dp_all_gather, dp_barrier, dp_rank,
                                           dp_world_size, make_dp_pmean)
 from repro_torch.launch.mesh import pipe_size
@@ -63,7 +75,9 @@ from repro_torch.pipeline.schedule import plan_overlap
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.faults import (FaultPlan, RecoveryState,
                                       poison_lowrank_state, truncate_file)
-from repro_torch.train.step import TrainStepConfig, make_train_step
+from repro_torch.train.step import (TrainStepConfig, distribute_comp,
+                                    distribute_state, full_state,
+                                    make_train_step)
 
 __all__ = ["TrainerConfig", "Trainer", "resolve_device"]
 
@@ -164,6 +178,14 @@ class Trainer:
         # a mesh with a pipe axis hosts one stage per process: DP runs over
         # the data group, the pipe collectives over the pipe group
         self._dp_group = None if mesh is None else mesh.get_group("data")
+        # a mesh with a model axis: the dp_tp step with tensor parallelism
+        self._mesh = None
+        if mesh is not None and "model" in mesh.mesh_dim_names:
+            tp.check_family(model.config.family, mesh)
+            if pipe is not None:
+                raise ValueError("a pipe axis beside a model axis is ROADMAP "
+                                 "item 12a'")
+            self._mesh = mesh
         self._pipe_group = None
         if mesh is not None and "pipe" in mesh.mesh_dim_names:
             if pipe_size(mesh) != pipe:
@@ -186,10 +208,17 @@ class Trainer:
         if pcfg.num_stages != s_exec:
             pcfg = dataclasses.replace(pcfg, num_stages=s_exec)
         self.pipeline_cfg = pcfg
-        # the pipelined sync is always the per-stage bucketed executor
-        self._bucketed = tcfg.sync.bucketed is not False
+        # the pipelined sync is always the per-stage bucketed executor; the
+        # flat one is bucketed only where the mesh supports it (model 1)
+        self._bucketed = (tcfg.sync.bucketed is not False
+                          and bucketing_supported(self._mesh))
         self.sync_cfg = dataclasses.replace(
             tcfg.sync, bucketed=None if self.pipelined else self._bucketed)
+        if (self.sync_cfg.wire != "raw" and not self.pipelined
+                and not self._bucketed):
+            raise ValueError(
+                f"wire={self.sync_cfg.wire!r} requires the bucketed sync "
+                "executor (unsupported mesh or SyncConfig.bucketed=False)")
 
         # Entropy mode re-picks the codec at window ends against the run's
         # first reading; until a reading exists it codes at quant8.
@@ -213,6 +242,8 @@ class Trainer:
                                          wire_ef=self._codec is not None)
             self.state = {"params": params, "opt_m": ost.m, "opt_v": ost.v,
                           "opt_step": ost.step, "comp": comp}
+            if self._mesh is not None:
+                self.state = distribute_state(self.state, self._mesh["model"])
 
         # overlapped per-stage sync: the DAC gets the schedule's Eq. 4
         # slack, so Algorithm 2 aligns (and clamps) ranks against the
@@ -344,7 +375,7 @@ class Trainer:
             self._step_cache[key] = make_train_step(
                 self.model, scfg, psum_mean=make_dp_pmean(self._dp_group),
                 pipe=self._transport,
-                donate=not (self.pipelined or self._guard))
+                donate=not (self.pipelined or self._guard), mesh=self._mesh)
         return self._step_cache[key]
 
     def _device_batch(self, batch: dict) -> dict:
@@ -394,7 +425,7 @@ class Trainer:
     def _apply_plan_change(self) -> None:
         """Resize/extend compressor state to the new plan."""
         plan = self.controller.plan
-        comp = self.state["comp"]
+        comp = full_state(self.state["comp"])
         if self.pipelined:
             # the resize reads every stage's slices: a process that hosts
             # one stage gathers them and keeps its own
@@ -418,7 +449,7 @@ class Trainer:
                 if path in comp:
                     fresh[path] = resize_rank(comp[path], plan.rank_of(path),
                                               self._comp_seed)
-        self.state = dict(self.state, comp=fresh)
+        self.state = dict(self.state, comp=self._place_comp(fresh))
 
     # ------------------------------------------------------------------- run
     def run(self, batches: Iterator[dict], num_steps: int | None = None
@@ -709,11 +740,20 @@ class Trainer:
                                       self.controller.plan, self._comp_seed,
                                       layout=self._layout,
                                       wire_ef=self._codec is not None)
-        self.state = dict(self.state, comp=fresh)
+        self.state = dict(self.state, comp=self._place_comp(fresh))
 
     def _poison_comp_state(self) -> None:
-        """corrupt_payload fault: NaN-poison the compressor state in place."""
-        poison_lowrank_state(self.state["comp"])
+        """corrupt_payload fault: NaN-poison the compressor state in place
+        (each process's shard: the first leaf is a replicated Q or ``ef:``
+        residual, so every process poisons the same element)."""
+        poison_lowrank_state(tree.tree_map(tp.local, self.state["comp"]))
+
+    # ------------------------------------------------- tensor parallelism
+    def _place_comp(self, comp: dict) -> dict:
+        """Whole compressor state placed as the live state's is."""
+        if self._mesh is None:
+            return comp
+        return distribute_comp(comp, self.state["params"], self._mesh["model"])
 
     # --------------------------------------------------------- checkpointing
     def _gather_stages(self, t: torch.Tensor) -> torch.Tensor:
@@ -737,6 +777,15 @@ class Trainer:
         process's leaves (collectives); otherwise the leaves are shape-only
         stand-ins."""
         state, comp = self.state, self.state["comp"]
+        if self._mesh is not None:
+            # whole tensors: gathered over the model group, or stand-ins
+            # of their shapes that hold no memory
+            whole = (full_state if gather else lambda t: tree.tree_map(
+                lambda a: (torch.empty((), dtype=a.dtype, device=self.device)
+                           .expand(a.shape) if isinstance(a, DTensor) else a),
+                t))
+            state = whole(state)
+            comp = state["comp"]
         if self.pipelined:
             S = self.edgc_cfg.num_stages
             stages = (self._gather_stages if gather else
@@ -824,6 +873,8 @@ class Trainer:
                 comp=own(restored["comp"]),
                 opt_m=dict(restored["opt_m"], stage=own(restored["opt_m"]["stage"])),
                 opt_v=dict(restored["opt_v"], stage=own(restored["opt_v"]["stage"])))
+        if self._mesh is not None:
+            restored = distribute_state(restored, self._mesh["model"])
         self.state = restored
         return self._global_step
 

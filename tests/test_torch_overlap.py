@@ -685,11 +685,14 @@ def _mesh_run():
 
 
 def test_make_host_mesh_refuses_the_axes_of_item_12():
-    """The model and pod axes are not ported: a size above 1 raises before
-    any process group is touched; no mesh has pipe size 1."""
+    """The pod axis (item 10b) and a pipe or pod axis beside a model axis
+    above 1 (item 12a') are not ported: they raise before any process group
+    is touched; no mesh has pipe size 1."""
     from repro_torch.launch.mesh import make_host_mesh, pipe_size
-    for kw in (dict(model=2), dict(pod=2), dict(pipe=2, model=4)):
-        with pytest.raises(ValueError, match="item 12"):
+    for kw, item in ((dict(pod=2), "item 10b"),
+                     (dict(pipe=2, model=4), "item 12a'"),
+                     (dict(pod=2, model=2), "item 12a'")):
+        with pytest.raises(ValueError, match=item):
             make_host_mesh(device_type="cpu", **kw)
     assert pipe_size(None) == 1
 
