@@ -244,6 +244,25 @@ Phases, in order; any failure raises, so the exit code is not 0:
                repro_torch.launch.train --arch gpt2 --variant reduced
                --model-mesh 1 --steps 3`` on the card, run beside (o5)'s
                launchers to share their wait
+  (q) model axis, every family  on the same one-card mesh: (q1) the
+               flat trainer (per-leaf sync, fixed r64, kernels on) at the
+               published widths of phi-3-vision-4.2b (depth 4, batch 4 x
+               1024), whisper-base (whole, 8 x 448), zamba2-7b (depth 7,
+               4 x 1024) and xlstm-125m (depth 6, 8 x 1024, one step),
+               each with and without the mesh from one draw: losses and state
+               bit-equal, step and host ms both ways, the forward's host
+               ms, PowerSGD launches a compressed leaf a step (4), one
+               mesh step's model-group collectives (``CommDebugMode``;
+               xlstm-125m's counted on a 1 x 256 batch) and the peaks;
+               (q2) (j1)'s run on the mesh (LocalPipe, S = 4, M = 4):
+               losses and bytes synced equal to (j1)'s and its state
+               after the same 4 steps bit-equal, then (j1)'s profiled step
+               and one more step's host ms; then
+               whisper-base whole at S = 2 with and without the mesh
+               (its two-tensor boundary), bit-equal; (q3) the launcher
+               with ``--arch zamba2-7b --variant reduced --model-mesh 1``
+               and ``--arch gpt2 --variant reduced --pipe 2 --model-mesh
+               1`` in one process each, beside (o5)'s launchers
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -268,7 +287,9 @@ and (m2k)'s Zamba2 groups, and ``elastic``, their rows at (n2)'s groups.
 The PowerSGD and pack entries add ``launches_elastic``, their launches
 on (n1)'s run (inner steps and outer syncs). Every entry adds
 ``launches_serve``, its launches in phase (o): zero, and ``launches_tp``,
-its launches on (p1)'s mesh run (the PowerSGD kernels only). The last
+its launches on (p1)'s mesh run (the PowerSGD kernels only); the
+PowerSGD entries add ``launches_tp_families``, their launches on (q1)'s
+four mesh runs, and ``launches_tp_pipe``, on (q2)'s (j1) mesh run. The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -797,11 +818,12 @@ def check_pack(dev) -> list[dict]:
 
 # ------------------------------------------------------------------ trainers
 def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw",
-             log_every=1, pipe=None, mesh=None, **tkw):
+             log_every=1, pipe=None, mesh=None, params=None, **tkw):
     """A Trainer with the PowerSGD kernels on, AdamW at lr 1e-3; ``tkw``
     goes to ``TrainerConfig`` (faults, recovery, metrics, checkpoints, the
     pipeline's schedule and stash policy); ``pipe`` runs that many stages
-    through the pipelined executor, ``mesh`` on a process mesh."""
+    through the pipelined executor, ``mesh`` on a process mesh; ``params``
+    (drawn on the card) start it in place of a fresh draw, copied."""
     from repro_torch.core import EDGCConfig, GDSConfig
     from repro_torch.core.dac import DACConfig
     from repro_torch.models.model import build_model
@@ -816,8 +838,13 @@ def _trainer(model_cfg, policy, rank, steps, window, dev, wire="raw",
                          use_kernels=True, wire=wire,
                          adam=AdamConfig(lr=1e-3, warmup_steps=1,
                                          total_steps=steps), **tkw)
-    return Trainer(build_model(model_cfg), edgc, tcfg, seed=0, device=dev,
-                   pipe=pipe, mesh=mesh)
+    model = build_model(model_cfg)
+    if params is not None:
+        from repro_torch import tree
+        model = model._replace(init=lambda seed, device: tree.tree_map(
+            lambda t: t.clone(), params))
+    return Trainer(model, edgc, tcfg, seed=0, device=dev, pipe=pipe,
+                   mesh=mesh)
 
 
 def _timed_steps(trainer, batches, steps: int) -> list[float]:
@@ -4173,11 +4200,295 @@ def phase_tp(report: dict, dev, cli: tuple) -> dict:
     return out["mesh"]["launches"]
 
 
+# ------------------------------------- (q) the model axis, every family
+# (q1): (arch, cut, batch, seq, steps) at the published widths, the
+# depths cut so that the whole script stays within PR 25's time: phi-3-
+# vision-4.2b to 4 of 32 layers, zamba2-7b to one group (7 of 81),
+# xlstm-125m to 6 of 12 (its step is bound by the host: about 50k launches
+# a layer), one step each way
+Q_FLAT = [("phi-3-vision-4.2b", dict(num_layers=4), 4, 1024, 2),
+          ("whisper-base", {}, 8, 448, 2),
+          ("zamba2-7b", dict(num_layers=7), 4, 1024, 2),
+          ("xlstm-125m", dict(num_layers=6), 8, 1024, 1)]
+# the sequence the collectives of one xlstm-125m step are counted at (the
+# count does not depend on it: the sLSTM loop issues none per token)
+Q_COUNT_SEQ = 256
+
+
+def _bit_equal(a, b) -> bool:
+    """Two states' leaves equal bit for bit (DTensors gathered)."""
+    from repro_torch import tree
+    from repro_torch.train.step import full_state
+    xs, ys = tree.leaves(full_state(a)), tree.leaves(full_state(b))
+    return len(xs) == len(ys) and all(
+        torch.equal(x.detach().cpu(), y.detach().cpu()) for x, y in zip(xs, ys))
+
+
+def _q_flat(arch: str, cut: dict, batch: int, seq: int, steps: int, dev,
+            mesh) -> dict:
+    """(q1): one family at its published widths through the flat trainer
+    (per-leaf sync, fixed r64, kernels on) without and with the (data 1,
+    model 1) mesh, ``steps`` steps each from the same seed: losses and
+    state bit-equal; step and forward host ms both ways, PowerSGD launches
+    a compressed leaf a step, one mesh step's collectives, the peaks (both
+    with the weights' first draw, held on the card for the second run)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.dist import tp
+    from repro_torch.models.model import build_model
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = dataclasses.replace(get_config(arch, "full"), **cut)
+    out, flat_end = {"config": cfg.name, "num_layers": cfg.num_layers,
+                     "batch": [batch, seq]}, None
+    # one draw of the weights on the card starts both runs
+    params = build_model(cfg).init(0, dev)
+    for label, m in (("flat", None), ("mesh", mesh)):
+        _release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = _trainer(cfg, "fixed", 64, steps + 3, 50, dev, bucketed=False,
+                      mesh=m, params=params)
+        batches = _family_batches(cfg, batch, seq)
+        wrappers = _kernel_wrappers()
+        for w in wrappers:
+            w.launches = 0
+        res = _tp_steps(tr, batches, steps)
+        res["launches"] = {w.__name__: w.launches for w in wrappers}
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["compressed_leaves"] = len(tr.controller.plan.ranks)
+        end = {k: tr.state[k] for k in ("params", "opt_m", "opt_v", "comp")}
+        if m is None:
+            flat_end = tree.tree_map(lambda t: t.detach().to("cpu"), end)
+        else:
+            out["bit_equal"] = _bit_equal(end, flat_end)
+            out["state_gap"] = _state_gap(end, flat_end)
+            flat_end = None
+        del end
+        probe = tr._device_batch(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), tp.model_context(m is not None):
+            tr.model.loss_fn(tr.state["params"], probe)
+        fwd = [1e3 * (time.perf_counter() - t0)]
+        torch.cuda.synchronize()
+        res["forward_host_ms"] = fwd
+        del probe
+        if m is not None:
+            # one more step, counted: every collective is the model group's
+            count = batches if arch != "xlstm-125m" else _family_batches(
+                cfg, 1, Q_COUNT_SEQ)
+            comm = CommDebugMode()
+            with comm:
+                tr.state, _ = tr._get_step(False)(
+                    tr.state, tr._device_batch(next(count)))
+            torch.cuda.synchronize()
+            res["collectives"] = {str(k): v for k, v in
+                                  comm.get_comm_counts().items()}
+            res["collectives_total"] = comm.get_total_counts()
+            res["collectives_batch"] = ([batch, seq] if count is batches
+                                        else [1, Q_COUNT_SEQ])
+        out[label] = res
+        log(f"(q1) {cfg.name} depth {cfg.num_layers}, batch {batch} x {seq}, "
+            f"{label}: losses {res['loss']} step ms "
+            f"{[round(x, 1) for x in res['step_ms']]} host ms "
+            f"{[round(x, 1) for x in res['host_ms']]} (the forward's "
+            f"{[round(x, 1) for x in fwd]}) peak "
+            f"{res['peak_bytes'] / 2**30:.2f} GiB")
+        del tr
+    del params
+    _release()
+    m_, f_ = out["mesh"], out["flat"]
+    out["loss_gap"] = max(abs(a - b) for a, b in zip(f_["loss"], m_["loss"]))
+    out["powersgd_per_leaf_step"] = sum(m_["launches"][k] for k in POWERSGD) / (
+        steps * m_["compressed_leaves"])
+    log(f"(q1) {cfg.name}: mesh against flat: loss gap {out['loss_gap']} "
+        f"and state bit-equal {out['bit_equal']} ({out['state_gap']}); "
+        f"PowerSGD launches a compressed leaf a step "
+        f"{out['powersgd_per_leaf_step']:.2f} over {m_['compressed_leaves']} "
+        f"leaves; model-group collectives a step {m_['collectives_total']} "
+        f"(at batch {m_['collectives_batch']}) {m_['collectives']}")
+    if not (out["loss_gap"] == 0 and out["bit_equal"]):
+        raise AssertionError(f"(q1) {cfg.name}: mesh run not bit-equal: "
+                             f"{m_['loss']} vs {f_['loss']}, {out['state_gap']}")
+    # P, Q and the decompress once a leaf; Gram-Schmidt where the panel
+    # takes it (``kernels.ops._use_qr`` sends the others to QR)
+    per = {k: m_["launches"][k] / (steps * m_["compressed_leaves"])
+           for k in POWERSGD}
+    if any(per[k] != 1 for k in POWERSGD[:3]) or not 0 < per[POWERSGD[3]] <= 1:
+        raise AssertionError(f"(q1) {cfg.name}: PowerSGD launches "
+                             f"{m_['launches']}")
+    return out
+
+
+def _q_pipe(dev, mesh, j1: dict, j1_leaves: list) -> dict:
+    """(q2): (j1)'s run (gpt2-2.5b widths, depth 8, S = 4, M = 4, 1F1B,
+    replay, fixed r64, kernels on, LocalPipe) on the (data 1, model 1)
+    mesh: its 4 timed steps, with losses and bytes synced equal to (j1)'s
+    and the weights and compressor state after them equal bit for bit;
+    then (j1)'s profiled step unprofiled, and one more step's host ms."""
+    from repro_torch import tree
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.step import full_state
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    S = cfg.num_stages
+    _release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # (j1)'s trainer: 5 steps (the AdamW schedule's length)
+    tr = _trainer(cfg, "fixed", 64, 5, 50, dev, pipe=S, schedule="1f1b",
+                  num_microbatches=PIPE_M, stash_policy="replay", mesh=mesh)
+    batches = SyntheticLM(cfg.vocab_size, 1024, 8, seed=0).batches()
+    kernels = _reset_launches()
+    step_ms = _timed_steps(tr, batches, 4)
+    launches = {k.__name__: k.launches for k in kernels}
+    hist = tr.history
+    # (j1) keeps its state after its 4 timed steps
+    st = full_state({k: tr.state[k] for k in ("stage_params",
+                                               "shared_params", "comp")})
+    named = tree.flatten_with_path([st["stage_params"], st["shared_params"],
+                                    st["comp"]])
+    differ = [p for (p, a), b in zip(named, j1_leaves)
+              if not torch.equal(a.detach().cpu(), b)]
+    equal = len(named) == len(j1_leaves) and not differ
+    del st, named
+    step_ms += _timed_steps(tr, batches, 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    tr.state, _ = tr._get_step(False)(tr.state,
+                                      tr._device_batch(next(batches)))
+    host = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    row = {"loss": [h["loss"] for h in hist][:4],
+           "bytes_synced": [h["bytes_synced"] for h in hist][:4],
+           "step_ms": step_ms, "host_ms": host,
+           "step6_ms": 1e3 * (time.perf_counter() - t0),
+           "launches": launches, "peak_bytes": peak, "state_equal": equal,
+           "leaves_differing": differ[:8]}
+    del tr
+    _release()
+    log(f"(q2) (j1) on the (data 1, model 1) mesh: losses {row['loss']} "
+        f"((j1) {j1['loss']}), bytes synced equal "
+        f"{row['bytes_synced'] == j1['bytes_synced']}, state after 4 steps "
+        f"bit-equal {equal} {differ[:8]}; step ms {[round(x, 1) for x in step_ms]} "
+        f"((j1) {[round(x, 1) for x in j1['step_ms']]}); one more step's "
+        f"host ms {host:.1f} of {row['step6_ms']:.1f}; launches {launches}; "
+        f"peak {peak / 2**30:.2f} GiB ((j1) {j1['peak_bytes'] / 2**30:.2f})")
+    if not (row["loss"] == j1["loss"][:4]
+            and row["bytes_synced"] == j1["bytes_synced"][:4] and equal):
+        raise AssertionError(f"(q2) mesh run against (j1): {row}")
+    if not all(launches[k] > 0 for k in POWERSGD):
+        raise AssertionError(f"(q2) launches {launches}")
+    return row
+
+
+def _q_whisper_pipe(dev, mesh) -> dict:
+    """(q2): whisper-base whole at S = 2 (its two-tensor boundary) on
+    LocalPipe, without and with the mesh, 2 steps each from one seed:
+    losses, bytes synced and state bit-equal."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("whisper-base", "full"),
+                              num_stages=2)
+    runs = {}
+    for label, m in (("flat", None), ("mesh", mesh)):
+        _release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels = _reset_launches()
+        tr = _trainer(cfg, "fixed", 64, 2, 50, dev, pipe=2, schedule="1f1b",
+                      num_microbatches=2, stash_policy="replay", mesh=m)
+        step_ms = _timed_steps(tr, _family_batches(cfg, 8, 448), 2)
+        runs[label] = {
+            "loss": [h["loss"] for h in tr.history],
+            "bytes_synced": [h["bytes_synced"] for h in tr.history],
+            "step_ms": step_ms, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": {k.__name__: k.launches for k in kernels},
+            "state": {k: tr.state[k] for k in ("stage_params",
+                                                "shared_params", "comp")}}
+        if m is None:
+            runs[label]["state"] = tree.tree_map(lambda t: t.detach().cpu(),
+                                                 runs[label]["state"])
+        del tr
+    equal = _bit_equal(runs["mesh"].pop("state"), runs["flat"].pop("state"))
+    _release()
+    row = {**runs, "state_equal": equal}
+    log(f"(q2) whisper-base S = 2 on LocalPipe, mesh against none: losses "
+        f"{runs['mesh']['loss']} vs {runs['flat']['loss']}, bytes synced "
+        f"{runs['mesh']['bytes_synced']}, state bit-equal {equal}; step ms "
+        f"{[round(x, 1) for x in runs['mesh']['step_ms']]} vs "
+        f"{[round(x, 1) for x in runs['flat']['step_ms']]}; launches "
+        f"{runs['mesh']['launches']}")
+    if not (runs["mesh"]["loss"] == runs["flat"]["loss"] and equal
+            and runs["mesh"]["bytes_synced"] == runs["flat"]["bytes_synced"]):
+        raise AssertionError(f"(q2) whisper-base pipelined: {row}")
+    return row
+
+
+def _q_cli_cmds() -> list:
+    """(q3)'s launchers in one process each (``_run_all``'s form): the flat
+    step with a model axis for the reduced zamba2-7b, and the pipelined
+    one (LocalPipe) on a (data 1, model 1) mesh for the reduced gpt2."""
+    return [["repro_torch.launch.train", "--arch", "zamba2-7b", "--variant",
+             "reduced", "--model-mesh", "1", "--steps", "3"],
+            ["repro_torch.launch.train", "--arch", "gpt2", "--variant",
+             "reduced", "--pipe", "2", "--micro", "2", "--model-mesh", "1",
+             "--steps", "3"]]
+
+
+def phase_tp_families(report: dict, dev, j1_leaves: list, cli: list) -> dict:
+    """(q): the model axis for the other families and beside the pipe axis
+    on one card (NCCL, world size 1); ``cli`` is (q3)'s launcher runs,
+    made beside (o5)'s. Returns the PowerSGD launches of (q1) (summed over
+    the families' mesh runs) and (q2)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    _release()
+    t0 = time.perf_counter()
+    out: dict = {"seconds_by_part": {}}
+    clock = t0
+
+    def took(part):
+        nonlocal clock
+        now = time.perf_counter()
+        out["seconds_by_part"][part] = now - clock
+        clock = now
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_host_mesh(data=1, model=1, device_type="cuda")
+        out["flat"] = []
+        for arch, cut, batch, seq, steps in Q_FLAT:
+            out["flat"].append(_q_flat(arch, cut, batch, seq, steps, dev, mesh))
+            took(arch)
+        out["pipe"] = _q_pipe(dev, mesh, report["pipeline"]["main"], j1_leaves)
+        took("j1")
+        out["whisper_pipe"] = _q_whisper_pipe(dev, mesh)
+        took("whisper_pipe")
+    finally:
+        dist.destroy_process_group()
+    out["cli"] = []
+    for cmd, (seconds, lines) in zip(_q_cli_cmds(), cli):
+        tail = [l for l in lines if l.startswith(("step", "final"))
+                or " params on " in l]
+        out["cli"].append({"cmd": cmd, "seconds": seconds, "lines": tail})
+        log(f"(q3) {' '.join(cmd)} (beside (o5)'s launchers): exit 0 in "
+            f"{seconds:.1f} s: {tail}")
+        want = ("mesh data=1 x model=1", "pipe=2" if "--pipe" in cmd else "")
+        if not any(all(w in l for w in want) for l in lines) or len(
+                [l for l in lines if l.startswith("step")]) != 3:
+            raise AssertionError(f"(q3) {cmd} printed {lines[-20:]}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(q) model axis, other families and pipe: {out['seconds']:.1f} s "
+        f"(by part { {k: round(v, 1) for k, v in out['seconds_by_part'].items()} })")
+    report["tp_families"] = out
+    flat = {k: sum(r["mesh"]["launches"][k] for r in out["flat"])
+            for k in POWERSGD}
+    return {"flat": flat, "pipe": out["pipe"]["launches"]}
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
                  moe_launches: dict, families2_launches: dict,
                  elastic_launches: dict, serve_launches: dict,
-                 tp_launches: dict) -> dict:
+                 tp_launches: dict, tpf_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -4200,7 +4511,9 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "launches_families2": families2_launches[wrapper],
                  "launches_elastic": elastic_launches[wrapper],
                  "launches_serve": serve_launches[wrapper],
-                 "launches_tp": tp_launches[wrapper]}
+                 "launches_tp": tp_launches[wrapper],
+                 "launches_tp_families": tpf_launches["flat"][wrapper],
+                 "launches_tp_pipe": tpf_launches["pipe"][wrapper]}
         entry["device_ms"] = total("device_ms")
         # (l)'s groups (the MoE's expert stacks, qwen3-32b's mlp) and
         # (m2k)'s (zamba2-7b's Mamba2 projections)
@@ -4330,17 +4643,23 @@ def main() -> int:
     phase_faults(report, dev)
     j1_state: dict = {}
     pipe_launches = phase_pipeline(report, dev, j1_state)
-    overlap_launches = phase_overlap(report, dev, j1_state.pop("state"))
+    # (k) frees its copy of (j1)'s final state; (q2) holds to it too
+    j1_leaves = j1_state.pop("state")
+    overlap_launches = phase_overlap(report, dev, list(j1_leaves))
     moe_launches = phase_families(report, dev, args.profile)
     families2_launches = phase_families2(report, dev, args.profile)
     elastic_launches = phase_elastic(report, dev)
-    # (p4)'s launcher runs beside (o5)'s
-    serve_launches, (tp_cli,) = phase_serve(report, dev, also=[_tp_cli_cmd()])
+    # (p4)'s and (q3)'s launchers run beside (o5)'s
+    serve_launches, (tp_cli, *q_cli) = phase_serve(
+        report, dev, also=[_tp_cli_cmd()] + _q_cli_cmds())
     tp_launches = phase_tp(report, dev, tp_cli)
+    tpf_launches = phase_tp_families(report, dev, j1_leaves, q_cli)
+    del j1_leaves
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
                         overlap_launches, moe_launches, families2_launches,
-                        elastic_launches, serve_launches, tp_launches)
+                        elastic_launches, serve_launches, tp_launches,
+                        tpf_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

@@ -24,13 +24,10 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.dist.sharding import contiguous_stride
 
-__all__ = ["TP_FAMILIES", "BatchSplit", "check_family", "gather_unless_divides",
-           "leafwise_sums", "local", "model_context", "model_size",
-           "normalize_grad", "rewrap", "shard_dim", "sharded_dims"]
-
-# the families whose layers run under DTensor; the others refuse a model
-# axis above 1 (ROADMAP item 12a')
-TP_FAMILIES = ("dense", "moe")
+__all__ = ["BatchSplit", "gather_unless_divides", "leafwise_sums", "local",
+           "local_heads", "local_map", "model_context", "model_size",
+           "normalize_grad", "rewrap", "shard_dim", "sharded_dims",
+           "split_rows_for"]
 
 
 def model_size(mesh) -> int:
@@ -40,25 +37,22 @@ def model_size(mesh) -> int:
     return mesh.size(mesh.mesh_dim_names.index("model"))
 
 
-def check_family(family: str, mesh) -> None:
-    """Refuse tensor parallelism for a family whose layers do not run it."""
-    if model_size(mesh) > 1 and family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"family {family!r} on a model axis of {model_size(mesh)}: "
-            "tensor parallelism of the recurrent, hybrid, encoder-decoder "
-            "and VLM families is ROADMAP item 12a'")
-
-
 @contextlib.contextmanager
 def model_context(active: bool = True):
     """Run a model whose parameters are DTensors: plain tensors made
-    inside count as replicated on the mesh."""
+    inside count as replicated on the mesh. Contexts nest (torch's own
+    ``implicit_replication`` clears the flag on exit, so an inner one
+    would end an outer one's)."""
     if not active:
         yield
         return
-    from torch.distributed.tensor.experimental import implicit_replication
-    with implicit_replication():
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
         yield
+    finally:
+        dispatcher._allow_implicit_replication = before
 
 
 def local(t):
@@ -187,6 +181,82 @@ def gather_unless_divides(t, dim: int, groups: int):
     pl = [Replicate() if isinstance(p, Shard) and p.dim % t.ndim == dim
           and groups % mesh.size(i) else p for i, p in enumerate(t.placements)]
     return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+def local_map(fn, acts, weights=(), split_dim: int | None = None):
+    """``fn(*acts, *weights)`` on local tensors, its output (a tensor or a
+    tuple of them) made DTensors again: the recurrent layers' loops and
+    chunked recurrences run this way, so that no op inside goes through
+    DTensor's dispatch (some, such as ``log_sigmoid_backward``, have no
+    sharding rule at all).
+
+    ``acts`` are batch-major activations. Two of their splits are kept: a
+    batch split (dim 0 over the data axes) that every act shares, and, with
+    ``split_dim``, a split of that dim over ``model`` (independent heads or
+    channels): an act held whole there is cut to the split, for free.
+    Every other split is gathered first. ``weights`` are gathered whole;
+    their gradient from these rows is a partial sum over each kept split.
+    The outputs are placed as the acts were kept, dim 0 and ``split_dim``
+    scaled to their global sizes. Without a DTensor argument ``fn`` runs
+    as it is."""
+    if not any(isinstance(t, DTensor) for t in (*acts, *weights)):
+        return fn(*acts, *weights)
+    mesh = next(t for t in (*acts, *weights)
+                if isinstance(t, DTensor)).device_mesh
+    names = mesh.mesh_dim_names
+    whole = (Replicate(),) * len(names)
+
+    def kept(t, i, n):
+        p = t.placements[i] if isinstance(t, DTensor) else Replicate()
+        if n in ("pod", "data"):
+            return p if p == Shard(0) else Replicate()
+        if n == "model" and split_dim is not None and p == Shard(split_dim):
+            return p
+        return Replicate()
+
+    pl = []
+    for i, n in enumerate(names):
+        got = {kept(t, i, n) for t in acts}
+        if n == "model":
+            # a split shared by the split acts, the whole ones cut to it
+            got.discard(Replicate())
+        pl.append(got.pop() if len(got) == 1 else Replicate())
+    pl = tuple(pl)
+    partial = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                    for p in pl)
+
+    def place(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, whole, run_check=False)
+        return _ContiguousGrad.apply(t.redistribute(mesh, pl).to_local())
+
+    loc = [place(t) for t in acts]
+    loc += [(t.redistribute(mesh, whole).to_local(grad_placements=partial)
+             if isinstance(t, DTensor) else t) for t in weights]
+    out = fn(*loc)
+
+    def wrap(o):
+        shape = list(o.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim % o.ndim] *= mesh.size(i)
+        shape = torch.Size(shape)
+        return DTensor.from_local(o, mesh, pl, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def split_rows_for(y, w):
+    """``y`` cut on its last dim as ``w`` is split on its rows over
+    ``model``, so that ``y @ w`` runs row-parallel on local shards (a cut
+    of a whole ``y`` moves nothing); ``y`` as it is otherwise."""
+    if not (isinstance(y, DTensor) and shard_dim(w) == 0):
+        return y
+    names = y.device_mesh.mesh_dim_names
+    pl = tuple(Shard(y.ndim - 1) if n == "model" else p
+               for n, p in zip(names, y.placements))
+    return y.redistribute(y.device_mesh, pl)
 
 
 class _ContiguousGrad(torch.autograd.Function):

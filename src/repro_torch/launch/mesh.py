@@ -2,21 +2,24 @@
 
 Port of ``make_host_mesh`` from ``repro/launch/mesh.py``. Each process is
 one device of the mesh; the caller initialises the default process group
-with a world of ``pipe * data`` or ``data * model`` processes. The outer
-axis is the slow one, so rank = s * data + w on a ``(pipe, data)`` mesh
-and rank = w * model + t on a ``(data, model)`` mesh: each pipeline stage
-owns a contiguous data-parallel group, and each DP worker a contiguous
-tensor-parallel group, as the reference lays them out:
+with a world of ``pipe * data``, ``data * model`` or ``pipe * data *
+model`` processes. The outer axis is the slow one, so rank = s * data + w
+on a ``(pipe, data)`` mesh, rank = w * model + t on a ``(data, model)``
+mesh and rank = (s * data + w) * model + t on a ``(pipe, data, model)``
+mesh: each pipeline stage owns a contiguous block of data-parallel
+workers, and each DP worker a contiguous tensor-parallel group, as the
+reference lays them out:
 
   mesh = make_host_mesh(pipe=2, data=2, device_type="cpu")   # gloo
   mesh.get_group("pipe")   # this process's column: its stage peers
   mesh.get_group("data")   # this process's row: its stage's DP workers
   mesh = make_host_mesh(data=2, model=2, device_type="cpu")
   mesh["model"]            # the sub-mesh the dp_tp parameters live on
+  mesh = make_host_mesh(pipe=2, data=1, model=2, device_type="cpu")
 
-``model`` > 0 builds the ``(data, model)`` mesh, at model size 1 too.
-A ``pipe`` or ``pod`` axis beside ``model`` > 1 raises (ROADMAP item
-12a'); pods as processes across cards are item 10b. The elastic outer
+``model`` > 0 builds a mesh with a ``model`` axis, at model size 1 too.
+Pods as processes across cards are ROADMAP item 10b: a ``pod`` axis
+above 1 raises, beside ``model`` too. The elastic outer
 loop runs its pods in one process on ``make_pod_mesh``'s carrier, as the
 reference runs them on its 1-device-per-pod mesh.
 """
@@ -32,16 +35,17 @@ __all__ = ["dp_axes", "make_host_mesh", "make_pod_mesh", "pipe_size",
 
 def make_host_mesh(data: int = 1, model: int = 0, pod: int = 0,
                    pipe: int = 0, device_type: str = "cuda") -> DeviceMesh:
-    """A mesh over the default process group's ranks: ``("data", "model")``
-    with ``model`` > 0, ``("pipe", "data")`` with ``pipe``, else
+    """A mesh over the default process group's ranks: ``("pipe", "data",
+    "model")`` with ``pipe`` and ``model`` > 0, ``("data", "model")`` with
+    ``model`` alone, ``("pipe", "data")`` with ``pipe`` alone, else
     ``("data",)``; ``device_type`` is "cuda" (NCCL, one card per process)
     or "cpu" (gloo)."""
-    if (pipe or pod > 1) and model > 1:
-        raise ValueError(f"pipe={pipe}, pod={pod}, model={model}: a pipe or "
-                         "pod axis beside a model axis is ROADMAP item 12a'")
     if pod > 1:
-        raise ValueError(f"pod={pod}: pods as processes across cards are "
-                         "ROADMAP Queue 1 item 10b")
+        raise ValueError(f"pod={pod}, model={model}: pods as processes "
+                         "across cards are ROADMAP Queue 1 item 10b")
+    if pipe and model:
+        return init_device_mesh(device_type, (pipe, data, model),
+                                mesh_dim_names=("pipe", "data", "model"))
     if pipe:
         return init_device_mesh(device_type, (pipe, data),
                                 mesh_dim_names=("pipe", "data"))

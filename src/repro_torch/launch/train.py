@@ -51,15 +51,22 @@ there are ``--pods`` of them):
       --outer-k 5 --pods 2 --rounds 6 --recover \\
       --inject nan_grad@7,pod_drop:1@r2,pod_join@r4 --device cpu
 
-``--model-mesh M`` runs the flat ``dp_tp`` step with tensor parallelism
-on a ``(data, model)`` mesh of ``data-mesh * M`` processes (rank = w * M
-+ t; one process is enough for M = 1, which still runs the DTensor
-placements and the model-group collectives):
+``--model-mesh M`` runs tensor parallelism on a ``(data, model)`` mesh of
+``data-mesh * M`` processes (rank = w * M + t; one process is enough for
+M = 1, which still runs the DTensor placements and the model-group
+collectives). Beside ``--pipe S`` the mesh is ``(pipe, data, model)``
+with ``S * data-mesh * M`` processes, one stage each (rank = (s *
+data-mesh + w) * M + t); one process runs every stage (LocalPipe) on a
+``(data 1, model 1)`` mesh:
 
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
       -m repro_torch.launch.train --arch gpt2 --variant reduced \
       --policy fixed --rank 8 --data-mesh 2 --model-mesh 2 --steps 4 \
       --batch 8 --seq 32 --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch gpt2 --variant reduced \
+      --policy fixed --rank 8 --pipe 2 --model-mesh 2 --micro 2 \
+      --steps 4 --batch 8 --seq 32 --device cpu
 
 The flags are the reference launcher's, plus ``--device``.
 """
@@ -367,16 +374,19 @@ def _process_mesh(args):
     on the CPU, NCCL with one card per process."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     model = args.model_mesh
-    want = max(1, args.pipe) * args.data_mesh * max(1, model)
     if world == 1 and args.data_mesh == 1 and not model:
         return None          # every stage in this process (LocalPipe)
-    if world != want:
+    # one process with a model axis keeps every stage (LocalPipe) on a
+    # (data 1, model 1) mesh; a world of several hosts one stage each
+    pipe = 0 if world == 1 else args.pipe
+    if world != max(1, pipe) * args.data_mesh * max(1, model):
+        need = max(1, args.pipe) * args.data_mesh * max(1, model)
         raise SystemExit(f"--pipe {args.pipe} --data-mesh {args.data_mesh} "
-                         f"--model-mesh {model} needs {want} processes, the "
+                         f"--model-mesh {model} needs {need} processes, the "
                          f"world has {world}")
-    if model and (args.pipe or args.outer_k):
-        raise SystemExit("--model-mesh beside --pipe or --outer-k is ROADMAP "
-                         "item 12a'")
+    if model and args.outer_k:
+        raise SystemExit("--model-mesh beside --outer-k: the reference's "
+                         "pods each run on a 1x1 (data, model) mesh")
     cpu = args.device is not None and torch.device(args.device).type == "cpu"
     if not cpu:
         local = int(os.environ.get("LOCAL_RANK", "0"))
@@ -392,7 +402,7 @@ def _process_mesh(args):
             dist.init_process_group(
                 "gloo" if cpu else "nccl",
                 init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
-    return make_host_mesh(pipe=args.pipe, data=args.data_mesh, model=model,
+    return make_host_mesh(pipe=pipe, data=args.data_mesh, model=model,
                           device_type="cpu" if cpu else "cuda")
 
 

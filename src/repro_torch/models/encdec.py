@@ -135,7 +135,7 @@ def embed_frames(frames):
 
 def embed_tokens(params, tokens):
     """The decoder's input: token embeddings plus learned positions."""
-    x = F.embedding(tokens, params["embed"]["tok"])
+    x = L.embedding(tokens, params["embed"]["tok"])
     return x + params["dec_pos"][: tokens.shape[1]]
 
 

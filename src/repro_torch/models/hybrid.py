@@ -98,7 +98,7 @@ def forward(params, batch, cfg: ModelConfig):
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = F.embedding(tokens, params["embed"]["tok"])
+    x = L.embedding(tokens, params["embed"]["tok"])
     for stage, sizes in zip(params["stages"], stage_group_sizes(cfg)):
         off = 0
         for sz in sizes:

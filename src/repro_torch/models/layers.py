@@ -368,18 +368,27 @@ def cross_attn_apply(p, x, enc_k, enc_v, *, num_heads: int,
     the encoder K/V's (fp32 under the fp32 encoder stream)."""
     B, T, _ = x.shape
     q = _mm("btd,de->bte", x, p["wq"])
+    q = tp.gather_unless_divides(q, -1, num_heads)
     q = q.reshape(B, T, num_heads, head_dim).to(x.dtype)
-    o = blockwise_attention(q, enc_k, enc_v, causal=False,
+    k, v, wrap = enc_k, enc_v, None
+    if isinstance(q, DTensor):
+        # per batch row and head, as attn_apply: on the local shards
+        q, k, v, wrap = tp.local_heads(q, k, v, num_kv_heads)
+    o = blockwise_attention(q, k, v, causal=False,
                             block_q=min(512, max(T, 8)))
-    o = o.reshape(B, T, num_heads * head_dim)
+    o = o.reshape(o.shape[0], T, -1)
+    if wrap is not None:
+        o = wrap(o, (B, T, num_heads * head_dim))
     return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype)
 
 
 def cross_kv(p, enc_out, *, num_kv_heads: int, head_dim: int):
     """Encoder memory -> (K, V), each (B, S, Hkv, Dh) in its dtype."""
     B, S, _ = enc_out.shape
-    k = _mm("bsd,de->bse", enc_out, p["wk"])
-    v = _mm("bsd,de->bse", enc_out, p["wv"])
+    k = tp.gather_unless_divides(_mm("bsd,de->bse", enc_out, p["wk"]), -1,
+                                 num_kv_heads)
+    v = tp.gather_unless_divides(_mm("bsd,de->bse", enc_out, p["wv"]), -1,
+                                 num_kv_heads)
     return (k.reshape(B, S, num_kv_heads, head_dim).to(enc_out.dtype),
             v.reshape(B, S, num_kv_heads, head_dim).to(enc_out.dtype))
 

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.dist import tp
 from . import layers as L
 from .model import (Model, ModelConfig, concat_stage_stacks, near_even_split,
                     register_family)
@@ -164,42 +165,68 @@ def mlstm_init(gen, n: int, cfg: ModelConfig) -> dict[str, Any]:
     }
 
 
-def _mlstm_qkv_gates(p, xc, xz, H: int):
-    """q, k, v heads and the per-head log decay (input gate folded into k)."""
-    d_inner = xc.shape[-1]
-    dh = d_inner // H
+def _mlstm_project(p, xc, xz):
+    """q, k, v (..., d_inner) and the gates' pre-activations i, f (..., H)."""
     q = L._mm("...d,de->...e", xc, p["wq"])
     k = L._mm("...d,de->...e", xc, p["wk"])
     v = L._mm("...d,de->...e", xz, p["wv"])
     gates = L._mm("...d,de->...e", xc, p["w_gates"]) + p["gate_bias"]
     i_raw, f_raw = torch.chunk(gates, 2, dim=-1)        # (..., H)
+    return q, k, v, i_raw, f_raw
+
+
+def _mlstm_heads(q, k, v, i_raw, f_raw):
+    """q, k, v heads and the per-head log decay (input gate folded into
+    k); the head count is the gates' last dim."""
+    H = i_raw.shape[-1]
+    dh = q.shape[-1] // H
     i_gate = torch.sigmoid(i_raw)                       # stabilised input gate
     log_a = F.logsigmoid(f_raw)                         # log forget/decay
-    shape = tuple(xc.shape[:-1]) + (H, dh)
+    shape = tuple(q.shape[:-1]) + (H, dh)
     scale = 1.0 / math.sqrt(dh)
     return (q.reshape(shape) * scale, k.reshape(shape) * i_gate[..., None],
             v.reshape(shape), log_a)
 
 
-def mlstm_apply(p, x, cfg: ModelConfig):
-    """x: (B, T, d). Matrix-memory LSTM with a normaliser channel."""
-    B, T, d = x.shape
-    h = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
-    xz = L._mm("btd,de->bte", h, p["up_z"]).to(x.dtype)
-    xc = L._mm("btd,de->bte", h, p["up_x"]).to(x.dtype)
-    xc = F.silu(causal_conv_apply(p["conv"], xc).to(F32)).to(x.dtype)
-    q, k, v, log_a = _mlstm_qkv_gates(p, xc, xz, cfg.num_heads)
+def _mlstm_mix(q, k, v, i_raw, f_raw, chunk: int, dtype):
+    """The mLSTM's chunked recurrence with its normaliser channel over
+    (B, T, H * dh) projections: (B, T, H * dh) in ``dtype``. Heads are
+    independent, so under tensor parallelism it runs on local heads."""
+    B, T = q.shape[:2]
+    q, k, v, log_a = _mlstm_heads(q, k, v, i_raw, f_raw)
     # normaliser channel: a column of ones appended to v
     v_aug = torch.cat([v, torch.ones(tuple(v.shape[:-1]) + (1,),
                                      dtype=v.dtype, device=v.device)], dim=-1)
-    pad = (-T) % cfg.chunk
+    pad = (-T) % chunk
     if pad:
         q, k, v_aug, log_a = _pad_time(pad, q, k, v_aug, log_a)
-    y_aug, _ = chunked_linear_recurrence(q, k, v_aug, log_a, cfg.chunk)
+    y_aug, _ = chunked_linear_recurrence(q, k, v_aug, log_a, chunk)
     y_aug = y_aug[:, :T]
     y, norm = y_aug[..., :-1], y_aug[..., -1:]
     y = y / torch.maximum(torch.abs(norm), torch.ones_like(norm))
-    y = y.reshape(B, T, -1).to(x.dtype)
+    return y.reshape(B, T, -1).to(dtype)
+
+
+def _conv_silu(x, w, b):
+    return F.silu(causal_conv_apply({"w": w, "b": b}, x).to(F32)).to(x.dtype)
+
+
+def mlstm_apply(p, x, cfg: ModelConfig):
+    """x: (B, T, d). Matrix-memory LSTM with a normaliser channel.
+
+    Under tensor parallelism the up projections are column-split; the
+    conv input is gathered (the q/k products and the replicated gate
+    product read it whole), and the recurrence runs on local heads where
+    the model axis divides them (``tp.local_map``)."""
+    h = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    xz = L._mm("btd,de->bte", h, p["up_z"]).to(x.dtype)
+    xc = L._mm("btd,de->bte", h, p["up_x"]).to(x.dtype)
+    xc = tp.local_map(_conv_silu, (xc,), (p["conv"]["w"], p["conv"]["b"]))
+    q, k, v, i_raw, f_raw = _mlstm_project(p, xc, xz)
+    heads = lambda t: tp.gather_unless_divides(t, -1, cfg.num_heads)
+    y = tp.local_map(
+        lambda *a: _mlstm_mix(*a, cfg.chunk, x.dtype),
+        (heads(q), heads(k), heads(v), i_raw, f_raw), split_dim=2)
     y = L.rms_norm(y, p["head_norm_scale"], cfg.norm_eps)
     y = y * F.silu(xz.to(F32)).to(x.dtype)
     out = L._mm("bte,ed->btd", y, p["down"])
@@ -215,7 +242,7 @@ def mlstm_decode(p, x_t, state, cfg: ModelConfig):
     xc = L._mm("bd,de->be", h, p["up_x"]).to(x_t.dtype)
     xc, conv_tail = causal_conv_decode(p["conv"], xc, state["conv"])
     xc = F.silu(xc.to(F32)).to(x_t.dtype)
-    q, k, v, log_a = _mlstm_qkv_gates(p, xc, xz, cfg.num_heads)
+    q, k, v, log_a = _mlstm_heads(*_mlstm_project(p, xc, xz))
     v_aug = torch.cat([v, torch.ones(tuple(v.shape[:-1]) + (1,),
                                      dtype=v.dtype, device=v.device)], dim=-1)
     y_aug, s = recurrence_decode(q, k, v_aug, log_a, state["s"])
@@ -286,20 +313,30 @@ def _slstm_cell(r32, gate_bias, x_pre, h_prev, c_prev, n_prev, m_prev,
     return h, c, n, m
 
 
-def slstm_apply(p, x, cfg: ModelConfig):
-    """x: (B, T, d): a sequential loop over T (sLSTM is recurrent)."""
-    B, _, d = x.shape
-    hx = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
-    x_pre = L._mm("btd,de->bte", hx, p["w_in"])
-    r32 = p["r_blocks"].to(F32)
-    h = torch.zeros((B, d), dtype=F32, device=x.device)
+def _slstm_scan(x_pre, r_blocks, gate_bias, H: int, dtype):
+    """The sLSTM's loop over T from zero state: (B, T, 4d) input
+    pre-activations -> (B, T, d) hidden states in ``dtype``."""
+    B, _, d4 = x_pre.shape
+    r32 = r_blocks.to(F32)
+    h = torch.zeros((B, d4 // 4), dtype=F32, device=x_pre.device)
     c, n, m = h, h, h - 10.0
     hs = []
     for x_t in x_pre.unbind(1):      # (B, 4d) per token, one backward stack
-        h, c, n, m = _slstm_cell(r32, p["gate_bias"], x_t, h, c, n, m,
-                                 cfg.num_heads)
+        h, c, n, m = _slstm_cell(r32, gate_bias, x_t, h, c, n, m, H)
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)              # (B,T,d)
+    return torch.stack(hs, dim=1).to(dtype)
+
+
+def slstm_apply(p, x, cfg: ModelConfig):
+    """x: (B, T, d): a sequential loop over T (sLSTM is recurrent). Under
+    tensor parallelism ``w_in`` and the recurrence are replicated and the
+    loop runs on local tensors (``tp.local_map``): about twenty ops a
+    token, none of them through DTensor's dispatch."""
+    hx = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    x_pre = L._mm("btd,de->bte", hx, p["w_in"])
+    y = tp.local_map(
+        lambda xp, r, b: _slstm_scan(xp, r, b, cfg.num_heads, x.dtype),
+        (x_pre,), (p["r_blocks"], p["gate_bias"]))
     y = L.rms_norm(y, p["head_norm_scale"], cfg.norm_eps)
     x = x + y
     h2 = L.rms_norm(x, p["ffn_norm_scale"], cfg.norm_eps)
@@ -371,7 +408,7 @@ def pair_apply(pair, x, cfg: ModelConfig):
 
 
 def xlstm_forward(params, batch, cfg: ModelConfig):
-    x = F.embedding(batch["tokens"], params["embed"]["tok"])
+    x = L.embedding(batch["tokens"], params["embed"]["tok"])
     pairs = concat_stage_stacks([st["pairs"] for st in params["stages"]])
     x = L.apply_units(pair_apply, pairs, x, cfg)
     x = L.rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
@@ -458,11 +495,12 @@ def mamba2_init(gen, n_layers: int, cfg: ModelConfig) -> dict[str, Any]:
     }
 
 
-def _mamba2_project(p, h, cfg: ModelConfig):
+def _mamba2_split(zxbcdt, dtype, cfg: ModelConfig):
+    """[z | x B C | dt] of the input projection: z and dt in fp32, the
+    conv's input in ``dtype``."""
     d_inner, n, H = _mamba2_dims(cfg)
-    zxbcdt = L._mm("...d,de->...e", h, p["in_proj"])
     z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner: 2 * d_inner + 2 * n].to(h.dtype)
+    xbc = zxbcdt[..., d_inner: 2 * d_inner + 2 * n].to(dtype)
     dt_raw = zxbcdt[..., -H:]
     return z, xbc, dt_raw
 
@@ -484,20 +522,40 @@ def _mamba2_ssm_inputs(p, xbc, dt_raw, cfg: ModelConfig):
     return q, k, v, log_a, xh
 
 
-def mamba2_apply(p, x, cfg: ModelConfig):
-    B, T, d = x.shape
-    h = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
-    z, xbc, dt_raw = _mamba2_project(p, h, cfg)
-    xbc = F.silu(causal_conv_apply(p["conv"], xbc).to(F32)).to(x.dtype)
+def _mamba2_mix(zxbcdt, conv_w, conv_b, a_log, dt_bias, d_skip, out_norm,
+                cfg: ModelConfig, dtype):
+    """Everything between the two projections: the conv, the SSD
+    recurrence, the D skip, the z gate and the gated norm, on (B, T,
+    2 d_inner + 2n + H) -> (B, T, d_inner) in ``dtype``."""
+    B, T = zxbcdt.shape[:2]
+    p = {"a_log": a_log, "dt_bias": dt_bias}
+    z, xbc, dt_raw = _mamba2_split(zxbcdt, dtype, cfg)
+    xbc = _conv_silu(xbc, conv_w, conv_b)
     q, k, v, log_a, xh = _mamba2_ssm_inputs(p, xbc, dt_raw, cfg)
     pad = (-T) % cfg.chunk
     if pad:
         q, k, v, log_a = _pad_time(pad, q, k, v, log_a)
     y, _ = chunked_linear_recurrence(q, k, v, log_a, cfg.chunk)
-    y = y[:, :T] + p["d_skip"][:, None] * xh.to(F32)       # D skip per head
+    y = y[:, :T] + d_skip[:, None] * xh.to(F32)            # D skip per head
     y = y.reshape(B, T, -1)
     y = y * F.silu(z)
-    y = L.rms_norm(y.to(x.dtype), p["out_norm_scale"], cfg.norm_eps)
+    return L.rms_norm(y.to(dtype), out_norm, cfg.norm_eps)
+
+
+def mamba2_apply(p, x, cfg: ModelConfig):
+    """Under tensor parallelism ``in_proj`` is column-split over the
+    concatenated [z | x B C | dt], whose slices cut across its shards:
+    its output is gathered over ``model`` (as GSPMD gathers it), the
+    layer between the projections runs whole on local tensors
+    (``tp.local_map``), and ``y`` is cut locally for the row-parallel
+    ``out_proj``."""
+    h = L.rms_norm(x, p["norm_scale"], cfg.norm_eps)
+    zxbcdt = L._mm("...d,de->...e", h, p["in_proj"])
+    y = tp.local_map(
+        lambda *a: _mamba2_mix(*a, cfg, x.dtype), (zxbcdt,),
+        (p["conv"]["w"], p["conv"]["b"], p["a_log"], p["dt_bias"],
+         p["d_skip"], p["out_norm_scale"]))
+    y = tp.split_rows_for(y, p["out_proj"])
     out = L._mm("bte,ed->btd", y, p["out_proj"])
     return x + out.to(x.dtype)
 
@@ -506,7 +564,8 @@ def mamba2_decode(p, x_t, state, cfg: ModelConfig):
     """x_t: (B, d); state: {'s': (B, H, n, 64) fp32, 'conv': (B, k-1,
     d_inner + 2n)}, updated in place."""
     h = L.rms_norm(x_t, p["norm_scale"], cfg.norm_eps)
-    z, xbc, dt_raw = _mamba2_project(p, h, cfg)
+    z, xbc, dt_raw = _mamba2_split(
+        L._mm("...d,de->...e", h, p["in_proj"]), h.dtype, cfg)
     xbc, conv_tail = causal_conv_decode(p["conv"], xbc, state["conv"])
     xbc = F.silu(xbc.to(F32)).to(x_t.dtype)
     q, k, v, log_a, xh = _mamba2_ssm_inputs(p, xbc, dt_raw, cfg)

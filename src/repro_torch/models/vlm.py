@@ -47,7 +47,7 @@ def _embed_multimodal(params, patches, tokens, cfg: ModelConfig):
     promoted dtype of the two."""
     proj = L._mm("bpd,de->bpe", patches, params["projector"]["w"])
     proj = (proj + params["projector"]["b"].to(F32)).to(patches.dtype)
-    tok = F.embedding(tokens, params["embed"]["tok"])
+    tok = L.embedding(tokens, params["embed"]["tok"])
     dt = torch.promote_types(proj.dtype, tok.dtype)
     return torch.cat([proj.to(dt), tok.to(dt)], dim=1)
 

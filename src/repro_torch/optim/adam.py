@@ -11,7 +11,7 @@ too). Moments are fp32 unless ``opt_dtype`` says otherwise.
 
 Tensor parallelism: DTensor leaves update on their local shards (the
 in-place path writes into the shards' storage) and come back placed as
-given; ``global_norm`` sums each leaf's local squares over the mesh dims
+given; ``sum_squares`` sums each leaf's local squares over the mesh dims
 it is split on.
 """
 from __future__ import annotations
@@ -70,12 +70,18 @@ def init(params, cfg: AdamConfig) -> AdamState:
                      v=tree.tree_map(zeros, params))
 
 
-def global_norm(grads) -> torch.Tensor:
-    leaves = tree.leaves(grads)
+def sum_squares(tree_) -> torch.Tensor:
+    """The fp32 sum of squares over a tree's leaves; a DTensor leaf's
+    local squares are summed over its split once (``tp.leafwise_sums``)."""
+    leaves = tree.leaves(tree_)
     sq = [torch.sum(tp.local(l).to(F32) ** 2) for l in leaves]
     if any(isinstance(l, DTensor) for l in leaves):
         sq = tp.leafwise_sums(sq, leaves)
-    return torch.sqrt(sum(sq))
+    return sum(sq)
+
+
+def global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum_squares(grads))
 
 
 @torch.no_grad()

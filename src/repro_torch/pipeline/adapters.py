@@ -36,7 +36,6 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
@@ -415,7 +414,8 @@ class MoEAdapter(StageAdapter):
         return {"blocks": self.cfg.stage_sizes()}
 
     def embed(self, shared, mb):
-        return F.embedding(mb["tokens"], shared["embed"]["tok"])
+        from repro_torch.models import layers as L
+        return L.embedding(mb["tokens"], shared["embed"]["tok"])
 
     def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
         from repro_torch.models import moe as M
@@ -461,7 +461,8 @@ class XLSTMAdapter(StageAdapter):
         return {"pairs": xlstm_stage_sizes(self.cfg)}
 
     def embed(self, shared, mb):
-        return F.embedding(mb["tokens"], shared["embed"]["tok"])
+        from repro_torch.models import layers as L
+        return L.embedding(mb["tokens"], shared["embed"]["tok"])
 
     def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
         from repro_torch.models import ssm
@@ -524,7 +525,8 @@ class ZambaAdapter(StageAdapter):
         return slots[i] if i < len(slots) else -1
 
     def embed(self, shared, mb):
-        return F.embedding(mb["tokens"], shared["embed"]["tok"])
+        from repro_torch.models import layers as L
+        return L.embedding(mb["tokens"], shared["embed"]["tok"])
 
     def blocks_segment(self, stage_tree, shared, x, s, lo, hi):
         from repro_torch.models import hybrid, ssm

@@ -54,7 +54,10 @@ injected ``psum_mean``:
 
 A step's state holds the hosted stages' slices: ``stage_params`` and the
 stage halves of ``opt_m``/``opt_v`` lead with (H, Lmax, ...) and the
-compressor state with (H, ...), H = ``len(pipe.stages)``.
+compressor state with (H, ...), H = ``len(pipe.stages)``. On a mesh with a
+``model`` axis the parameters and moments are DTensors on the model group
+and everything the schedule moves or accumulates is local
+(``_ModelAxis``).
 """
 from __future__ import annotations
 
@@ -62,6 +65,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import tree
 from repro_torch.core import powersgd
@@ -69,6 +73,7 @@ from repro_torch.core.config import SyncConfig
 from repro_torch.core.entropy import entropy_from_moments, sample_moments
 from repro_torch.core.powersgd import LowRankState
 from repro_torch.core.sync_executor import SyncExecutor
+from repro_torch.dist import sharding, tp
 from repro_torch.dist.collectives import make_dp_pmean
 from repro_torch.models.model import Model
 from repro_torch.optim import adam
@@ -234,12 +239,88 @@ def _stack_comp(per_stage: list[dict]) -> dict:
     return out
 
 
-def _sumsq(t) -> torch.Tensor:
-    return sum(torch.sum(torch.square(l.to(F32))) for l in tree.leaves(t))
+def _inner(placements, lead: int) -> tuple:
+    """The placements of an element of a stacked DTensor: every split dim
+    ``lead`` dims lower."""
+    return tuple(Shard(p.dim - lead) if isinstance(p, Shard) else p
+                 for p in placements)
+
+
+class _ModelAxis:
+    """The stage program's side of a ``model`` mesh axis: parameters are
+    DTensors on the model sub-mesh, and everything the schedule moves or
+    accumulates is local. A boundary crosses the pipe as its whole
+    (replicated) local tensor and is made a DTensor again where a stage
+    reads it; gradients accumulate as fp32 local shards; a stage
+    gradient is gathered whole over ``model`` before the per-stage sync,
+    whose compressor state stays whole as the reference's does (GSPMD
+    gathers the split gradients into it), and each rank keeps its own
+    cut of the synced leaf. Without a mesh every method is the
+    identity."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = (None if mesh is None or "model" not in mesh.mesh_dim_names
+                     else mesh["model"])
+
+    def read(self, b):
+        """A received boundary (local tensors) as the stage reads it."""
+        if self.mesh is None or b is None:
+            return b
+        rep = (Replicate(),)
+        return boundary_unflatten(b, [
+            DTensor.from_local(t, self.mesh, rep, run_check=False)
+            for t in boundary_leaves(b)])
+
+    @staticmethod
+    def wire(b):
+        """A stage's output boundary (or aux loss) as local whole tensors."""
+        if b is None:
+            return b
+        return boundary_unflatten(b, [
+            t.full_tensor() if isinstance(t, DTensor) else t
+            for t in boundary_leaves(b)])
+
+    @staticmethod
+    def unit_leaf(a, k: int, i: int):
+        """Element ``i`` of hosted stage ``k``'s stack ``a`` (H, Lmax, ...)
+        as a leaf gradients are taken against."""
+        if not isinstance(a, DTensor):
+            return a[k, i].detach().requires_grad_(True)
+        shape = torch.Size(a.shape[2:])
+        return DTensor.from_local(
+            a.to_local()[k, i].detach(), a.device_mesh,
+            _inner(a.placements, 2), run_check=False, shape=shape,
+            stride=sharding.contiguous_stride(shape)).requires_grad_(True)
+
+    @staticmethod
+    def grad(g, like) -> torch.Tensor:
+        """A gradient's local shard, placed as its leaf."""
+        return tp.local(tp.normalize_grad(g, like))
+
+    @staticmethod
+    def gather(t: torch.Tensor, like) -> torch.Tensor:
+        """The whole of a stage leaf's local gradient ``t`` (shaped as
+        ``like`` without its stage dim)."""
+        if not isinstance(like, DTensor):
+            return t
+        shape = torch.Size(like.shape[1:])
+        return DTensor.from_local(
+            t, like.device_mesh, _inner(like.placements, 1), run_check=False,
+            shape=shape, stride=sharding.contiguous_stride(shape)
+        ).full_tensor()
+
+    @staticmethod
+    def cut(t: torch.Tensor, like) -> torch.Tensor:
+        """This rank's cut of a whole synced stage leaf."""
+        if not isinstance(like, DTensor):
+            return t
+        return sharding.local_chunk(t, _inner(like.placements, 1),
+                                    like.device_mesh)
 
 
 # -------------------------------------------------------------- step builder
-def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
+def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None,
+                             mesh=None):
     """Pipelined train step: ``step(state, batch) -> (state, metrics)``.
 
     ``cfg`` is a ``train.step.TrainStepConfig``; ``pipe`` a transport
@@ -253,6 +334,12 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
 
     metrics = {loss, entropy, stage_entropy (S,), ef_norm, lr, grad_norm},
     tensors left on the device.
+
+    ``mesh`` with a ``model`` axis (``(pipe, data, model)`` across
+    processes with ``DistPipe``, or ``(data, model)`` with ``LocalPipe``):
+    the stage and shared parameters and their moments are DTensors on the
+    model sub-mesh (``train.step.distribute_state``) and the compressor
+    state stays whole (see ``_ModelAxis``).
     """
     S = cfg.num_stages
     M = cfg.num_microbatches or S
@@ -295,6 +382,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
     inv_M = 1.0 / M
     hosted = pipe.stages
     built: dict[str, Any] = {}
+    axis = _ModelAxis(mesh)
 
     def expected(t: int) -> set:
         """Receives the tick table implies at the end of tick t."""
@@ -310,12 +398,15 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
         """One stash segment of stage s: stage 0's first segment embeds,
         the last stage's last segment adds the head loss."""
         lo, hi = segs[i]
-        if i == 0 and s == 0:
-            xin = part.embed(shared, mbj)
-        y, contrib = part.blocks_segment(units, shared, xin, s, lo, hi)
-        if i == last_seg and s == S - 1:
-            contrib = contrib + part.head_loss(shared, y, mbj)
-        return y, contrib
+        with tp.model_context(axis.mesh is not None):
+            if i == 0 and s == 0:
+                xin = part.embed(shared, mbj)
+            else:
+                xin = axis.read(xin)
+            y, contrib = part.blocks_segment(units, shared, xin, s, lo, hi)
+            if i == last_seg and s == S - 1:
+                contrib = contrib + part.head_loss(shared, y, mbj)
+        return axis.wire(y), axis.wire(contrib)
 
     def step(state, batch):
         batch = dict(batch)
@@ -363,9 +454,12 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
         grad_leaf = lambda a: a.detach().requires_grad_(True)
         units, unit_leaves, leaf_unit, targets, gacc_s = {}, {}, {}, {}, {}
         for k, s in enumerate(hosted):
-            local = tree.tree_map(lambda a: a[k], stage_p)
-            units[s] = tree.tree_map(grad_leaf, part.split_units(local))
+            units[s] = {key: [
+                tree.tree_map(lambda a, i=i: axis.unit_leaf(a, k, i), sub)
+                for i in range(tree.leaves(sub)[0].shape[1])]
+                for key, sub in stage_p.items()}
             unit_leaves[s] = tree.leaves(units[s])
+            local = tree.tree_map(lambda a: tp.local(a)[k], stage_p)
             gacc_s[s] = tree.tree_map(
                 lambda a: torch.zeros(a.shape, dtype=F32, device=a.device),
                 local)
@@ -419,7 +513,8 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                 seg_ids = [n for n, u in enumerate(leaf_unit[s])
                            if lo <= u < hi]
                 seg_leaves = [unit_leaves[s][n] for n in seg_ids]
-                with torch.enable_grad():
+                with torch.enable_grad(), \
+                        tp.model_context(axis.mesh is not None):
                     x_leaves = []
                     if takes_input:
                         x_leaves = [a.detach().requires_grad_(True)
@@ -439,14 +534,15 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                 with torch.no_grad():
                     for n, g in zip(seg_ids, grads):
                         if g is not None:
-                            targets[s][n].add_(g.to(F32))
+                            targets[s][n].add_(axis.grad(
+                                g, unit_leaves[s][n]).to(F32))
                     acc = gacc_sh[s]
                     for n, g in enumerate(grads[len(seg_leaves):
                                                 len(seg_leaves)
                                                 + len(shared_leaves)]):
                         if g is not None:
-                            acc[n] = (g.to(F32) if acc[n] is None
-                                      else acc[n].add_(g.to(F32)))
+                            g = axis.grad(g, shared_leaves[n]).to(F32)
+                            acc[n] = g if acc[n] is None else acc[n].add_(g)
                 # a boundary leaf the segment never read (a padded decoder
                 # unit's head reads no mem) gets a zero cotangent
                 ct_carry = (boundary_unflatten(xin, [
@@ -461,6 +557,9 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
         paths = [p for p, _ in tree.flatten_with_path(gacc_s[hosted[0]])]
         pdt = {p: a.dtype for p, a in
                zip(paths, tree.leaves(stage_p))}
+        plike = dict(zip(paths, tree.leaves(stage_p)))
+        # a stage gradient in the parameter dtype, whole over ``model``
+        whole_grad = lambda p, g: axis.gather(g.to(pdt[p]), plike[p])
         # overlapped sync, per hosted stage: the fp32 accumulators by path
         # (taken at its first launch), the synced leaves and its slice of
         # the compressor state; on CUDA the event after its last backward
@@ -485,7 +584,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
             need = [p for ci in ids for p in chunks[ci].member_paths]
             launches.append((t, s, tuple(ids)))
             if side is None or t < 0:
-                gb = {p: accs[s].pop(p).to(pdt[p]) for p in need}
+                gb = {p: whole_grad(p, accs[s].pop(p)) for p in need}
                 upd, comps[s] = sync_exec.run_chunks(d, ids, gb, comps[s],
                                                      pmean)
             else:
@@ -493,7 +592,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                 with torch.cuda.stream(side):
                     for v in [accs[s][p] for p in need] + tree.leaves(comps[s]):
                         v.record_stream(side)
-                    gb = {p: accs[s].pop(p).to(pdt[p]) for p in need}
+                    gb = {p: whole_grad(p, accs[s].pop(p)) for p in need}
                     upd, comps[s] = sync_exec.run_chunks(d, ids, gb,
                                                          comps[s], pmean)
             parts[s].update(upd)
@@ -521,7 +620,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
             loss = pmean(pipe.psum_pipe(loss_acc, loss_acc[hosted[0]]) * inv_M)
             shared_grads = tree.unflatten(shared_p, [
                 pipe.psum_pipe({s: gacc_sh[s][n] for s in hosted},
-                               p).to(p.dtype)
+                               tp.local(p)).to(p.dtype)
                 for n, p in enumerate(tree.leaves(shared_p))])
             del gacc_sh
             synced_s, comp2 = {}, []
@@ -544,7 +643,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
             else:
                 for k, s in enumerate(hosted):
                     grads = tree.unflatten(gacc_s[s], [
-                        g.to(pdt[p]) for p, g in
+                        whole_grad(p, g) for p, g in
                         zip(paths, tree.leaves(gacc_s[s]))])
                     gacc_s[s] = None
                     synced_s[s], _, new_k = sync_exec.sync(
@@ -552,7 +651,10 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                     comp2.append(new_k)
             del gacc_s
             comp2 = _stack_comp(comp2) if comp2[0] else {}
-            synced_sh = sync_exec.sync_shared(shared_grads, pmean)
+            # the shared leaves are never compressed: their DP mean runs on
+            # the local shards (a mean commutes with the split)
+            synced_sh = tree.tree_map(
+                tp.rewrap, shared_p, sync_exec.sync_shared(shared_grads, pmean))
             del shared_grads
 
             zero = torch.zeros((), dtype=F32, device=device)
@@ -583,10 +685,16 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None):
                 stage_entropy = torch.zeros((S,), dtype=F32, device=device)
 
             gnorm = torch.sqrt(
-                pipe.psum_pipe({s: _sumsq(synced_s[s]) for s in hosted}, zero)
-                + _sumsq(synced_sh))
-            synced_stack = tree.tree_map(lambda *xs: torch.stack(xs),
-                                         *[synced_s[s] for s in hosted])
+                pipe.psum_pipe({s: adam.sum_squares(synced_s[s])
+                                for s in hosted}, zero)
+                + adam.sum_squares(synced_sh))
+            # every rank synced the whole stage leaves; it keeps its cut
+            per_stage = [tree.leaves(synced_s[s]) for s in hosted]
+            synced_stack = tree.unflatten(stage_p, [
+                tp.rewrap(like, torch.stack([axis.cut(g[n], like)
+                                             for g in per_stage]))
+                for n, like in enumerate(tree.leaves(stage_p))])
+            del per_stage
             del synced_s
             ost = adam.AdamState(step=state["opt_step"], m=state["opt_m"],
                                  v=state["opt_v"])

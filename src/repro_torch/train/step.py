@@ -125,7 +125,9 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
 
     ``cfg.num_stages > 1`` or a ``pipe`` transport (``LocalPipe``,
     ``DistPipe``) returns the pipelined step instead, with the
-    stage-partitioned state of ``pipeline.executor``.
+    stage-partitioned state of ``pipeline.executor``; a ``mesh`` with a
+    ``model`` axis runs it with its parameters placed on the model
+    sub-mesh, and its DP mean defaults to the mesh's data group.
 
     ``mesh`` (a ``(data, model)`` mesh): the state's tensors are DTensors
     placed by ``distribute_state`` (on the ``model`` sub-mesh in
@@ -139,7 +141,10 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
         if donate:
             raise ValueError("donate applies to the flat step only")
         from repro_torch.pipeline.executor import make_pipeline_train_step
-        return make_pipeline_train_step(model, cfg, psum_mean, pipe)
+        if psum_mean is None and mesh is not None:
+            psum_mean = make_dp_pmean(mesh.get_group("data"))
+        return make_pipeline_train_step(model, cfg, psum_mean, pipe,
+                                        mesh=mesh)
     if cfg.mode not in ("dp_tp", "auto"):
         raise ValueError(f"unknown mode {cfg.mode!r} (want dp_tp or auto)")
     if cfg.mode == "auto":
@@ -149,8 +154,6 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
             raise NotImplementedError(
                 "mode='auto' syncs through DTensor's gradient reduce: the "
                 "compression policy must be 'none' in this mode")
-    if mesh is not None:
-        tp.check_family(model.config.family, mesh)
     if donate and cfg.guard_nonfinite:
         raise ValueError("donate conflicts with guard_nonfinite: the guard "
                          "keeps the old state where it refuses an update")
@@ -274,7 +277,15 @@ def state_shardings(state, mesh, fsdp: bool = False) -> dict:
 def distribute_state(state, mesh, fsdp: bool = False) -> dict:
     """A state of whole tensors (every process holds the same) placed on
     ``mesh`` by ``state_shardings``: in ``dp_tp`` the mesh is the
-    ``model`` sub-mesh, in ``auto`` the whole ``(data, model)`` mesh."""
+    ``model`` sub-mesh, in ``auto`` the whole ``(data, model)`` mesh.
+
+    A pipelined state (``stage_params``) is placed as the reference's
+    ``pipeline_state_shardings`` places it on the model axis: the stage
+    stacks and their moments by ``sharding.stage_param_pspecs`` (the
+    stage dim whole: a process holds its hosted stages), the shared tree
+    by the TP rules, and the compressor state whole."""
+    if "stage_params" in state:
+        return _distribute_pipelined(state, mesh)
     specs = state_shardings(dict({"comp": {}}, **state), mesh, fsdp=fsdp)
     out = dict(state)
     for key in ("params", "opt_m", "opt_v"):
@@ -283,6 +294,20 @@ def distribute_state(state, mesh, fsdp: bool = False) -> dict:
     if "comp" in state:
         out["comp"] = distribute_comp(state["comp"], state["params"], mesh,
                                       specs=specs)
+    return out
+
+
+def _distribute_pipelined(state, mesh) -> dict:
+    place = lambda t, specs: sharding.distribute_tree(t, specs, mesh)
+    stage = sharding.stage_param_pspecs(state["stage_params"], mesh)
+    shared = sharding.param_pspecs(state["shared_params"], mesh)
+    out = dict(state)
+    out["stage_params"] = place(state["stage_params"], stage)
+    out["shared_params"] = place(state["shared_params"], shared)
+    for key in ("opt_m", "opt_v"):
+        if key in state:
+            out[key] = {"stage": place(state[key]["stage"], stage),
+                        "shared": place(state[key]["shared"], shared)}
     return out
 
 

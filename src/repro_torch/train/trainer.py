@@ -37,7 +37,12 @@ group reads that worker's batch rows, and the sync is the per-leaf one on
 the local shards unless the model axis is 1 (``bucketing_supported``). A
 coded wire needs the bucketed sync, so it is refused above model size 1.
 Checkpoints hold whole tensors, gathered over the model group, and a
-restore places them on this trainer's mesh, whatever mesh wrote them.
+restore places them on this trainer's mesh, whatever model size wrote
+them. Beside ``pipe`` the mesh may carry a model axis too: ``(pipe, data,
+model)``, one stage a process, or ``(data, model)`` with every stage in
+this process; the stage and shared trees and their moments are placed by
+``sharding.stage_param_pspecs`` and the TP rules (the reference's
+``pipeline_state_shardings``), and the compressor state stays whole.
 
 ``overlap_sync`` (pipelined runs) launches each stage's sync chunks in the
 drain ticks ``pipeline.schedule.plan_overlap`` assigns and feeds the plan's
@@ -181,10 +186,6 @@ class Trainer:
         # a mesh with a model axis: the dp_tp step with tensor parallelism
         self._mesh = None
         if mesh is not None and "model" in mesh.mesh_dim_names:
-            tp.check_family(model.config.family, mesh)
-            if pipe is not None:
-                raise ValueError("a pipe axis beside a model axis is ROADMAP "
-                                 "item 12a'")
             self._mesh = mesh
         self._pipe_group = None
         if mesh is not None and "pipe" in mesh.mesh_dim_names:
@@ -349,6 +350,8 @@ class Trainer:
         }
         if self._pipe_group is not None:
             self.state = host_state(self.state, self._transport.stages)
+        if self._mesh is not None:
+            self.state = distribute_state(self.state, self._mesh["model"])
 
     def _stage_plans(self, stage_p):
         return psync.make_stage_plans(
@@ -750,8 +753,9 @@ class Trainer:
 
     # ------------------------------------------------- tensor parallelism
     def _place_comp(self, comp: dict) -> dict:
-        """Whole compressor state placed as the live state's is."""
-        if self._mesh is None:
+        """Whole compressor state placed as the live state's is (the
+        pipelined state keeps it whole)."""
+        if self._mesh is None or self.pipelined:
             return comp
         return distribute_comp(comp, self.state["params"], self._mesh["model"])
 

@@ -577,25 +577,6 @@ def test_trainer_refuses_a_coded_wire_above_model_size_one():
                     device="cpu", mesh=_Mesh(1, 2))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b", "whisper-base",
-                                  "phi-3-vision-4.2b"])
-def test_other_families_refuse_a_model_axis(arch):
-    from repro_torch.configs import get_config
-    from repro_torch.core import EDGCConfig
-    from repro_torch.models.model import build_model
-    from repro_torch.train.step import TrainStepConfig, make_train_step
-    from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = get_config(arch, "reduced")
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 12a'"):
-        make_train_step(model, TrainStepConfig(), mesh=_Mesh(1, 2))
-    with pytest.raises(NotImplementedError, match="item 12a'"):
-        Trainer(model, EDGCConfig(policy="fixed", fixed_rank=8,
-                                  num_stages=cfg.num_stages),
-                TrainerConfig(total_steps=1), seed=0, device="cpu",
-                mesh=_Mesh(2, 4))
-
-
 def test_auto_mode_refuses_a_compressed_plan():
     from repro_torch.core.compressor import CompressionPlan
     from repro_torch.models.model import ModelConfig, build_model
