@@ -263,6 +263,21 @@ Phases, in order; any failure raises, so the exit code is not 0:
                with ``--arch zamba2-7b --variant reduced --model-mesh 1``
                and ``--arch gpt2 --variant reduced --pipe 2 --model-mesh
                1`` in one process each, beside (o5)'s launchers
+  (r) dry run  ``launch/dryrun.py`` (no kernel: each wrapper's count is
+               the same after the phase as before it): (r1) (c)'s
+               configuration (gpt2-2.5b, depth 8, batch 8 x 1024, fixed
+               r64, bucketed, bf16, world 1, kernels off) through the dry
+               run's train lowering on fake CUDA tensors, and one real
+               step of it on the card under ``FlopCounterMode``: the FLOPs
+               within 0.1%, the dry run's argument + temp bytes within
+               ``R_MEMORY_TOL`` of the step's allocator peak, and the
+               counted FLOPs over (c)'s median step as a share of 989
+               TFLOP/s (a reading); (r2) the CLI on fake CUDA over fake
+               worlds, in subprocesses beside (o5)'s launchers:
+               qwen2.5-3b at train_4k, prefill_32k and decode_32k on the
+               16 x 16 mesh, train_4k with ``--pipe 4``, and qwen2-0.5b
+               at train_4k with ``--multi-pod --outer-k 2``, each exit 0
+               with an OK line
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -4484,6 +4499,137 @@ def phase_tp_families(report: dict, dev, j1_leaves: list, cli: list) -> dict:
     return {"flat": flat, "pipe": out["pipe"]["launches"]}
 
 
+# ------------------------------------------------------------ (r) dry run
+#: (r1): (c)'s configuration through the dry run's train lowering
+R_SPEC = {"seq_len": 1024, "global_batch": 8, "kind": "train"}
+#: (r1)'s bar on the dry run's memory against the real step's peak, as
+#: PERF.md states it
+R_MEMORY_TOL = 0.10
+#: (r1)'s bar on the counted FLOPs against FlopCounterMode's
+R_FLOP_TOL = 1e-3
+BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 (PERF.md's peak)
+
+
+def _dryrun_cli_cmds() -> list:
+    """(r2)'s dry runs (``_run_all``'s form) on fake CUDA tensors over fake
+    worlds of 256 and 512 ranks: host work only, no card memory."""
+    run = ["repro_torch.launch.dryrun", "--arch"]
+    qwen = run + ["qwen2.5-3b", "--shape"]
+    return [qwen + ["train_4k"], qwen + ["prefill_32k"],
+            qwen + ["decode_32k"], qwen + ["train_4k", "--pipe", "4"],
+            run + ["qwen2-0.5b", "--shape", "train_4k", "--multi-pod",
+                   "--outer-k", "2"]]
+
+
+def _dryrun_real_step(cfg, dev) -> dict:
+    """(r1)'s real step: ``dryrun.train_inputs``'s step and state made on
+    the card (a (data 1, model 1) NCCL mesh, world size 1, kernels off),
+    one step on a SyntheticLM batch under ``FlopCounterMode``; its peak is
+    the allocator's peak over what was allocated before the state."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step, state, batch, _, _ = dryrun.train_inputs(
+            cfg, build_model(cfg), mesh, "dp_tp", R_SPEC, "fixed", 64,
+            device=dev)
+        real = next(SyntheticLM(cfg.vocab_size, R_SPEC["seq_len"],
+                                R_SPEC["global_batch"], seed=0).batches())
+        batch = {k: torch.as_tensor(real[k]).long().to(dev) for k in batch}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            state, mets = step(state, batch)
+        loss = float(mets["loss"])
+        torch.cuda.synchronize(dev)
+        out = {"flops": float(fc.get_total_flops()),
+               "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+               "loss": loss, "ms": 1e3 * (time.perf_counter() - t0)}
+        del step, state, batch, mets
+    finally:
+        dist.destroy_process_group()
+    _release()
+    return out
+
+
+def phase_dryrun(report: dict, dev, cli: list) -> None:
+    """(r): the dry run (``launch/dryrun.py``). (r1) (c)'s configuration
+    through its train lowering on fake CUDA tensors, against one real step
+    of it: FLOPs within ``R_FLOP_TOL``, memory within ``R_MEMORY_TOL``,
+    and an MFU reading over (c)'s step time. (r2) the CLI's runs
+    (``_dryrun_cli_cmds``), made beside (o5)'s launchers (``cli``): each
+    exits 0 with an OK line. No port kernel runs."""
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.launch import dryrun
+    _release()
+    wrappers = _kernel_wrappers()
+    before = {w.__name__: w.launches for w in wrappers}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+    rec = dryrun.lower_one("gpt2", "r1", device="cuda",
+                           mesh_shape={"data": 1, "model": 1}, cfg=cfg,
+                           spec=R_SPEC, policy="fixed", rank=64)
+    dry_s = time.perf_counter() - t0
+    real = _dryrun_real_step(cfg, dev)
+    flops, mem = rec["flops_per_chip"], rec["memory"]
+    dry_bytes = mem["argument_bytes"] + mem["temp_bytes"]
+    flop_gap = abs(flops - real["flops"]) / real["flops"]
+    mem_gap = dry_bytes / real["peak_bytes"] - 1
+    step_ms = statistics.median(report["main"]["step_ms"][1:])
+    mfu = flops / (step_ms / 1e3) / BF16_FLOP_PER_S
+    out = {"r1": {"record": rec, "dry_seconds": dry_s, "real": real,
+                  "flop_gap": flop_gap, "memory_gap": mem_gap,
+                  "c_step_ms": step_ms, "mfu": mfu}}
+    log(f"(r1) dry run of (c)'s configuration ({cfg.name} depth "
+        f"{cfg.num_layers}, 8 x 1024, fixed r64, bucketed, kernels off) on "
+        f"fake CUDA tensors in {dry_s:.1f} s: {flops:.6e} FLOP; the real "
+        f"step under FlopCounterMode {real['flops']:.6e} (gap {flop_gap:.2e}, "
+        f"tol {R_FLOP_TOL:g}), loss {real['loss']:.4f}, {real['ms']:.1f} ms")
+    log(f"(r1) memory: argument {mem['argument_bytes'] / 2**30:.3f} + temp "
+        f"{mem['temp_bytes'] / 2**30:.3f} = {dry_bytes / 2**30:.3f} GiB "
+        f"against the real step's peak {real['peak_bytes'] / 2**30:.3f} GiB: "
+        f"gap {mem_gap:+.4f} (tol {R_MEMORY_TOL:g}); collectives "
+        f"{rec['collective_bytes_per_chip']}")
+    log(f"(r1) MFU reading on {report['card']}: {flops:.4e} FLOP over (c)'s "
+        f"median step {step_ms:.1f} ms (kernels on) = {mfu:.4f} of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s (bf16 dense)")
+    if not flop_gap <= R_FLOP_TOL:
+        raise AssertionError(f"(r1) counted FLOPs {flops} against "
+                             f"FlopCounterMode's {real['flops']}")
+    if not abs(mem_gap) <= R_MEMORY_TOL or not math.isfinite(real["loss"]):
+        raise AssertionError(f"(r1) dry-run memory {dry_bytes} against the "
+                             f"peak {real['peak_bytes']}, loss {real['loss']}")
+    out["r2"] = []
+    for cmd, (seconds, lines) in zip(_dryrun_cli_cmds(), cli):
+        ok = [l for l in lines if l.startswith("OK ")]
+        out["r2"].append({"cmd": cmd, "seconds": seconds, "lines": ok})
+        log(f"(r2) {' '.join(cmd[1:])} (beside (o5)'s launchers): exit 0 in "
+            f"{seconds:.1f} s")
+        for line in ok:
+            log(f"    {line}")
+        if len(ok) != 1 or not all(k in ok[0] for k in (
+                "FLOP/chip", "B/chip", "MiB/chip", "GiB/chip")) or not any(
+                l.startswith("done: 1 ok, 0 skipped, 0 failed") for l in lines):
+            raise AssertionError(f"(r2) {cmd} printed {lines[-20:]}")
+    launched = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+    if any(launched.values()):
+        raise AssertionError(f"(r) the dry run launched port kernels: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(r) dry run: {out['seconds']:.1f} s ((r2) ran beside (o5)); no "
+        "port kernel launched")
+    report["dryrun"] = out
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
                  moe_launches: dict, families2_launches: dict,
@@ -4649,12 +4795,15 @@ def main() -> int:
     moe_launches = phase_families(report, dev, args.profile)
     families2_launches = phase_families2(report, dev, args.profile)
     elastic_launches = phase_elastic(report, dev)
-    # (p4)'s and (q3)'s launchers run beside (o5)'s
-    serve_launches, (tp_cli, *q_cli) = phase_serve(
-        report, dev, also=[_tp_cli_cmd()] + _q_cli_cmds())
+    # (p4)'s, (q3)'s and (r2)'s launchers run beside (o5)'s
+    q_cmds = _q_cli_cmds()
+    serve_launches, (tp_cli, *later_cli) = phase_serve(
+        report, dev, also=[_tp_cli_cmd()] + q_cmds + _dryrun_cli_cmds())
+    q_cli, r_cli = later_cli[:len(q_cmds)], later_cli[len(q_cmds):]
     tp_launches = phase_tp(report, dev, tp_cli)
     tpf_launches = phase_tp_families(report, dev, j1_leaves, q_cli)
     del j1_leaves
+    phase_dryrun(report, dev, r_cli)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
                         overlap_launches, moe_launches, families2_launches,

@@ -7,6 +7,8 @@ xlstm-125m's recurrent state as published, ``None`` for gpt2 and
 whisper-base, whose contexts are bounded). ``sharding_mode(arch)`` is the
 step mode a config trains under on a mesh: ``dp_tp``, or ``auto`` for the
 three whose replicated parameters cannot fit (``train.step``).
+``INPUT_SHAPES`` are the dry run's four input shapes, the reference's
+(``repro/configs/__init__.py``) verbatim.
 """
 from __future__ import annotations
 
@@ -24,6 +26,13 @@ ARCHS: dict[str, str] = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "whisper-base": "whisper_base",
     "gpt2": "gpt2",
+}
+
+INPUT_SHAPES: dict[str, dict] = {
+    "train_4k":    {"seq_len": 4096,    "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32768,   "global_batch": 32,  "kind": "prefill"},
+    "decode_32k":  {"seq_len": 32768,   "global_batch": 128, "kind": "decode"},
+    "long_500k":   {"seq_len": 524288,  "global_batch": 1,   "kind": "decode"},
 }
 
 

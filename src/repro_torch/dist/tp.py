@@ -169,6 +169,89 @@ class BatchSplit:
                                   run_check=False).full_tensor()
 
 
+def reduce_pending(t):
+    """``t`` with a pending sum (a ``Partial`` placement: the output of a
+    product over a split dim, a row-parallel layer's) reduced at once, as
+    Megatron's row-parallel layer all-reduces its output. Left pending,
+    DTensor (torch 2.13) carries the sum through the residual adds and
+    norms: it then all-reduces the input of every later product and runs
+    their weight gradients at full width on every process."""
+    if not isinstance(t, DTensor) or not any(
+            p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in t.placements))
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity whose backward reduces a pending sum of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_pending(grad)
+
+
+def reduce_grad(t):
+    """``t``, whose gradient is reduced at once where it comes back a
+    pending sum (the input of a product with a split weight: Megatron's
+    column-parallel backward all-reduce), for the reason
+    ``reduce_pending`` gives."""
+    if not isinstance(t, DTensor) or not t.requires_grad:
+        return t
+    return _ReduceGrad.apply(t)
+
+
+def whole_dim0(t):
+    """``t`` with any split of its dim 0 gathered: a stacked leaf whose
+    layer dim FSDP split over the data axes (mode ``auto``) is unbound
+    into its layers, which DTensor cannot do along a split dim. The
+    gradient comes back split as ``t`` (the gather's backward)."""
+    if not isinstance(t, DTensor) or Shard(0) not in t.placements:
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p == Shard(0) else p for p in t.placements))
+
+
+def split_batch(t):
+    """A batch-major DTensor split on dim 0 over the mesh's data axes, its
+    other placements kept (from a replicated batch, a local cut)."""
+    mesh = t.device_mesh
+    pl = tuple(Shard(0) if n in ("pod", "data") else p
+               for n, p in zip(mesh.mesh_dim_names, t.placements))
+    return t if pl == tuple(t.placements) else t.redistribute(mesh, pl)
+
+
+def rows_submesh(rows: BatchSplit):
+    """The ``model`` sub-mesh of a batch split's mesh where that mesh has
+    other axes too (mode ``auto``: FSDP over the data axes and TP), else
+    None."""
+    mesh = rows.mesh
+    if mesh is None or "model" not in mesh.mesh_dim_names or mesh.ndim == 1:
+        return None
+    return mesh["model"]
+
+
+def to_submesh(w, rows: BatchSplit, sub):
+    """``w``, a DTensor on ``rows``' mesh, as a DTensor on its ``model``
+    sub-mesh ``sub``: its split over the other axes (FSDP) gathered, its
+    ``model`` placement kept. Used on ``rows`` alone, its gradient is a
+    partial sum over their split."""
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    keep = tuple(p if n == "model" else Replicate()
+                 for n, p in zip(names, w.placements))
+    grad = tuple(p if n == "model" else rp
+                 for n, p, rp in zip(names, w.placements, rows.partial))
+    loc = w.redistribute(mesh, keep).to_local(grad_placements=grad)
+    return DTensor.from_local(loc, sub, (keep[names.index("model")],),
+                              run_check=False, shape=w.shape,
+                              stride=contiguous_stride(w.shape))
+
+
 def gather_unless_divides(t, dim: int, groups: int):
     """``t`` with its split of ``dim`` gathered where the split does not
     divide ``groups``, the number of whole groups (heads) ``dim`` is about
@@ -273,7 +356,7 @@ class _ContiguousGrad(torch.autograd.Function):
         return grad.contiguous()
 
 
-def local_heads(q, k, v, kv_heads: int):
+def local_heads(q, k, v, kv_heads: int, split_heads: bool = True):
     """Attention's operands (B, T, heads, Dh) as local tensors, with
     ``wrap(o, shape)``, which makes a DTensor of global ``shape`` from a
     local output whose dim 0 holds the local batch rows and dim 2 the
@@ -281,13 +364,14 @@ def local_heads(q, k, v, kv_heads: int):
     row and head, so a split of the batch over the data axes and of the
     heads over ``model`` is kept where all three operands share it and it
     divides the KV heads (a shard never cuts a GQA group); every other
-    split is gathered first."""
+    split is gathered first, and the heads too without ``split_heads``."""
     mesh = q.device_mesh
 
     def keep(t):
         return tuple(
             p if (p == Shard(0) and n in ("pod", "data"))
-            or (p == Shard(2) and n == "model" and kv_heads % mesh.size(i) == 0)
+            or (p == Shard(2) and n == "model" and split_heads
+                and kv_heads % mesh.size(i) == 0)
             else Replicate()
             for i, (n, p) in enumerate(zip(mesh.mesh_dim_names, t.placements)))
 

@@ -22,6 +22,15 @@ Pods as processes across cards are ROADMAP item 10b: a ``pod`` axis
 above 1 raises, beside ``model`` too. The elastic outer
 loop runs its pods in one process on ``make_pod_mesh``'s carrier, as the
 reference runs them on its 1-device-per-pod mesh.
+
+``make_production_mesh`` builds the reference's production shapes, 256
+ranks a pod: ``(16, 16)`` over ("data", "model"), ``(2, 16, 16)`` over
+("pod", "data", "model"), and with ``pipe`` stages the pipe axis split
+off the data axis (pod outermost, then pipe, data, model). It is built
+over whatever default group the caller made: the dry run
+(``launch/dryrun.py``) makes a fake one of 256 or 512 ranks. On such a
+mesh the data-parallel mean runs over ("pod", "data") together
+(``dp_group``).
 """
 from __future__ import annotations
 
@@ -29,8 +38,32 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.dist.collectives import PodCarrier
 
-__all__ = ["dp_axes", "make_host_mesh", "make_pod_mesh", "pipe_size",
+__all__ = ["dp_axes", "dp_group", "make_host_mesh", "make_pod_mesh",
+           "make_production_mesh", "pipe_size", "production_sizes",
            "tp_axis"]
+
+
+def production_sizes(*, multi_pod: bool = False, pipe: int = 0
+                     ) -> dict[str, int]:
+    """``{axis: size}`` of the production mesh, outer axis first."""
+    sizes = {"pod": 2} if multi_pod else {}
+    if pipe and pipe > 1:
+        data = (16 * 16) // (pipe * 16)
+        if data < 1 or (pipe * data * 16) != 256:
+            raise ValueError(f"pipe={pipe} does not divide the 256-chip pod")
+        sizes["pipe"] = pipe
+    else:
+        data = 16
+    return dict(sizes, data=data, model=16)
+
+
+def make_production_mesh(*, multi_pod: bool = False, pipe: int = 0,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The reference's production mesh (``repro/launch/mesh.py:33-44``)
+    over the default group's 256 (512 with ``multi_pod``) ranks."""
+    sizes = production_sizes(multi_pod=multi_pod, pipe=pipe)
+    return init_device_mesh(device_type, tuple(sizes.values()),
+                            mesh_dim_names=tuple(sizes))
 
 
 def make_host_mesh(data: int = 1, model: int = 0, pod: int = 0,
@@ -60,6 +93,19 @@ def dp_axes(mesh) -> tuple[str, ...]:
     if mesh is None:
         return ()
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def dp_group(mesh):
+    """The process group of a mesh's data-parallel axes (``dp_axes``):
+    ``data``'s, or with a ``pod`` axis pod and data flattened into one
+    group, pod-major, over which the DP mean runs as the reference's
+    ``pmean`` over ("pod", "data") does; None without a mesh."""
+    axes = dp_axes(mesh)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
 
 
 def tp_axis(mesh) -> str | None:

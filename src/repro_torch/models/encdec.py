@@ -241,7 +241,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     The position row is ``dec_pos[cache_len]``, clamped to the last row as
     ``jax.lax.dynamic_slice_in_dim`` clamps."""
     cache_len = cache["len"]
-    x = F.embedding(tokens[:, None], params["embed"]["tok"])
+    x = L.embedding(tokens[:, None], params["embed"]["tok"])
     pos = torch.clamp(cache_len, max=params["dec_pos"].shape[0] - 1)
     x = x + F.embedding(pos.reshape(1), params["dec_pos"])
 

@@ -135,7 +135,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     """One token for the batch; every state and cache is updated in place
     and the returned cache holds them (the cache passed in is consumed)."""
     cache_len = cache["len"]
-    x = F.embedding(tokens, params["embed"]["tok"])            # (B, d)
+    x = L.embedding(tokens, params["embed"]["tok"])            # (B, d)
     sp = params["shared"]
     mamba = lambda m, h, st: ssm.mamba2_decode(m, h, st, cfg)[0]
     groups = iter(cache["groups"])

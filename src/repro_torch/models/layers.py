@@ -53,9 +53,12 @@ def embed_init(gen, vocab: int, d: int, dtype):
 
 def _mm(eq: str, x, w):
     """Product in the operands' promoted dtype (as ``jnp.einsum`` promotes
-    mixed operands: fp32 x bf16 runs in fp32), returned in fp32."""
+    mixed operands: fp32 x bf16 runs in fp32), returned in fp32. Under the
+    model axis a product over a split dim is summed at once in that dtype,
+    and so is ``x``'s gradient in the backward (``tp.reduce_pending``)."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.einsum(eq, x.to(dt), w.to(dt)).to(F32)
+    x = tp.reduce_grad(x)
+    return tp.reduce_pending(torch.einsum(eq, x.to(dt), w.to(dt))).to(F32)
 
 
 # --------------------------------------------------------------------------- embedding
@@ -336,13 +339,26 @@ def attn_decode(p, x, cache_k, cache_v, cache_len, *, num_heads: int,
     positions = cache_len.reshape(1, 1).expand(B, 1)
     q, k, v = _project_qkv(p, x, num_heads, num_kv_heads, head_dim,
                            positions, rope_theta, use_rope, norm_eps)
+    wrap = None
+    if isinstance(q, DTensor):
+        # under the model axis the cache holds this process's batch rows
+        # and its split of the kv heads (``dist.sharding.cache_pspecs``'s:
+        # K/V leaves named k and v) or all of them, and attention runs on
+        # local tensors split as the cache is (its rows too, where the
+        # projections gathered a data split)
+        if cache_k.shape[0] < B:
+            q, k, v = (tp.split_batch(t) for t in (q, k, v))
+        q, k, v, wrap = tp.local_heads(
+            q, k, v, num_kv_heads,
+            split_heads=cache_k.shape[2] < num_kv_heads)
     slot = cache_len % C if window > 0 else torch.clamp(cache_len, max=C - 1)
     idx = slot.reshape(1).long()
     cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
     cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
 
-    rep = num_heads // num_kv_heads
-    G = B * num_kv_heads
+    b, heads, kv_heads = q.shape[0], q.shape[2], k.shape[2]
+    rep = heads // kv_heads
+    G = b * kv_heads
     qh = q.reshape(G, rep, head_dim).to(cache_k.dtype)
     kt = cache_k.permute(0, 2, 3, 1).reshape(G, head_dim, C)
     s = _bmm_f32(qh, kt) / math.sqrt(head_dim)                  # (G, rep, C)
@@ -357,7 +373,9 @@ def attn_decode(p, x, cache_k, cache_v, cache_len, *, num_heads: int,
     pattn = torch.softmax(s, dim=-1).to(cache_v.dtype)
     vt = cache_v.permute(0, 2, 1, 3).reshape(G, C, head_dim)
     o = _bmm_f32(pattn, vt)                                      # (G, rep, Dh)
-    o = o.reshape(B, 1, num_heads * head_dim).to(x.dtype)
+    o = o.reshape(b, 1, heads * head_dim).to(x.dtype)
+    if wrap is not None:
+        o = wrap(o, (B, 1, num_heads * head_dim))
     return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype), cache_k, cache_v
 
 
@@ -372,7 +390,11 @@ def cross_attn_apply(p, x, enc_k, enc_v, *, num_heads: int,
     q = q.reshape(B, T, num_heads, head_dim).to(x.dtype)
     k, v, wrap = enc_k, enc_v, None
     if isinstance(q, DTensor):
-        # per batch row and head, as attn_apply: on the local shards
+        # per batch row and head, as attn_apply: on the local shards; a
+        # decode cache's plain K/V hold every head of this process's rows
+        k, v = (t if isinstance(t, DTensor) else DTensor.from_local(
+            t, q.device_mesh, (Replicate(),) * q.device_mesh.ndim,
+            run_check=False) for t in (k, v))
         q, k, v, wrap = tp.local_heads(q, k, v, num_kv_heads)
     o = blockwise_attention(q, k, v, causal=False,
                             block_q=min(512, max(T, 8)))
@@ -399,8 +421,9 @@ def apply_units(fn, units, x, cfg):
     ``torch.utils.checkpoint`` when ``cfg.remat``; the carry ``x`` may be a
     tensor or a tuple of them. The units come from
     ``unbind``, whose backward stacks their gradients once (an index per
-    unit would write each into a zero-filled copy of the stack)."""
-    for xs in zip(*(a.unbind(0) for a in tree.leaves(units))):
+    unit would write each into a zero-filled copy of the stack). A stack
+    split on its layer dim (FSDP under mode ``auto``) is gathered first."""
+    for xs in zip(*(tp.whole_dim0(a).unbind(0) for a in tree.leaves(units))):
         u = tree.unflatten(units, xs)
         if cfg.remat:
             x = checkpoint(fn, u, x, cfg, use_reentrant=False)

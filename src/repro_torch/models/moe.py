@@ -148,7 +148,8 @@ def moe_ffn_apply(ffn, x, cfg: ModelConfig, group_size: int = 1024,
     Under tensor parallelism (DTensor ``x`` and parameters) the routing
     runs on this process's batch rows with the replicated router (on the
     whole batch where a dispatch group would straddle the batch split),
-    and the expert products on the expert-split stacks under DTensor."""
+    and the expert products on the expert-split stacks under DTensor (on
+    the model sub-mesh where the rows are split over data axes)."""
     B, T, d = x.shape
     rows = tp.BatchSplit(x)
     if (rows.local.shape[0] * T) % min(group_size, B * T):
@@ -163,18 +164,33 @@ def moe_ffn_apply(ffn, x, cfg: ModelConfig, group_size: int = 1024,
         ).to_local(grad_placements=rows.partial)
     xg, dispatch, combine, aux = route(x_flat, {"router": router}, cfg,
                                        group_size, capacity, mean=rows.mean)
-    xg, dispatch, combine = (rows.wrap(t) for t in (xg, dispatch, combine))
+    w = ffn["experts"]
+    sub = tp.rows_submesh(rows)
+    if sub is None:
+        place = rows.wrap
+    else:
+        # FSDP + TP (mode "auto"): these rows' expert products run on the
+        # model sub-mesh, as under dp_tp (DTensor cannot view the dispatch
+        # groups split over the data axes)
+        w = {k: tp.to_submesh(v, rows, sub) for k, v in w.items()}
+        place = lambda t: DTensor.from_local(t, sub, (Replicate(),),
+                                             run_check=False)
+    xg, dispatch, combine = (place(t) for t in (xg, dispatch, combine))
     G, S, E, C = combine.shape
     ein = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
-    w = ffn["experts"]
     gate = L._mm("gecd,edf->gecf", ein, w["gate"])
     up = L._mm("gecd,edf->gecf", ein, w["up"])
     h = (F.silu(gate) * up).to(x.dtype)
     eout = L._mm("gecf,efd->gecd", h, w["down"])
     yg = torch.einsum("gsec,gecd->gsd", combine, eout)
     y = yg.reshape(G * S, d)
-    if G * S < B * T:  # ragged tail (only when B*T is not a multiple of S)
-        y = torch.cat([y, y.new_zeros((B * T - G * S, d))], 0)
+    if sub is not None:
+        y = y.redistribute(sub, (Replicate(),)).to_local()
+    n = x_flat.shape[0]
+    if G * S < n:  # ragged tail (only when the tokens are not a multiple of S)
+        y = torch.cat([y, y.new_zeros((n - G * S, d))], 0)
+    if sub is not None:
+        return rows.wrap(y.reshape(x_loc.shape)).to(x.dtype), aux
     return y.reshape(B, T, d).to(x.dtype), aux
 
 
@@ -228,7 +244,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     dense family's (``transformer.decode_step``)."""
     B = tokens.shape[0]
     cache_len = cache["len"]
-    x = F.embedding(tokens[:, None], params["embed"]["tok"])
+    x = L.embedding(tokens[:, None], params["embed"]["tok"])
 
     def block(bp, x, kv):
         h = L.rms_norm(x, bp["attn_norm_scale"], cfg.norm_eps)

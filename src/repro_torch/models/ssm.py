@@ -235,24 +235,35 @@ def mlstm_apply(p, x, cfg: ModelConfig):
 
 def mlstm_decode(p, x_t, state, cfg: ModelConfig):
     """x_t: (B, d); state: {'s': (B, H, Dk, Dv + 1), 'conv': (B, k-1,
-    d_inner)}, updated in place."""
-    B = x_t.shape[0]
+    d_inner)}, updated in place. Under tensor parallelism the conv and the
+    recurrence run on local tensors (``tp.local_map``) over every head,
+    which the state holds."""
     h = L.rms_norm(x_t, p["norm_scale"], cfg.norm_eps)
     xz = L._mm("bd,de->be", h, p["up_z"]).to(x_t.dtype)
     xc = L._mm("bd,de->be", h, p["up_x"]).to(x_t.dtype)
-    xc, conv_tail = causal_conv_decode(p["conv"], xc, state["conv"])
-    xc = F.silu(xc.to(F32)).to(x_t.dtype)
-    q, k, v, log_a = _mlstm_heads(*_mlstm_project(p, xc, xz))
-    v_aug = torch.cat([v, torch.ones(tuple(v.shape[:-1]) + (1,),
-                                     dtype=v.dtype, device=v.device)], dim=-1)
-    y_aug, s = recurrence_decode(q, k, v_aug, log_a, state["s"])
-    y, norm = y_aug[..., :-1], y_aug[..., -1:]
-    y = y / torch.maximum(torch.abs(norm), torch.ones_like(norm))
-    y = y.reshape(B, -1).to(x_t.dtype)
+    new = {}
+
+    def conv(xc, w, b):
+        xc, new["conv"] = causal_conv_decode({"w": w, "b": b}, xc,
+                                             state["conv"])
+        return F.silu(xc.to(F32)).to(x_t.dtype)
+
+    def mix(*qkv_gates):
+        q, k, v, log_a = _mlstm_heads(*qkv_gates)
+        v_aug = torch.cat([v, torch.ones(tuple(v.shape[:-1]) + (1,),
+                                         dtype=v.dtype, device=v.device)],
+                          dim=-1)
+        y_aug, new["s"] = recurrence_decode(q, k, v_aug, log_a, state["s"])
+        y, norm = y_aug[..., :-1], y_aug[..., -1:]
+        y = y / torch.maximum(torch.abs(norm), torch.ones_like(norm))
+        return y.reshape(q.shape[0], -1).to(x_t.dtype)
+
+    xc = tp.local_map(conv, (xc,), (p["conv"]["w"], p["conv"]["b"]))
+    y = tp.local_map(mix, _mlstm_project(p, xc, xz))
     y = L.rms_norm(y, p["head_norm_scale"], cfg.norm_eps)
     y = y * F.silu(xz.to(F32)).to(x_t.dtype)
     out = L._mm("be,ed->bd", y, p["down"])
-    return x_t + out.to(x_t.dtype), {"s": s, "conv": conv_tail}
+    return x_t + out.to(x_t.dtype), {"s": new["s"], "conv": new["conv"]}
 
 
 def mlstm_state_init(cfg: ModelConfig, batch: int, device):
@@ -344,16 +355,21 @@ def slstm_apply(p, x, cfg: ModelConfig):
 
 
 def slstm_decode(p, x_t, state, cfg: ModelConfig):
-    """x_t: (B, d); state: h, c, n, m, each (B, d) fp32, updated in place."""
+    """x_t: (B, d); state: h, c, n, m, each (B, d) fp32, updated in place
+    (the cell on local tensors under tensor parallelism, as the loop of
+    ``slstm_apply``)."""
     hx = L.rms_norm(x_t, p["norm_scale"], cfg.norm_eps)
     x_pre = L._mm("bd,de->be", hx, p["w_in"])
-    new = _slstm_cell(p["r_blocks"].to(F32), p["gate_bias"], x_pre,
-                      state["h"], state["c"], state["n"], state["m"],
-                      cfg.num_heads)
-    for key, val in zip("hcnm", new):
-        state[key].copy_(val)
-    y = L.rms_norm(state["h"].to(x_t.dtype), p["head_norm_scale"],
-                   cfg.norm_eps)
+
+    def cell(x_pre, r_blocks, gate_bias):
+        new = _slstm_cell(r_blocks.to(F32), gate_bias, x_pre, state["h"],
+                          state["c"], state["n"], state["m"], cfg.num_heads)
+        for key, val in zip("hcnm", new):
+            state[key].copy_(val)
+        return state["h"].to(x_t.dtype)
+
+    y = tp.local_map(cell, (x_pre,), (p["r_blocks"], p["gate_bias"]))
+    y = L.rms_norm(y, p["head_norm_scale"], cfg.norm_eps)
     x = x_t + y
     h2 = L.rms_norm(x, p["ffn_norm_scale"], cfg.norm_eps)
     return x + L.mlp_apply(p["ffn"], h2, act="silu"), state
@@ -439,7 +455,7 @@ def _state_views(stack: dict, i: int) -> dict:
 def xlstm_decode(params, cache, tokens, cfg: ModelConfig):
     """One token for the batch; the states are updated in place and the
     returned cache holds them (the cache passed in is consumed)."""
-    x = F.embedding(tokens, params["embed"]["tok"])            # (B, d)
+    x = L.embedding(tokens, params["embed"]["tok"])            # (B, d)
     i = 0
     for stage in params["stages"]:
         pairs = stage["pairs"]
@@ -560,22 +576,38 @@ def mamba2_apply(p, x, cfg: ModelConfig):
     return x + out.to(x.dtype)
 
 
+_MAMBA2_STEP_WEIGHTS = ("a_log", "dt_bias", "d_skip", "out_norm_scale")
+
+
 def mamba2_decode(p, x_t, state, cfg: ModelConfig):
     """x_t: (B, d); state: {'s': (B, H, n, 64) fp32, 'conv': (B, k-1,
-    d_inner + 2n)}, updated in place."""
+    d_inner + 2n)}, updated in place. Under tensor parallelism the step
+    between the projections runs whole on local tensors
+    (``tp.local_map``), as ``mamba2_apply``'s mix does, and the state
+    holds this process's batch rows."""
     h = L.rms_norm(x_t, p["norm_scale"], cfg.norm_eps)
-    z, xbc, dt_raw = _mamba2_split(
-        L._mm("...d,de->...e", h, p["in_proj"]), h.dtype, cfg)
-    xbc, conv_tail = causal_conv_decode(p["conv"], xbc, state["conv"])
-    xbc = F.silu(xbc.to(F32)).to(x_t.dtype)
-    q, k, v, log_a, xh = _mamba2_ssm_inputs(p, xbc, dt_raw, cfg)
-    y, s = recurrence_decode(q, k, v, log_a, state["s"])
-    y = y + p["d_skip"][:, None] * xh.to(F32)
-    y = y.reshape(x_t.shape[0], -1)
-    y = y * F.silu(z)
-    y = L.rms_norm(y.to(x_t.dtype), p["out_norm_scale"], cfg.norm_eps)
+    zxbcdt = L._mm("...d,de->...e", h, p["in_proj"])
+    new = {}
+
+    def step(zx, conv_w, conv_b, *weights):
+        q = dict(zip(_MAMBA2_STEP_WEIGHTS, weights),
+                 conv={"w": conv_w, "b": conv_b})
+        z, xbc, dt_raw = _mamba2_split(zx, h.dtype, cfg)
+        xbc, new["conv"] = causal_conv_decode(q["conv"], xbc, state["conv"])
+        xbc = F.silu(xbc.to(F32)).to(x_t.dtype)
+        qk, k, v, log_a, xh = _mamba2_ssm_inputs(q, xbc, dt_raw, cfg)
+        y, new["s"] = recurrence_decode(qk, k, v, log_a, state["s"])
+        y = y + q["d_skip"][:, None] * xh.to(F32)
+        y = y.reshape(zx.shape[0], -1)
+        y = y * F.silu(z)
+        return L.rms_norm(y.to(x_t.dtype), q["out_norm_scale"], cfg.norm_eps)
+
+    y = tp.local_map(step, (zxbcdt,),
+                     (p["conv"]["w"], p["conv"]["b"],
+                      *(p[k] for k in _MAMBA2_STEP_WEIGHTS)))
+    y = tp.split_rows_for(y, p["out_proj"])
     out = L._mm("be,ed->bd", y, p["out_proj"])
-    return x_t + out.to(x_t.dtype), {"s": s, "conv": conv_tail}
+    return x_t + out.to(x_t.dtype), {"s": new["s"], "conv": new["conv"]}
 
 
 def mamba2_state_init(cfg: ModelConfig, batch: int, device):

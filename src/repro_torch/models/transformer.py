@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.dist import tp
 from . import layers as L
 from .model import Model, ModelConfig, register_family
 
@@ -167,7 +168,8 @@ def decode_units(units, caches, x, fn):
     ``cache_i`` is a view of one layer of the stacked ``caches``, so what
     ``fn`` writes into it lands in the stack."""
     flat = tree.leaves(caches)
-    for xs in zip(*(a.unbind(0) for a in tree.leaves(units) + flat)):
+    stacks = [tp.whole_dim0(a) for a in tree.leaves(units)] + flat
+    for xs in zip(*(a.unbind(0) for a in stacks)):
         n = len(xs) - len(flat)
         x = fn(tree.unflatten(units, xs[:n]), x,
                tree.unflatten(caches, xs[n:]))

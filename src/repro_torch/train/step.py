@@ -33,6 +33,11 @@ process mesh (``launch.mesh.make_host_mesh``):
     ``model``, the batch is split over ``data``, and the gradient reduce
     is DTensor's. No sync runs, so the plan must be ``none`` (the
     reference: "compression policy must be 'none' in this mode").
+
+On a mesh with a ``pod`` axis (the dry run's multi-pod production mesh)
+the DP mean runs over pod and data together (``launch.mesh.dp_group``).
+``make_prefill_step`` and ``make_serve_step`` are the reference's serving
+steps: the full-sequence forward and one decode token.
 """
 from __future__ import annotations
 
@@ -51,13 +56,14 @@ from repro_torch.core.sync_executor import SyncExecutor
 from repro_torch.dist import sharding, tp
 from repro_torch.dist.sharding import contiguous_stride
 from repro_torch.dist.collectives import make_dp_pmean
+from repro_torch.launch.mesh import dp_group
 from repro_torch.models.model import Model
 from repro_torch.optim import adam
 from repro_torch.pipeline.config import PIPELINE_FIELDS
 
 __all__ = ["TrainStepConfig", "batch_shardings", "distribute_comp",
-           "distribute_state", "full_state", "make_train_step",
-           "state_shardings"]
+           "distribute_state", "full_state", "make_prefill_step",
+           "make_serve_step", "make_train_step", "state_shardings"]
 
 
 @dataclasses.dataclass(frozen=True, init=False)
@@ -142,7 +148,7 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
             raise ValueError("donate applies to the flat step only")
         from repro_torch.pipeline.executor import make_pipeline_train_step
         if psum_mean is None and mesh is not None:
-            psum_mean = make_dp_pmean(mesh.get_group("data"))
+            psum_mean = make_dp_pmean(dp_group(mesh))
         return make_pipeline_train_step(model, cfg, psum_mean, pipe,
                                         mesh=mesh)
     if cfg.mode not in ("dp_tp", "auto"):
@@ -161,8 +167,7 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
     if auto:
         pmean = lambda x: x          # the loss is already the global mean
     else:
-        pmean = psum_mean or make_dp_pmean(
-            None if mesh is None else mesh.get_group("data"))
+        pmean = psum_mean or make_dp_pmean(dp_group(mesh))
     sync_exec = SyncExecutor(cfg.sync, mode="flat", plan=cfg.policy_plan,
                              donate=donate)
     loss_fn = model.loss_fn
@@ -339,3 +344,20 @@ def batch_shardings(batch, mesh, batch_size: int) -> dict:
     """The spec of every batch entry: its batch dim over the data axes."""
     return {k: sharding.batch_pspec(v.ndim, mesh, batch_size)
             for k, v in batch.items()}
+
+
+# ----------------------------------------------------------------- serving
+def make_prefill_step(model: Model):
+    """Full-sequence forward (inference prefill): (params, batch) -> logits."""
+    def prefill(params, batch):
+        with torch.no_grad():
+            return model.forward(params, batch)
+    return prefill
+
+
+def make_serve_step(model: Model):
+    """One decode step: (params, cache, tokens (B,)) -> (logits, cache); the
+    cache passed in is consumed (``Model.decode_step``)."""
+    def serve(params, cache, tokens):
+        return model.decode_step(params, cache, tokens)
+    return serve

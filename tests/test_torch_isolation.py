@@ -31,7 +31,8 @@ def test_port_has_files():
                    "configs/xlstm_125m.py", "configs/zamba2_7b.py",
                    "configs/whisper_base.py", "optim/outer.py",
                    "train/elastic.py", "serve/engine.py", "launch/serve.py",
-                   "launch/serve_decode.py", "dist/sharding.py", "dist/tp.py"):
+                   "launch/serve_decode.py", "dist/sharding.py", "dist/tp.py",
+                   "launch/dryrun.py", "launch/op_cost.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 

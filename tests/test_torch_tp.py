@@ -65,13 +65,15 @@ REF_RUNS = [[("dense", 1, 1, "dp_tp"), ("dense", 2, 2, "dp_tp"),
              ("gqa", 1, 1, "dp_tp")],
             [("gpt2", 1, 1, "dp_tp"), ("gpt2", 2, 2, "dp_tp"),
              ("auto", 2, 2, "auto"), ("auto", 1, 4, "auto")],
-            [("moe", 1, 1, "dp_tp"), ("moe", 2, 2, "dp_tp")]]
+            [("moe", 1, 1, "dp_tp"), ("moe", 2, 2, "dp_tp"),
+             ("moe", 2, 2, "auto")]]
 PORT_RUNS = {2: [("dense", 1, 2, "dp_tp"), ("gpt2", 1, 2, "dp_tp"),
                  ("moe", 1, 2, "dp_tp")],
              4: [("dense", 1, 4, "dp_tp"), ("gqa", 1, 4, "dp_tp"),
                  ("dense", 2, 2, "dp_tp"),
                  ("gpt2", 2, 2, "dp_tp"), ("moe", 2, 2, "dp_tp"),
-                 ("auto", 2, 2, "auto"), ("auto", 1, 4, "auto")]}
+                 ("auto", 2, 2, "auto"), ("auto", 1, 4, "auto"),
+                 ("moe", 2, 2, "auto")]}
 # the trainer whose checkpoints the two-process world writes and restores
 TRAINER_MODEL, TRAINER_STEPS = CONFIGS["gpt2"], 2
 TRAINER_DATA = dict(vocab_size=512, seq_len=32, batch_size=4, seed=3)
