@@ -278,6 +278,18 @@ Phases, in order; any failure raises, so the exit code is not 0:
                16 x 16 mesh, train_4k with ``--pipe 4``, and qwen2-0.5b
                at train_4k with ``--multi-pod --outer-k 2``, each exit 0
                with an OK line
+  (s) audit    the collective-safety audit (``analysis``, ``launch/audit.py``):
+               (s1) one more step of (c)'s trainer (its step config, the
+               donated flat step, kernels on) with ``CollectiveSpy`` as
+               the DP mean, under ``CollectiveLog`` with the CUDA sync
+               debug mode: the spy's collectives equal the layout's (6
+               factor calls at rank 64 for the three shape groups, one
+               per flat bucket), every host sync by op and port line
+               equals ``S_KNOWN_SYNCS``, every PowerSGD kernel launches;
+               run right after (c), on its trainer; (s2) ``python -m
+               repro_torch.launch.audit`` on the card, beside (o5)'s
+               launchers: every built-in target, exit 0, ``0
+               violation(s)``
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -304,7 +316,8 @@ on (n1)'s run (inner steps and outer syncs). Every entry adds
 ``launches_serve``, its launches in phase (o): zero, and ``launches_tp``,
 its launches on (p1)'s mesh run (the PowerSGD kernels only); the
 PowerSGD entries add ``launches_tp_families``, their launches on (q1)'s
-four mesh runs, and ``launches_tp_pipe``, on (q2)'s (j1) mesh run. The last
+four mesh runs, ``launches_tp_pipe``, on (q2)'s (j1) mesh run, and
+``launches_audit``, on (s1)'s audited step. The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -933,6 +946,8 @@ def phase_main(report: dict, dev, profile: bool) -> dict:
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
     report["main"]["two_call"] = _two_call_check(tr, next(batches))
+    # (s1) audits one more step of this trainer, while its state is here
+    report["audit"] = {"s1": phase_audit_step(tr, batches, dev)}
     if profile:
         report["profile"] = profile_step(tr, batches, sorted(step_ms[1:])[1])
     return launches, pooled_grad_sample(tr, batches)
@@ -2859,7 +2874,8 @@ def _run_all(cmds: list) -> list:
             e.seek(0)
             if proc.returncode:
                 raise AssertionError(f"{' '.join(cmd)} exited "
-                                     f"{proc.returncode}: {e.read()[-3000:]}")
+                                     f"{proc.returncode}: {o.read()[-3000:]}"
+                                     f"{e.read()[-3000:]}")
             out.append((time.perf_counter() - t0, o.read().splitlines()))
     finally:
         for proc, (o, e) in zip(procs, files):
@@ -4630,6 +4646,120 @@ def phase_dryrun(report: dict, dev, cli: list) -> None:
     report["dryrun"] = out
 
 
+# ------------------------------------------------------------- (s) audit
+#: (s1)'s host syncs of (c)'s step, ``"op@port line"`` -> why: the phase
+#: fails on a sync not listed here, and on a listed one that no longer
+#: occurs (then this list and ROADMAP change together). None: the two the
+#: audit found (a host scalar copied to the card for the entropy's count,
+#: ``core/entropy.py``, and for the EF norm's sum, ``core/powersgd.py``)
+#: are made on the card
+S_KNOWN_SYNCS: dict[str, str] = {}
+
+#: (s2)'s built-in targets: lint, the flat step's parity and host syncs,
+#: two entropy gates, 7 overlapped steps x 3 checks, the trainer's window
+S_TARGETS = 27
+
+
+def phase_audit_step(tr, batches, dev) -> dict:
+    """(s1): one more step of (c)'s trainer (its step config, kernels on,
+    the donated flat step) with ``analysis.CollectiveSpy`` as the DP mean,
+    under ``analysis.CollectiveLog`` with the CUDA sync debug mode: the
+    spy against the bucket layout (6 factor calls at rank 64 for the three
+    ``MAIN_GROUPS``, one per flat bucket), every host sync by op and port
+    line against ``S_KNOWN_SYNCS``, and the PowerSGD launches of the
+    step."""
+    from repro_torch import analysis
+    from repro_torch.kernels import lowrank as lr
+    from repro_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    tr._get_step(True)
+    scfg = tr.step_configs[(tr.controller.plan, True, tr.sync_cfg)]
+    spy = analysis.CollectiveSpy()
+    step = make_train_step(tr.model, scfg, psum_mean=spy, donate=True)
+    batch = tr._device_batch(next(batches))
+    _reset_launches()
+    rec = analysis.CollectiveLog(sync_debug=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with rec:
+        tr.state, mets = step(tr.state, batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1)
+    launches = {k.__name__: k.launches for k in lr.KERNELS}
+    loss = float(mets["loss"])
+    layout = tr._layout
+    spy_found = analysis.check_sync_spy(spy, layout, where="(c) step")
+    syncs = [f"{h.op}@{h.path}" for h in rec.host_syncs]
+    found = analysis.check_host_transfers(rec)
+    out = {"spy_calls": len(spy.sync_calls),
+           "spy_factor": len(spy.factor_calls),
+           "spy_flat": len(spy.flat_calls), "ranks": spy.factor_ranks(),
+           "layout_collectives": layout.num_collectives(),
+           "buckets": len(layout.buckets), "host_syncs": syncs,
+           "host_sync_how": [h.how for h in rec.host_syncs],
+           "findings": [str(v) for v in found + spy_found],
+           "launches": launches, "loss": loss, "step_ms": step_ms,
+           "collectives": analysis.count_collectives(rec)}
+    log(f"(s1) (c)'s step through CollectiveSpy: {out['spy_calls']} sync "
+         f"collectives ({out['spy_factor']} factor at ranks {out['ranks']}, "
+         f"{out['spy_flat']} flat) against the layout's "
+         f"{out['layout_collectives']} (2 x {len(layout.groups)} groups + "
+         f"{out['buckets']} buckets); loss {loss:.4f}, {step_ms:.1f} ms under "
+         f"the sync debug mode; PowerSGD launches {launches}")
+    log(f"(s1) host syncs of the step ({len(syncs)}), by op and port line:")
+    for v in found:
+        log(f"    {v}")
+    for key, why in S_KNOWN_SYNCS.items():
+        log(f"    known: {key}: {why}")
+    if spy_found or out["spy_factor"] != 2 * len(MAIN_GROUPS) or \
+            out["ranks"] != [64]:
+        raise AssertionError(f"(s1) the spy against the layout: "
+                             f"{[str(v) for v in spy_found]}, {out}")
+    if set(syncs) != set(S_KNOWN_SYNCS):
+        raise AssertionError(
+            f"(s1) host syncs {sorted(set(syncs))} against the known list "
+            f"{sorted(S_KNOWN_SYNCS)}: new {sorted(set(syncs) - set(S_KNOWN_SYNCS))}, "
+            f"gone {sorted(set(S_KNOWN_SYNCS) - set(syncs))}")
+    if not all(n > 0 for n in launches.values()) or not math.isfinite(loss):
+        raise AssertionError(f"(s1) launches {launches}, loss {loss}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(s1) audit of (c)'s step: {out['seconds']:.1f} s")
+    return out
+
+
+def _audit_cli_cmd() -> list:
+    """(s2)'s audit (``_run_all``'s form): every built-in target on the
+    card, the CLI's default device."""
+    return ["repro_torch.launch.audit"]
+
+
+def phase_audit_cli(report: dict, run: tuple) -> None:
+    """(s2): ``python -m repro_torch.launch.audit`` on the card, run beside
+    (o5)'s launchers: exit 0 (``_run_all`` raises otherwise), its
+    ``S_TARGETS`` targets listed, ``0 violation(s)``."""
+    waited, lines = run
+    tail = lines[-1] if lines else ""
+    rows = [l for l in lines if l.startswith("  ")]
+    # the audit's own time: its targets run one after another, each line
+    # ending in "(<seconds>s)"
+    seconds = sum(float(l.rsplit("(", 1)[1].rstrip("s)")) for l in rows)
+    out = {"seconds": seconds, "waited": waited, "targets": len(rows),
+           "last": tail, "lines": lines}
+    log(f"(s2) launch.audit on the card (beside (o5)'s launchers): exit 0, "
+        f"{tail}, targets {seconds:.1f} s (done within {waited:.1f} s of "
+        f"(o5)'s start)")
+    for line in rows:
+        log(f"    {line.strip()}")
+    if lines[:1] != ["collective-safety audit"] or \
+            tail != f"{S_TARGETS} target(s), 0 violation(s)" or \
+            len(rows) != S_TARGETS:
+        raise AssertionError(f"(s2) launch.audit printed {lines[-40:]}")
+    report["audit"]["s2"] = out
+    report["audit"]["seconds"] = report["audit"]["s1"]["seconds"]
+    log(f"(s) audit: {report['audit']['seconds']:.1f} s in the main process "
+        f"((s2) ran beside (o5))")
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
                  moe_launches: dict, families2_launches: dict,
@@ -4659,7 +4789,8 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "launches_serve": serve_launches[wrapper],
                  "launches_tp": tp_launches[wrapper],
                  "launches_tp_families": tpf_launches["flat"][wrapper],
-                 "launches_tp_pipe": tpf_launches["pipe"][wrapper]}
+                 "launches_tp_pipe": tpf_launches["pipe"][wrapper],
+                 "launches_audit": report["audit"]["s1"]["launches"][wrapper]}
         entry["device_ms"] = total("device_ms")
         # (l)'s groups (the MoE's expert stacks, qwen3-32b's mlp) and
         # (m2k)'s (zamba2-7b's Mamba2 projections)
@@ -4795,15 +4926,18 @@ def main() -> int:
     moe_launches = phase_families(report, dev, args.profile)
     families2_launches = phase_families2(report, dev, args.profile)
     elastic_launches = phase_elastic(report, dev)
-    # (p4)'s, (q3)'s and (r2)'s launchers run beside (o5)'s
+    # (p4)'s, (q3)'s, (r2)'s and (s2)'s launchers run beside (o5)'s
     q_cmds = _q_cli_cmds()
     serve_launches, (tp_cli, *later_cli) = phase_serve(
-        report, dev, also=[_tp_cli_cmd()] + q_cmds + _dryrun_cli_cmds())
-    q_cli, r_cli = later_cli[:len(q_cmds)], later_cli[len(q_cmds):]
+        report, dev, also=[_tp_cli_cmd()] + q_cmds + _dryrun_cli_cmds()
+        + [_audit_cli_cmd()])
+    q_cli, r_cli = later_cli[:len(q_cmds)], later_cli[len(q_cmds):-1]
+    audit_cli = later_cli[-1]
     tp_launches = phase_tp(report, dev, tp_cli)
     tpf_launches = phase_tp_families(report, dev, j1_leaves, q_cli)
     del j1_leaves
     phase_dryrun(report, dev, r_cli)
+    phase_audit_cli(report, audit_cli)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
                         overlap_launches, moe_launches, families2_launches,

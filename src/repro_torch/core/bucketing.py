@@ -200,7 +200,7 @@ def make_bucket_layout(leaves: Iterable[Any], plan,
             path, shape = leaf.path, leaf.shape
             isz = getattr(leaf, "itemsize", None)
         pairs.append((path, tuple(shape)))
-        size_of[path] = int(isz) if isz else 4
+        size_of[path] = int(isz) if isz else 4  # lint: allow(host-call-in-hot-path) host-side planner, a static itemsize
 
     rank_by_path = plan.as_dict()
     grouped: dict[tuple[int, int, int], list[Member]] = {}

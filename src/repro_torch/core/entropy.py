@@ -38,7 +38,7 @@ __all__ = ["GDSConfig", "strided_sample", "gaussian_entropy",
            "grads_entropy", "split_sample"]
 
 # log(2*pi*e), rounded through float32 as the reference computes it
-_LOG_2PI_E = float(np.log(np.float32(2.0 * np.pi)) + np.float32(1.0))
+_LOG_2PI_E = float(np.log(np.float32(2.0 * np.pi)) + np.float32(1.0))  # lint: allow(host-call-in-hot-path) import-time constant
 
 
 def strided_sample(x: torch.Tensor, beta: float) -> torch.Tensor:
@@ -51,7 +51,7 @@ def strided_sample(x: torch.Tensor, beta: float) -> torch.Tensor:
     if beta >= 1.0:
         return flat
     n = flat.shape[0]
-    k = max(1, int(n * beta))
+    k = max(1, int(n * beta))  # lint: allow(host-call-in-hot-path) a sample size from a static shape
     stride = max(1, n // k)
     return flat[: stride * k: stride]
 
@@ -67,7 +67,7 @@ def split_sample(x: DTensor, beta: float) -> tuple[torch.Tensor, torch.Tensor]:
     loc = x.to_local()
     shape = tuple(x.shape)
     n = math.prod(shape)
-    k = n if beta >= 1.0 else max(1, int(n * beta))
+    k = n if beta >= 1.0 else max(1, int(n * beta))  # lint: allow(host-call-in-hot-path) a sample size from a static shape
     stride = 1 if beta >= 1.0 else max(1, n // k)
     lshape, offset = compute_local_shape_and_global_offset(
         x.shape, x.device_mesh, x.placements)
@@ -160,12 +160,22 @@ def _split_moments(leaves, cfg: GDSConfig):
                       torch.sum(v * v)]
         else:
             v = strided_sample(l, cfg.beta).float()
-            parts += [torch.full((), float(v.shape[0]), device=v.device),
+            parts += [torch.full((), float(v.shape[0]), device=v.device),  # lint: allow(host-call-in-hot-path) a static shape
                       torch.sum(v), torch.sum(v * v)]
         likes += [l] * 3
     sums = tp.leafwise_sums(parts, likes)
     n, s1, s2 = (sum(sums[i::3]) for i in range(3))
     return n, s1, s2
+
+
+def _host_to_device(a, device) -> torch.Tensor:
+    """A numpy array on ``device`` without waiting for it: a CUDA copy goes
+    from pinned memory, asynchronously (a copy from pageable memory
+    synchronises the stream)."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def sample_moments(grads, cfg: GDSConfig = GDSConfig(), lead_mask=None):
@@ -189,13 +199,14 @@ def sample_moments(grads, cfg: GDSConfig = GDSConfig(), lead_mask=None):
         return _split_moments(leaves, cfg)
     samples = [strided_sample(l, cfg.beta).float() for l in leaves]
     if lead_mask is None:
-        n = torch.tensor(float(sum(s.shape[0] for s in samples)),
-                         device=samples[0].device)
+        # made on the device: a host scalar copied there would wait for it
+        n = torch.full((), float(sum(s.shape[0] for s in samples)),  # lint: allow(host-call-in-hot-path) static shapes
+                       device=samples[0].device)
         s1 = sum(torch.sum(s) for s in samples)
         s2 = sum(torch.sum(s * s) for s in samples)
         return n, s1, s2
-    mask = torch.as_tensor(np.asarray(lead_mask), dtype=torch.float32,
-                           device=samples[0].device)
+    mask = _host_to_device(np.asarray(lead_mask, dtype=np.float32),  # lint: allow(host-call-in-hot-path) the stage flags are host data
+                           samples[0].device)
     masks = [strided_sample(mask.reshape((-1,) + (1,) * (l.ndim - 1))
                             .expand(l.shape), cfg.beta) for l in leaves]
     n = sum(torch.sum(m) for m in masks)

@@ -75,15 +75,18 @@ def init_leaf_state(shape: tuple[int, ...], rank: int, seed: int,
     return LowRankState(q=q, err=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def ef_norm_sq(comp: dict) -> torch.Tensor:
+def ef_norm_sq(comp: dict, device=None) -> torch.Tensor:
     """Total squared error-feedback residual across a compressor dict (a
-    DTensor residual's local squares summed over its split)."""
+    DTensor residual's local squares summed over its split), on the
+    residuals' device (``device`` when the dict holds none)."""
     from repro_torch.dist import tp
     errs = [st.err for st in comp.values() if isinstance(st, LowRankState)]
     sq = [torch.sum(tp.local(e).to(F32) ** 2) for e in errs]
     if any(tp.sharded_dims(e) for e in errs):
         sq = tp.leafwise_sums(sq, errs)
-    total = torch.zeros((), dtype=F32)
+    # made on the device: a host zero copied there would wait for it
+    total = torch.zeros((), dtype=F32,
+                        device=errs[0].device if errs else device)
     for e, v in zip(errs, sq):
         total = total.to(e.device) + v
     return total

@@ -141,7 +141,7 @@ def roundtrip(x: torch.Tensor, codec: ChunkCodec) -> torch.Tensor:
 
     codes, scales = quantize(x, codec)
     words = pack.pack_words(codes, codec.bits)
-    back = pack.unpack_words(words, codec.bits, int(x.shape[0]))
+    back = pack.unpack_words(words, codec.bits, int(x.shape[0]))  # lint: allow(host-call-in-hot-path) a static shape
     return dequantize(back, scales, codec)
 
 

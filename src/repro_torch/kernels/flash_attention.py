@@ -260,11 +260,11 @@ def flash_fwd(q, k, v, *, causal: bool = True, with_lse: bool = False):
         (q, sq), (k, sk), (v, sv) = (_tma_view(t) for t in (q, k, v))
         launch(_sm90_lib(), flash_fwd, "repro_flash_fwd_sm90", q.device,
                _ptr(q), _ptr(k), _ptr(v), _ptr(o), lse_ptr, *dims,
-               int(causal), *sq, *sk, *sv, *plan.c_args())
+               int(causal), *sq, *sk, *sv, *plan.c_args())  # lint: allow(host-call-in-hot-path) causal is a Python bool
         flash_fwd.launches_by_kernel["flash_fwd_sm90"] += 1
     else:
         launch(_lib(), flash_fwd, "repro_flash_fwd", q.device, _ptr(q),
-               _ptr(k), _ptr(v), _ptr(o), lse_ptr, *dims, int(causal),
+               _ptr(k), _ptr(v), _ptr(o), lse_ptr, *dims, int(causal),  # lint: allow(host-call-in-hot-path) causal is a Python bool
                _DTYPE_CODE[q.dtype], *strides(q), *strides(k), *strides(v))
         flash_fwd.launches_by_kernel["flash_fwd_fma"] += 1
     return o, lse

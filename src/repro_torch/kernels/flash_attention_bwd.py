@@ -201,13 +201,13 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True):
         (q, sq), (k, sk), (v, sv), (do, sd) = (_tma_view(t) for t in (q, k, v, do))
         launch(_sm90_lib(), flash_dq, "repro_flash_dq_sm90", q.device, _ptr(q),
                _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
-               *dims, int(causal), *sq, *sk, *sv, *sd,
+               *dims, int(causal), *sq, *sk, *sv, *sd,  # lint: allow(host-call-in-hot-path) causal is a Python bool
                *sm90_bwd_plan(dims[5], "dq").c_args())
         flash_dq.launches_by_kernel["flash_dq_sm90"] += 1
     else:
         launch(_lib(), flash_dq, "repro_flash_dq", q.device, _ptr(q),
                _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
-               *dims, int(causal), _DTYPE_CODE[q.dtype], *strides(q),
+               *dims, int(causal), _DTYPE_CODE[q.dtype], *strides(q),  # lint: allow(host-call-in-hot-path) causal is a Python bool
                *strides(k), *strides(v), *strides(do))
         flash_dq.launches_by_kernel["flash_dq_fma"] += 1
     return dq
@@ -235,7 +235,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
         (q, sq), (k, sk), (v, sv), (do, sd) = (_tma_view(t) for t in (q, k, v, do))
         launch(_sm90_lib(), flash_dkv, "repro_flash_dkv_sm90", q.device,
                _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-               _ptr(dk), _ptr(dv), *dims, int(causal), *sq, *sk, *sv, *sd,
+               _ptr(dk), _ptr(dv), *dims, int(causal), *sq, *sk, *sv, *sd,  # lint: allow(host-call-in-hot-path) causal is a Python bool
                *sm90_bwd_plan(Dh, "dkv").c_args())
         flash_dkv.launches_by_kernel["flash_dkv_sm90"] += 1
         if rep > 1:   # query head h = g * rep + r of kv head g
@@ -246,7 +246,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     launch(_lib(), flash_dkv, "repro_flash_dkv", q.device, _ptr(q), _ptr(k),
            _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-           *dims, int(causal), _DTYPE_CODE[q.dtype], *strides(q),
+           *dims, int(causal), _DTYPE_CODE[q.dtype], *strides(q),  # lint: allow(host-call-in-hot-path) causal is a Python bool
            *strides(k), *strides(v), *strides(do))
     flash_dkv.launches_by_kernel["flash_dkv_fma"] += 1
     return dk, dv

@@ -84,7 +84,7 @@ from repro_torch.train.step import (TrainStepConfig, _split_rows,
                                     make_serve_step, make_train_step)
 
 __all__ = ["TensorSpec", "fake_world", "input_specs", "lower_one", "main",
-           "record_summary", "train_inputs"]
+           "record_summary", "stage_inputs", "train_inputs"]
 
 POD_SIZE = 256          # ranks a pod: the reference's pod_size for cross-pod
 
@@ -462,67 +462,88 @@ def _exit_with_parent(parent: int) -> None:
     threading.Thread(target=watch, daemon=True).start()
 
 
-def _stage_record(job: dict, seed: int = 0) -> dict:
-    """One pipeline stage's record, counted as its lead rank ``job["lead"]``
-    of a fake world of its own (a process of its own)."""
+def stage_inputs(job: dict, seed: int = 0) -> dict:
+    """One pipeline stage's step and its arguments as rank ``job["lead"]``
+    of the fake world the caller made: ``{mesh, fake, step, state, batch,
+    plan, leaves, part, splans, boundary}``, the state and batch made under
+    ``fake`` (a ``FakeTensorMode``), in which the step is to run. The dry
+    run counts it (``_stage_record``); the audit logs its collectives
+    (``launch/audit.py``)."""
     from repro_torch.pipeline import partition as ppart
     from repro_torch.pipeline import sync as psync
     from repro_torch.pipeline.config import PipelineConfig
     from repro_torch.pipeline.executor import DistPipe, host_state
-    from repro_torch.pipeline.schedule import (boundary_nbytes,
-                                               peak_activation_bytes,
-                                               plan_overlap)
+    from repro_torch.pipeline.schedule import boundary_nbytes
 
-    cfg, sizes, s, device = job["cfg"], job["sizes"], job["stage"], job["device"]
+    cfg, sizes, device = job["cfg"], job["sizes"], job["device"]
     S = cfg.num_stages
     dev = _check_device(device)
     model = build_model(cfg)
     acfg = adam.AdamConfig(opt_dtype=job["opt_dtype"])
     sync = SyncConfig()
+    mesh = _build_mesh(dev, sizes, job["production"])
+    s = dist.get_rank(mesh.get_group("pipe"))
+    if s != job["stage"]:
+        raise RuntimeError(f"rank {job['lead']} is not in stage "
+                           f"{job['stage']}")
+    pmean = make_dp_pmean(dp_group(mesh))
+    transport = DistPipe(S, group=mesh.get_group("pipe"))
+    fake = FakeTensorMode()
+    with fake:
+        params = model.init(seed, device)
+        leaves, plan = _train_plan(cfg, params, "dp_tp", job["policy"],
+                                   job["rank"], S)
+        part = ppart.make_partition(model, S, remat=cfg.remat)
+        stage_p, shared_p = part.partition_params(params)
+        splans = psync.make_stage_plans(
+            plan, S, psync.stage_local_leaves(stage_p),
+            bucket_bytes=sync.bucket_bytes,
+            chunk_bytes=job["chunk_bytes"],
+            local_path=part.local_leaf_path)
+        ost = adam.init({"stage": stage_p, "shared": shared_p}, acfg)
+        comp = psync.init_pipeline_comp_state(params, plan, 1, splans,
+                                              device=device)
+        state = {"stage_params": stage_p, "shared_params": shared_p,
+                 "opt_m": ost.m, "opt_v": ost.v, "opt_step": ost.step,
+                 "comp": comp}
+        state = distribute_state(host_state(state, (s,)), mesh["model"])
+        specs = input_specs(cfg, job["spec"])
+        rows = _local_rows(job["spec"]["global_batch"], mesh)
+        batch = _local_batch(specs, rows, device)
+        # a microbatch (the executor's default count: S), crossing the
+        # stage boundaries
+        boundary = boundary_nbytes(
+            part, _local_batch(specs, max(1, rows // S), device))
+    scfg = TrainStepConfig(
+        mode="dp_tp", policy_plan=plan, measure_entropy=True,
+        remat=cfg.remat, adam=acfg, sync=sync,
+        pipeline=PipelineConfig(
+            num_stages=S, schedule="1f1b", stash_policy=job["stash"],
+            stash_every=job["stash_every"], overlap_sync=job["overlap"],
+            chunk_bytes=job["chunk_bytes"]))
+    step = make_train_step(model, scfg, psum_mean=pmean, pipe=transport,
+                           mesh=mesh)
+    return dict(mesh=mesh, fake=fake, step=step, state=state, batch=batch,
+                plan=plan, leaves=leaves, part=part, splans=splans,
+                boundary=boundary)
+
+
+def _stage_record(job: dict, seed: int = 0) -> dict:
+    """One pipeline stage's record, counted as its lead rank ``job["lead"]``
+    of a fake world of its own (a process of its own)."""
+    from repro_torch.pipeline import sync as psync
+    from repro_torch.pipeline.schedule import (peak_activation_bytes,
+                                               plan_overlap)
+
+    cfg, sizes, s = job["cfg"], job["sizes"], job["stage"]
+    S = cfg.num_stages
     with fake_world(math.prod(sizes.values()), rank=job["lead"]):
-        mesh = _build_mesh(dev, sizes, job["production"])
-        if dist.get_rank(mesh.get_group("pipe")) != s:
-            raise RuntimeError(f"rank {job['lead']} is not stage {s}'s lead")
-        pmean = make_dp_pmean(dp_group(mesh))
-        transport = DistPipe(S, group=mesh.get_group("pipe"))
-        fake = FakeTensorMode()
-        with fake:
-            params = model.init(seed, device)
-            leaves, plan = _train_plan(cfg, params, "dp_tp", job["policy"],
-                                       job["rank"], S)
-            part = ppart.make_partition(model, S, remat=cfg.remat)
-            stage_p, shared_p = part.partition_params(params)
-            splans = psync.make_stage_plans(
-                plan, S, psync.stage_local_leaves(stage_p),
-                bucket_bytes=sync.bucket_bytes,
-                chunk_bytes=job["chunk_bytes"],
-                local_path=part.local_leaf_path)
-            ost = adam.init({"stage": stage_p, "shared": shared_p}, acfg)
-            comp = psync.init_pipeline_comp_state(params, plan, 1, splans,
-                                                  device=device)
-            state = {"stage_params": stage_p, "shared_params": shared_p,
-                     "opt_m": ost.m, "opt_v": ost.v, "opt_step": ost.step,
-                     "comp": comp}
-            state = distribute_state(host_state(state, (s,)), mesh["model"])
-            specs = input_specs(cfg, job["spec"])
-            rows = _local_rows(job["spec"]["global_batch"], mesh)
-            batch = _local_batch(specs, rows, device)
-            # a microbatch (the executor's default count: S), crossing the
-            # stage boundaries
-            boundary = boundary_nbytes(
-                part, _local_batch(specs, max(1, rows // S), device))
-        scfg = TrainStepConfig(
-            mode="dp_tp", policy_plan=plan, measure_entropy=True,
-            remat=cfg.remat, adam=acfg, sync=sync,
-            pipeline=PipelineConfig(
-                num_stages=S, schedule="1f1b", stash_policy=job["stash"],
-                stash_every=job["stash_every"], overlap_sync=job["overlap"],
-                chunk_bytes=job["chunk_bytes"]))
-        step = make_train_step(model, scfg, psum_mean=pmean, pipe=transport,
-                               mesh=mesh)
-        with fake:
-            counter, _, arg_b, out_b, _ = _count(step, (state, batch),
-                                                 _pod_size(mesh))
+        b = stage_inputs(job, seed)
+        plan, leaves, part, splans = b["plan"], b["leaves"], b["part"], \
+            b["splans"]
+        with b["fake"]:
+            counter, _, arg_b, out_b, _ = _count(
+                b["step"], (b["state"], b["batch"]), _pod_size(b["mesh"]))
     pipeline = {
         "num_stages": S, "schedule": "1f1b", "family": cfg.family,
         "distinct_plans": len(splans.distinct),
@@ -531,7 +552,7 @@ def _stage_record(job: dict, seed: int = 0) -> dict:
         # per-rank microbatch boundary bytes x the stash policy's live
         # ring entries from the tick table
         "peak_activation_bytes": peak_activation_bytes(
-            "1f1b", S, S, job["stash"], boundary_bytes=boundary,
+            "1f1b", S, S, job["stash"], boundary_bytes=b["boundary"],
             n_units=part.num_units(), stash_every=job["stash_every"]),
     }
     if job["overlap"]:

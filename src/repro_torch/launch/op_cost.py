@@ -65,12 +65,14 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["OpCounter", "storage_bytes"]
+__all__ = ["C10D_COLLECTIVES", "FUNCTIONAL_COLLECTIVES", "FUNCTIONAL_NAMESPACES",
+           "OpCounter", "is_program_op", "process_group", "storage_bytes"]
 
 _fc = torch.ops._c10d_functional
 
-# c10d op -> (kind, index of the argument whose tensors are the result)
-_C10D = {
+# c10d op -> (kind, index of the argument whose tensors are the result);
+# ``analysis.dispatch_log`` reads these tables too
+C10D_COLLECTIVES = {
     "allreduce_": ("all-reduce", 0),
     "allreduce_coalesced_": ("all-reduce", 0),
     "allgather_": ("all-gather", 0),
@@ -86,7 +88,7 @@ _C10D = {
     "broadcast_": ("broadcast", 0),
 }
 # functional collective -> kind (the result is the op's output)
-_FUNCTIONAL = {
+FUNCTIONAL_COLLECTIVES = {
     "all_reduce": "all-reduce",
     "all_reduce_": "all-reduce",
     "all_reduce_coalesced": "all-reduce",
@@ -100,7 +102,7 @@ _FUNCTIONAL = {
     "broadcast": "broadcast",
     "broadcast_": "broadcast",
 }
-_FUNCTIONAL_NS = ("_c10d_functional", "_c10d_functional_autograd")
+FUNCTIONAL_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
 
 # allocations that write nothing, and the wait that only hands back its input
 _FREE = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default,
@@ -136,10 +138,10 @@ def _op_kind(func) -> tuple:
     if kind is None:
         ns, name = func.namespace, func._overloadpacket.__name__
         coll = None
-        if ns == "c10d" and name in _C10D:
-            coll = _C10D[name]
-        elif ns in _FUNCTIONAL_NS and name in _FUNCTIONAL:
-            coll = (_FUNCTIONAL[name], None)
+        if ns == "c10d" and name in C10D_COLLECTIVES:
+            coll = C10D_COLLECTIVES[name]
+        elif ns in FUNCTIONAL_NAMESPACES and name in FUNCTIONAL_COLLECTIVES:
+            coll = (FUNCTIONAL_COLLECTIVES[name], None)
         flop = flop_registry.get(func._overloadpacket)
         free = (func in _FREE or func.is_view
                 or not any("Tensor" in str(r.type) for r in func._schema.returns))
@@ -178,30 +180,34 @@ def storage_bytes(x: Any) -> int:
     return total
 
 
-def _group_ranks(func, args) -> list[int] | None:
-    """Global ranks of the group a collective runs on."""
-    ns = func.namespace
-    if ns == "c10d":
-        pg = None
+def process_group(func, args):
+    """The process group a collective runs on: the group object of a c10d
+    op, resolved from its name for a functional one (None if neither)."""
+    if func.namespace == "c10d":
         for a in args:
             if isinstance(a, torch.ScriptObject):
                 try:
-                    pg = dist.ProcessGroup.unbox(a)
-                    break
+                    return dist.ProcessGroup.unbox(a)
                 except RuntimeError:
                     continue
-        if pg is None:
-            return None
-        if func.__name__.startswith(("send", "recv_")):
-            peer = dist.get_global_rank(pg, args[2])
-            return [dist.get_rank(), peer]
-        return dist.get_process_group_ranks(pg)
+        return None
     name = next((a for a in args if isinstance(a, str)
                  and a not in ("sum", "avg", "max", "min", "product")), None)
     if name is None:
         return None
     from torch.distributed.distributed_c10d import _resolve_process_group
-    return dist.get_process_group_ranks(_resolve_process_group(name))
+    return _resolve_process_group(name)
+
+
+def _group_ranks(func, args) -> list[int] | None:
+    """Global ranks of the group a collective runs on."""
+    pg = process_group(func, args)
+    if pg is None:
+        return None
+    if func.namespace == "c10d" and func.__name__.startswith(("send", "recv_")):
+        peer = dist.get_global_rank(pg, args[2])
+        return [dist.get_rank(), peer]
+    return dist.get_process_group_ranks(pg)
 
 
 # DTensor's sharding propagation: the ops it runs on global shapes to learn
@@ -220,6 +226,21 @@ def _in_sharding_propagation() -> bool:
             return True
         f = f.f_back
     return False
+
+
+def is_program_op(fake, tensors: list[torch.Tensor]) -> bool:
+    """Whether an op on ``tensors`` is the program's own, seen by a mode
+    entered under the fake mode ``fake`` (None for real tensors), and not
+    DTensor's sharding propagation or the device mesh's bookkeeping."""
+    if fake is None:          # real tensors: propagation runs on fakes
+        return not any(type(t) is FakeTensor for t in tensors)
+    if not any(type(t) is FakeTensor and t.fake_mode is fake
+               for t in tensors):
+        return False
+    # no program runs on the meta device: only a propagation does
+    if any(t.device.type == "meta" for t in tensors):
+        return False
+    return not _in_sharding_propagation()
 
 
 class OpCounter(TorchDispatchMode):
@@ -275,18 +296,6 @@ class OpCounter(TorchDispatchMode):
         self._fake = active_fake_mode()
         return super().__enter__()
 
-    def _counted(self, tensors: list[torch.Tensor]) -> bool:
-        fake = self._fake
-        if fake is None:          # real tensors: propagation runs on fakes
-            return not any(type(t) is FakeTensor for t in tensors)
-        if not any(type(t) is FakeTensor and t.fake_mode is fake
-                   for t in tensors):
-            return False
-        # no program runs on the meta device: only a propagation does
-        if any(t.device.type == "meta" for t in tensors):
-            return False
-        return not _in_sharding_propagation()
-
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
@@ -301,7 +310,7 @@ class OpCounter(TorchDispatchMode):
             return out            # a view or a metadata read
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
-        if not self._counted(ins + outs):
+        if not is_program_op(self._fake, ins + outs):
             return out
         if flop is not None:
             self.flops += _flops(flop, args, kwargs, out)

@@ -77,7 +77,7 @@ def stage_layout(cfg: ModelConfig, num_stages: int | None = None
     if S == 1:
         return [{"enc": Le, "dec": Ld}]
     S = min(S, Le + Ld)
-    s_e = int(round(S * Le / max(1, Le + Ld)))
+    s_e = int(round(S * Le / max(1, Le + Ld)))  # lint: allow(host-call-in-hot-path) host-side stage split
     s_e = max(1, min(s_e, S - 1, Le))
     s_d = S - s_e
     if s_d > Ld:                      # more dec stages than dec layers

@@ -132,7 +132,7 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 def param_count(params: Any) -> int:
-    return sum(int(l.numel()) for l in tree.leaves(params))
+    return sum(int(l.numel()) for l in tree.leaves(params))  # lint: allow(host-call-in-hot-path) parameter count on the host, outside the step
 
 
 def active_param_count(cfg: ModelConfig, params: Any) -> int:
@@ -140,7 +140,7 @@ def active_param_count(cfg: ModelConfig, params: Any) -> int:
     total = param_count(params)
     if cfg.family != "moe" or cfg.num_experts == 0:
         return total
-    expert_leaves = sum(int(l.numel()) for path, l in
+    expert_leaves = sum(int(l.numel()) for path, l in  # lint: allow(host-call-in-hot-path) parameter count on the host, outside the step
                         tree.flatten_with_path(params) if "expert" in path)
     active_frac = cfg.experts_per_token / max(1, cfg.num_experts)
-    return int(total - expert_leaves + expert_leaves * active_frac)
+    return int(total - expert_leaves + expert_leaves * active_frac)  # lint: allow(host-call-in-hot-path) parameter count on the host, outside the step

@@ -19,7 +19,10 @@ Where the reference's primitives differ from torch's, the port keeps the
 reference's meaning: ``jax.lax.top_k`` breaks ties toward the lower
 expert index (a stable descending sort here), and ``jax.nn.one_hot`` maps
 the out-of-range queue position C to a zero row (``torch``'s raises; the
-slot mask here compares positions with ``arange(C)``).
+slot mask here compares positions with ``arange(C)``). The routing's
+one-hots compare with ``arange(E)`` too: ``F.one_hot`` reads its input's
+range back to the host on the CPU (two host syncs a call, which the
+collective audit flags).
 """
 from __future__ import annotations
 
@@ -87,7 +90,7 @@ def capacity_of(cfg: ModelConfig, group: int) -> int:
     """Expert capacity C of a dispatch group of ``group`` tokens (the
     reference's Python float rule)."""
     k = cfg.experts_per_token
-    return max(k, int(group * k / cfg.num_experts * cfg.capacity_factor))
+    return max(k, int(group * k / cfg.num_experts * cfg.capacity_factor))  # lint: allow(host-call-in-hot-path) capacity from static config numbers
 
 
 def route(x_flat, ffn, cfg: ModelConfig, group_size: int,
@@ -120,8 +123,10 @@ def route(x_flat, ffn, cfg: ModelConfig, group_size: int,
                            device=x_flat.device)
     combine = torch.zeros((G, S, E, C), dtype=F32, device=x_flat.device)
     slots = torch.arange(C, device=x_flat.device)
+    experts = torch.arange(E, device=x_flat.device)
+    one_hot = lambda idx: (idx[..., None] == experts).to(torch.int64)
     for i in range(k):
-        oh = F.one_hot(top_idx[..., i], E)                       # (G,S,E)
+        oh = one_hot(top_idx[..., i])                            # (G,S,E)
         pos = torch.cumsum(oh, dim=1) - oh + loc[:, None, :]     # queue position
         loc = loc + torch.sum(oh, dim=1)
         keep = (pos < C) & (oh > 0)
@@ -132,7 +137,7 @@ def route(x_flat, ffn, cfg: ModelConfig, group_size: int,
         combine = combine + top_vals[..., i, None, None] * d_i.to(F32)
 
     # Switch load-balance aux: E * sum_e fraction_e * mean_prob_e
-    assign1 = F.one_hot(top_idx[..., 0], E).to(F32)
+    assign1 = one_hot(top_idx[..., 0]).to(F32)
     f_e = torch.mean(assign1, dim=(0, 1))
     p_e = torch.mean(probs, dim=(0, 1))
     if mean is not None:

@@ -283,7 +283,7 @@ def slstm_init(gen, n: int, cfg: ModelConfig) -> dict[str, Any]:
     H = cfg.num_heads
     dh = d // H
     dt = cfg.torch_dtype
-    d_ff = int(d * 4 / 3 / 2) * 2  # xLSTM proj factor 4/3, even
+    d_ff = int(d * 4 / 3 / 2) * 2  # xLSTM proj factor 4/3, even  # lint: allow(host-call-in-hot-path) a width from static config numbers
     r = torch.randn((n, H, dh, 4 * dh), generator=gen, dtype=F32)
     bias = torch.cat([torch.zeros((2 * d,), dtype=F32),
                       3.0 * torch.ones((d,), dtype=F32),

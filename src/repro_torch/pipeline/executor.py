@@ -68,6 +68,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import tree
+from repro_torch.analysis.dispatch_log import launch_label
 from repro_torch.core import powersgd
 from repro_torch.core.config import SyncConfig
 from repro_torch.core.entropy import entropy_from_moments, sample_moments
@@ -480,7 +481,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None,
         loss_acc = {s: torch.zeros((), dtype=F32, device=device)
                     for s in hosted}
         ring: dict[int, list] = {s: [None] * R for s in hosted}
-        ct_loss = torch.tensor(inv_M, dtype=F32, device=device)
+        ct_loss = torch.full((), inv_M, dtype=F32, device=device)
 
         def forward_tick(s, j):
             x = None if s == 0 else pipe.recv_fwd(s)
@@ -569,7 +570,13 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None,
 
         def run_chunks(t, s, ids):
             """Stage s's chunks ``ids``: cast their members' accumulators
-            to the parameter dtype and sync them over the DP workers."""
+            to the parameter dtype and sync them over the DP workers. The
+            collectives go under the launch label ``(t, s)``, which the
+            collective audit reads (``analysis.dispatch_log``)."""
+            with launch_label(t, s):
+                _run_chunks(t, s, ids)
+
+        def _run_chunks(t, s, ids):
             if s not in accs:
                 accs[s] = dict(zip(paths, tree.leaves(gacc_s[s])))
                 parts[s] = {}
@@ -710,7 +717,7 @@ def make_pipeline_train_step(model: Model, cfg, psum_mean=None, pipe=None,
                     {key: LowRankState(q=v.q[k], err=v.err[k])
                      for key, v in comp2.items()
                      if key.startswith(prefix)
-                     and isinstance(v, LowRankState)}).to(device)
+                     and isinstance(v, LowRankState)}, device=device)
             ef_norm = torch.sqrt(pmean(pipe.psum_pipe(ef, zero)))
         new_state = {
             "stage_params": new_p["stage"],

@@ -238,7 +238,7 @@ def plan_overlap(name: str, S: int, M: int, splans, *,
     return OverlapPlan(
         schedule=name, num_stages=S, num_microbatches=M,
         launches=tuple(launches), residual=tuple(residual),
-        slack_seconds=tuple(float(t) for t in slack),
+        slack_seconds=tuple(float(t) for t in slack),  # lint: allow(host-call-in-hot-path) host-side planner, never in the step
         est_sync_seconds=tuple(est),
         feasible=tuple(est[s] <= est[0] + slack[s] + 1e-9
                        for s in range(S)),

@@ -229,7 +229,8 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
         else:
             new_params, opt_state, opt_mets = adam.update(
                 state["params"], synced, opt_state, cfg.adam, inplace=donate)
-        ef_norm = torch.sqrt(pmean(powersgd.ef_norm_sq(comp).to(loss.device)))
+        ef_norm = torch.sqrt(pmean(
+            powersgd.ef_norm_sq(comp, device=loss.device).to(loss.device)))
         new_state = {"params": new_params, "opt_m": opt_state.m,
                      "opt_v": opt_state.v, "opt_step": opt_state.step,
                      "comp": comp}

@@ -381,6 +381,12 @@ class Trainer:
                 donate=not (self.pipelined or self._guard), mesh=self._mesh)
         return self._step_cache[key]
 
+    def step_cache_keys(self) -> tuple:
+        """Every ``(plan, measure_entropy, sync_cfg)`` key a step variant
+        was built for: the auditor's recompile pass proves the count stays
+        window-bounded (plans and codecs change only at DAC windows)."""
+        return tuple(self._step_cache)
+
     def _device_batch(self, batch: dict) -> dict:
         """This worker's contiguous slice of the global batch, on device."""
         out = {}

@@ -32,7 +32,11 @@ def test_port_has_files():
                    "configs/whisper_base.py", "optim/outer.py",
                    "train/elastic.py", "serve/engine.py", "launch/serve.py",
                    "launch/serve_decode.py", "dist/sharding.py", "dist/tp.py",
-                   "launch/dryrun.py", "launch/op_cost.py"):
+                   "launch/dryrun.py", "launch/op_cost.py",
+                   "analysis/__init__.py", "analysis/dispatch_log.py",
+                   "analysis/parity.py", "analysis/budget.py",
+                   "analysis/hostcalls.py", "analysis/lint.py",
+                   "launch/audit.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 
