@@ -166,7 +166,7 @@ Phases, in order; any failure raises, so the exit code is not 0:
                zamba2-7b at its published widths, depth 14 (2 groups),
                the first loss within 2e-3 of a flat run at that depth;
                (m6) ``launch.train --pipe 2`` on the reduced zamba2-7b and
-               whisper-base
+               whisper-base, started with the phase and run beside it
   (n) elastic  the elastic (DiLoCo) outer loop: (n1) two pods of (c)'s
                model (published widths, depth 8, batch 8 x 1024 a pod,
                bf16, inner fixed rank 64, kernels on, bucketed) on the card
@@ -185,7 +185,8 @@ Phases, in order; any failure raises, so the exit code is not 0:
                4 rounds, 2 pods, on the card against the CPU: pod losses
                within 5e-3, 165132 / 657920 / 1706496 bytes a round, and the
                benchmark's checks; (n4) ``launch.train --outer-k 3 --pods 2
-               --rounds 4`` with a drop and a join on the card, and
+               --rounds 4`` with a drop and a join on the card, started
+               with the phase and run beside (n1)-(n3), and
                ``launch.report``'s elastic line. (c) also runs one flat
                step twice from the same state and records whether the new
                states are bit-equal
@@ -248,7 +249,7 @@ Phases, in order; any failure raises, so the exit code is not 0:
                flat trainer (per-leaf sync, fixed r64, kernels on) at the
                published widths of phi-3-vision-4.2b (depth 4, batch 4 x
                1024), whisper-base (whole, 8 x 448), zamba2-7b (depth 7,
-               4 x 1024) and xlstm-125m (depth 6, 8 x 1024, one step),
+               4 x 1024) and xlstm-125m (depth 4, 8 x 1024, one step),
                each with and without the mesh from one draw: losses and state
                bit-equal, step and host ms both ways, the forward's host
                ms, PowerSGD launches a compressed leaf a step (4), one
@@ -290,6 +291,26 @@ Phases, in order; any failure raises, so the exit code is not 0:
                repro_torch.launch.audit`` on the card, beside (o5)'s
                launchers: every built-in target, exit 0, ``0
                violation(s)``
+  (t) pod axis the pod axis of the training mesh on one card (NCCL, world
+               size 1): (t1) (c)'s run (gpt2-2.5b, depth 8, batch 8 x 1024,
+               fixed r64, kernels on, bucketed, bf16) through ``Trainer``
+               on ``make_host_mesh(pod=1, data=1)``, 3 steps, against the
+               same trainer without a mesh from one draw of the weights:
+               losses, bytes synced and every state leaf bit-equal; step
+               ms, peaks and PowerSGD launches of both; (t2) the pipelined
+               trainer (LocalPipe, S = 4, M = 4, 1F1B, replay) at depth
+               ``T_PIPE_LAYERS`` on (pod 1, data 1, model 1) against (data
+               1, model 1), the same; (t3) ``python -m
+               repro_torch.launch.quickstart`` and ``python -m
+               repro_torch.launch.train_gpt2_edgc`` on the card at the
+               reference's step counts, started before (m) and run beside
+               the phases (m) to (s): exit 0,
+               finite losses, the quickstart's stage ranks out of the
+               DAC's warm-up and DP-sync bytes saved > 0; train_gpt2_edgc's
+               DAC stays in warm-up at its window, as the reference's does,
+               so its edgc run equals the baseline (``_t_examples``). At
+               world 1 no DP collective moves a byte: (t) checks the
+               layout and the plumbing
 
 The line before the card's line is ``{"kernels": [...]}``: one entry per
 kernel, 10 in all. The PowerSGD and pack entries sum one main-path step's
@@ -316,8 +337,9 @@ on (n1)'s run (inner steps and outer syncs). Every entry adds
 ``launches_serve``, its launches in phase (o): zero, and ``launches_tp``,
 its launches on (p1)'s mesh run (the PowerSGD kernels only); the
 PowerSGD entries add ``launches_tp_families``, their launches on (q1)'s
-four mesh runs, ``launches_tp_pipe``, on (q2)'s (j1) mesh run, and
-``launches_audit``, on (s1)'s audited step. The last
+four mesh runs, ``launches_tp_pipe``, on (q2)'s (j1) mesh run,
+``launches_audit``, on (s1)'s audited step, and ``launches_pod`` and
+``launches_pod_pipe``, on (t1)'s and (t2)'s pod-mesh runs. The last
 line is ``{"ok":
 true, "device": {...}}``. Without CUDA the script exits 2
 and prints no result.
@@ -2856,9 +2878,12 @@ def _families2_pipelines(dev) -> list:
     return rows
 
 
-def _run_all(cmds: list) -> list:
-    """Run the port's launchers (``python -m <args>``) all at once on the
-    card; (seconds, stdout lines) of each, raising where one fails."""
+def _start_all(cmds: list) -> tuple:
+    """Start the port's launchers (``python -m <args>``) all at once on the
+    card; ``_finish_all`` waits for them. A thread a process records when
+    it ended, so a launcher started ahead of its phase reports its own
+    seconds, not the time until the phase read it."""
+    import threading
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
@@ -2866,17 +2891,37 @@ def _run_all(cmds: list) -> list:
     procs = [subprocess.Popen([sys.executable, "-m", *cmd], env=env,
                               stdout=o, stderr=e, text=True)
              for cmd, (o, e) in zip(cmds, files)]
+    ended = [None] * len(procs)
+
+    def watch(i):
+        procs[i].wait()
+        ended[i] = time.perf_counter() - t0
+    threads = [threading.Thread(target=watch, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    return cmds, procs, files, threads, ended
+
+
+def _finish_all(started: tuple, timeout: float = 300) -> list:
+    """(seconds, stdout lines) of each launcher ``_start_all`` started,
+    raising where one fails or outlasts ``timeout`` from now."""
+    cmds, procs, files, threads, ended = started
     out = []
     try:
-        for cmd, proc, (o, e) in zip(cmds, procs, files):
-            proc.wait(timeout=300)
+        for cmd, proc, thread, (o, e), i in zip(cmds, procs, threads, files,
+                                                itertools.count()):
+            thread.join(timeout=timeout)
+            if thread.is_alive():
+                raise AssertionError(f"{' '.join(cmd)} still running after "
+                                     f"{timeout} s")
             o.seek(0)
             e.seek(0)
             if proc.returncode:
                 raise AssertionError(f"{' '.join(cmd)} exited "
                                      f"{proc.returncode}: {o.read()[-3000:]}"
                                      f"{e.read()[-3000:]}")
-            out.append((time.perf_counter() - t0, o.read().splitlines()))
+            out.append((ended[i], o.read().splitlines()))
     finally:
         for proc, (o, e) in zip(procs, files):
             proc.kill()
@@ -2885,18 +2930,38 @@ def _run_all(cmds: list) -> list:
     return out
 
 
-def _families2_cli() -> list:
-    """(m6): the launcher's ``--pipe 2`` on the card for the reduced
-    zamba2-7b (a ragged [2, 1] plan) and whisper-base (encoder | decoder),
-    both at once."""
+def _kill_all(started: tuple) -> None:
+    """Stop every launcher ``_start_all`` started (those that ended too)."""
+    for proc, (o, e) in zip(started[1], started[2]):
+        proc.kill()
+        proc.wait()
+        o.close()
+        e.close()
+
+
+def _run_all(cmds: list) -> list:
+    """Run the port's launchers (``python -m <args>``) all at once on the
+    card; (seconds, stdout lines) of each, raising where one fails."""
+    return _finish_all(_start_all(cmds))
+
+
+M6_ARCHS = ("zamba2-7b", "whisper-base")
+
+
+def _families2_cli_cmds() -> list:
+    """(m6)'s launchers: ``--pipe 2`` for the reduced zamba2-7b (a ragged
+    [2, 1] plan) and whisper-base (encoder | decoder)."""
+    return [["repro_torch.launch.train", "--arch", arch, "--variant",
+             "reduced", "--policy", "fixed", "--rank", "8", "--pipe", "2",
+             "--micro", "2", "--steps", "4", "--batch", "4", "--seq", "64",
+             "--use-kernels"] for arch in M6_ARCHS]
+
+
+def _families2_cli(runs: list) -> list:
+    """(m6): the launchers' runs on the card (``_families2_cli_cmds``,
+    started with the phase and run beside it)."""
     rows = []
-    archs = ("zamba2-7b", "whisper-base")
-    runs = _run_all([["repro_torch.launch.train", "--arch", arch,
-                      "--variant", "reduced", "--policy", "fixed", "--rank",
-                      "8", "--pipe", "2", "--micro", "2", "--steps", "4",
-                      "--batch", "4", "--seq", "64", "--use-kernels"]
-                     for arch in archs])
-    for arch, (seconds, tail) in zip(archs, runs):
+    for arch, (seconds, tail) in zip(M6_ARCHS, runs):
         rows.append({"arch": arch, "seconds": seconds, "tail": tail[-6:]})
         log(f"(m6) launch.train --arch {arch} --variant reduced --pipe 2 on "
             f"the card, {rows[-1]['seconds']:.1f} s:")
@@ -2911,10 +2976,20 @@ def _families2_cli() -> list:
 def phase_families2(report: dict, dev, profile: bool) -> dict:
     """(m): xLSTM, Zamba2 and Whisper on the card; returns each PowerSGD
     kernel's launches in (m1)-(m3), by config."""
-    import dataclasses as dc
-    from repro_torch.configs import get_config
     _release()
     t0 = time.perf_counter()
+    # (m6)'s launchers run beside the phase, in processes of their own
+    cli = _start_all(_families2_cli_cmds())
+    try:
+        return _families2_phase(report, dev, profile, cli, t0)
+    finally:
+        _kill_all(cli)
+
+
+def _families2_phase(report: dict, dev, profile: bool, cli: tuple,
+                     t0: float) -> dict:
+    import dataclasses as dc
+    from repro_torch.configs import get_config
     zamba = dc.replace(get_config("zamba2-7b", "full"), num_layers=28)
     # xlstm-125m's step is bound by the host (its sLSTM loop launches
     # about 600k kernels a step): two steps
@@ -2940,7 +3015,7 @@ def phase_families2(report: dict, dev, profile: bool) -> dict:
     took("m4")
     out["pipelines"] = _families2_pipelines(dev)
     took("m5")
-    out["cli"] = _families2_cli()
+    out["cli"] = _families2_cli(_finish_all(cli))
     took("m6")
     out["seconds"] = time.perf_counter() - t0
     log(f"(m) recurrent and encoder-decoder families: {out['seconds']:.1f} s "
@@ -3294,19 +3369,22 @@ def _bench_el_runs(dev, tmp: str) -> list:
     return rows
 
 
-def _elastic_cli(tmp: str) -> dict:
-    """(n4): the launcher's elastic flags on the card, then the report."""
+def _elastic_cli_cmd(tmp: str) -> list:
+    """(n4)'s launcher: the elastic flags on the card (``_run_all``'s
+    form), its checkpoints and metrics under ``tmp``."""
+    return ["repro_torch.launch.train", "--arch", "gpt2", "--outer-k", "3",
+            "--pods", "2", "--rounds", "4", "--inject", EL_INJECT,
+            "--recover", "--use-kernels", "--ckpt-path",
+            os.path.join(tmp, "n4_ckpt", "st"), "--metrics-dir",
+            os.path.join(tmp, "n4")]
+
+
+def _elastic_cli(tmp: str, run: tuple) -> dict:
+    """(n4): the launcher's run (``_elastic_cli_cmd``, started with the
+    phase and run beside it), then the report on its metrics."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     metrics = os.path.join(tmp, "n4")
-    t0 = time.perf_counter()
-    tail = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gpt2",
-         "--outer-k", "3", "--pods", "2", "--rounds", "4", "--inject",
-         EL_INJECT, "--recover", "--use-kernels", "--ckpt-path",
-         os.path.join(tmp, "n4_ckpt", "st"), "--metrics-dir", metrics],
-        env=env, capture_output=True, text=True, check=True,
-        timeout=300).stdout.splitlines()
-    seconds = time.perf_counter() - t0
+    seconds, tail = run
     report = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.report", metrics], env=env,
         capture_output=True, text=True, check=True,
@@ -3338,14 +3416,19 @@ def phase_elastic(report: dict, dev) -> dict:
         out["seconds_by_part"][part] = now - clock
         clock = now
     with tempfile.TemporaryDirectory() as tmp:
-        out["full"] = _elastic_full(dev, tmp)
-        took("n1")
-        out["kernel_rows"] = _elastic_kernels(dev, out["full"]["groups"])
-        took("n2")
-        out["bench_el"] = _bench_el_runs(dev, tmp)
-        took("n3")
-        out["cli"] = _elastic_cli(tmp)
-        took("n4")
+        # (n4)'s launcher runs beside (n1)-(n3), in a process of its own
+        cli = _start_all([_elastic_cli_cmd(tmp)])
+        try:
+            out["full"] = _elastic_full(dev, tmp)
+            took("n1")
+            out["kernel_rows"] = _elastic_kernels(dev, out["full"]["groups"])
+            took("n2")
+            out["bench_el"] = _bench_el_runs(dev, tmp)
+            took("n3")
+            out["cli"] = _elastic_cli(tmp, _finish_all(cli)[0])
+            took("n4")
+        finally:
+            _kill_all(cli)
     out["seconds"] = time.perf_counter() - t0
     log(f"(n) elastic outer loop: {out['seconds']:.1f} s (by part "
         f"{ {k: round(v, 1) for k, v in out['seconds_by_part'].items()} })")
@@ -4235,12 +4318,13 @@ def phase_tp(report: dict, dev, cli: tuple) -> dict:
 # (q1): (arch, cut, batch, seq, steps) at the published widths, the
 # depths cut so that the whole script stays within PR 25's time: phi-3-
 # vision-4.2b to 4 of 32 layers, zamba2-7b to one group (7 of 81),
-# xlstm-125m to 6 of 12 (its step is bound by the host: about 50k launches
-# a layer), one step each way
+# xlstm-125m to 4 of 12, two (mLSTM, sLSTM) pairs (its step is bound by the
+# host: about 50k launches a layer; 6 layers until phase (t) came), one
+# step each way
 Q_FLAT = [("phi-3-vision-4.2b", dict(num_layers=4), 4, 1024, 2),
           ("whisper-base", {}, 8, 448, 2),
           ("zamba2-7b", dict(num_layers=7), 4, 1024, 2),
-          ("xlstm-125m", dict(num_layers=6), 8, 1024, 1)]
+          ("xlstm-125m", dict(num_layers=4), 8, 1024, 1)]
 # the sequence the collectives of one xlstm-125m step are counted at (the
 # count does not depend on it: the sLSTM loop issues none per token)
 Q_COUNT_SEQ = 256
@@ -4760,11 +4844,177 @@ def phase_audit_cli(report: dict, run: tuple) -> None:
         f"((s2) ran beside (o5))")
 
 
+# ------------------------------------------- (t) the pod axis, examples
+T_STEPS = 3
+#: (t2)'s depth: one layer a stage (DTensor's dispatch makes the pipelined
+#: step on a mesh host-bound at about 1 s a step at depth 8, (q2))
+T_PIPE_LAYERS = 4
+
+
+def _t_pair(label: str, cfg, dev, meshes: tuple, **kw) -> dict:
+    """Two runs of ``cfg`` from one draw of the weights, ``T_STEPS`` steps
+    each: on ``meshes[0]`` and on ``meshes[1]`` (a pod axis of size 1):
+    losses, bytes synced and every state leaf held bit-equal; step ms,
+    peaks and PowerSGD launches of each."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import full_state
+    params = build_model(cfg).init(0, dev)
+    runs, first = {}, None
+    for name, m in zip(("without", "pod"), meshes):
+        _release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = _trainer(cfg, "fixed", 64, T_STEPS, 50, dev, mesh=m,
+                      params=params, **kw)
+        kernels = _reset_launches()
+        step_ms = _timed_steps(tr, SyntheticLM(cfg.vocab_size, 1024, 8,
+                                               seed=0).batches(), T_STEPS)
+        keys = ([k for k in ("stage_params", "shared_params", "params",
+                             "opt_m", "opt_v", "opt_step", "comp")
+                 if k in tr.state])
+        state = {k: tr.state[k] for k in keys}
+        runs[name] = {
+            "loss": [h["loss"] for h in tr.history],
+            "bytes_synced": [h["bytes_synced"] for h in tr.history],
+            "step_ms": step_ms, "world": tr.world,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": {k.__name__: k.launches for k in kernels}}
+        if first is None:
+            first = tree.tree_map(lambda t: t.detach().cpu(),
+                                  full_state(state))
+        else:
+            runs["state_equal"] = _bit_equal(state, first)
+            runs["leaves"] = len(tree.leaves(first))
+        del tr, state
+        r = runs[name]
+        log(f"({label}) {name} mesh: losses {r['loss']} step ms "
+            f"{[round(x, 1) for x in r['step_ms']]} peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; PowerSGD launches "
+            f"{ {k: r['launches'][k] for k in POWERSGD} }")
+    del params, first
+    _release()
+    a, b = runs["without"], runs["pod"]
+    log(f"({label}) pod against without: losses equal {a['loss'] == b['loss']}, "
+        f"bytes synced equal {a['bytes_synced'] == b['bytes_synced']}, "
+        f"{runs['leaves']} state leaves bit-equal {runs['state_equal']}; DP "
+        f"world {b['world']}")
+    if not (a["loss"] == b["loss"] and a["bytes_synced"] == b["bytes_synced"]
+            and runs["state_equal"] and b["world"] == 1):
+        raise AssertionError(f"({label}) the pod mesh's run is not bit-equal "
+                             f"to the run without it: {runs}")
+    if not all(math.isfinite(x) for x in b["loss"]) or not all(
+            b["launches"][k] > 0 for k in POWERSGD):
+        raise AssertionError(f"({label}) losses {b['loss']}, launches "
+                             f"{b['launches']}")
+    return runs
+
+
+def _t_examples_cmds() -> list:
+    """(t3)'s launchers (``_run_all``'s form), on the card by default."""
+    return [["repro_torch.launch.quickstart"],
+            ["repro_torch.launch.train_gpt2_edgc"]]
+
+
+def _t_examples(runs: list) -> dict:
+    """(t3): the two training examples at the reference's step counts
+    (quickstart 200 steps, train_gpt2_edgc 300 of none then of edgc), run
+    beside phases (m) to (s): finite losses; the quickstart's stage ranks
+    out of the DAC's warm-up and DP-sync bytes saved > 0. At its window of
+    50 steps train_gpt2_edgc's DAC stays in warm-up for all 300 steps, in
+    the reference too (CPU, an Auto-axis mesh: both final losses 4.4806,
+    0.0% saved), so its edgc run compresses nothing: held to that, ranks
+    empty, the same final loss as the baseline's and nothing saved, or,
+    where the ranks leave the warm-up, bytes saved > 0."""
+    import re
+    (q_s, q), (e_s, e) = runs
+    steps = [l for l in q if l.startswith("step")]
+    losses = [float(l.split()[3]) for l in steps]
+    ranks = [json.loads(l.split("stage-ranks", 1)[1]) for l in steps]
+    q_saved = float(re.search(r"saved vs no compression: ([\d.]+)%",
+                              "\n".join(q)).group(1)) / 100
+    val = lambda pat: float(re.search(pat, "\n".join(e)).group(1))
+    out = {"quickstart": {"seconds": q_s, "steps": [int(l.split()[1])
+                                                     for l in steps],
+                          "loss": losses, "ranks": ranks, "saved": q_saved},
+           "train_gpt2_edgc": {
+               "seconds": e_s,
+               "loss_none": val(r"no-compression final loss : ([-\d.]+)"),
+               "loss_edgc": val(r"EDGC +final loss : ([-\d.]+)"),
+               "saved": val(r"bytes saved +: ([\d.]+)%") / 100,
+               "ranks": json.loads(re.search(r"stage ranks at the end: "
+                                             r"(\[[^]]*\])", "\n".join(e)
+                                             ).group(1))}}
+    t = out["train_gpt2_edgc"]
+    t["gap"] = t["loss_edgc"] - t["loss_none"]
+    log(f"(t3) quickstart on the card (beside (m) to (s)), exit 0 in "
+        f"{q_s:.1f} s: loss {losses[0]:.3f} -> {losses[-1]:.3f} over "
+        f"{len(steps)} logged steps, stage ranks {ranks[0]} -> {ranks[-1]}, "
+        f"bytes saved {q_saved:.1%}")
+    log(f"(t3) train_gpt2_edgc on the card, exit 0 in {e_s:.1f} s: final loss "
+        f"none {t['loss_none']:.4f}, edgc {t['loss_edgc']:.4f} (gap "
+        f"{t['gap']:+.4f}), bytes saved {t['saved']:.1%}, stage ranks "
+        f"{t['ranks']}")
+    finite = all(math.isfinite(x) for x in losses + [t["loss_none"],
+                                                       t["loss_edgc"]])
+    left = (len(t["ranks"]) == 4 and t["saved"] > 0) or (
+        t["ranks"] == [] and t["saved"] == 0 and t["gap"] == 0)
+    if not (finite and len(steps) == 11 and ranks[0] == []
+            and len(ranks[-1]) == 4 and q_saved > 0 and left):
+        raise AssertionError(f"(t3) examples: {out}")
+    return out
+
+
+def phase_pod(report: dict, dev, cli: list) -> dict:
+    """(t): the pod axis of the training mesh on one card (NCCL, world 1):
+    (t1) (c)'s run (gpt2-2.5b widths, depth 8, batch 8 x 1024, fixed r64,
+    kernels on, bucketed, bf16) on ``make_host_mesh(pod=1, data=1)``
+    against the same trainer without a mesh; (t2) the pipelined trainer
+    (LocalPipe, S = 4, M = 4, 1F1B, replay) at depth ``T_PIPE_LAYERS`` on
+    (pod 1, data 1, model 1) against (data 1, model 1); each bit-equal.
+    ``cli`` is (t3)'s example runs, made beside (m) to (s). At world
+    1 no DP collective moves a byte: this checks the layout and the
+    plumbing. Returns the PowerSGD launches of (t1)'s and (t2)'s pod runs."""
+    import torch.distributed as dist
+    from repro_torch.configs.gpt2 import GPT2_2_5B
+    from repro_torch.launch.mesh import make_host_mesh
+    _release()
+    t0 = time.perf_counter()
+    out: dict = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        cfg = dataclasses.replace(GPT2_2_5B, num_layers=8)
+        out["t1"] = _t_pair("t1", cfg, dev, (None, make_host_mesh(
+            pod=1, data=1, device_type="cuda")))
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(GPT2_2_5B, num_layers=T_PIPE_LAYERS)
+        out["t2"] = _t_pair(
+            "t2", cfg, dev,
+            (make_host_mesh(data=1, model=1, device_type="cuda"),
+             make_host_mesh(pod=1, data=1, model=1, device_type="cuda")),
+            pipe=cfg.num_stages, schedule="1f1b", num_microbatches=PIPE_M,
+            stash_policy="replay")
+        out["t2"]["num_layers"] = T_PIPE_LAYERS
+        out["seconds_by_part"] = {"t1": t1 - t0,
+                                  "t2": time.perf_counter() - t1}
+    finally:
+        dist.destroy_process_group()
+    out["t3"] = _t_examples(cli)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"(t) pod axis: {out['seconds']:.1f} s (by part "
+        f"{ {k: round(v, 1) for k, v in out['seconds_by_part'].items()} })")
+    report["pod"] = out
+    return {"flat": out["t1"]["pod"]["launches"],
+            "pipe": out["t2"]["pod"]["launches"]}
+
+
 def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  pipe_launches: dict, overlap_launches: dict,
                  moe_launches: dict, families2_launches: dict,
                  elastic_launches: dict, serve_launches: dict,
-                 tp_launches: dict, tpf_launches: dict) -> dict:
+                 tp_launches: dict, tpf_launches: dict,
+                 pod_launches: dict) -> dict:
     names = {"lowrank_p": "ef_lowrank_p", "lowrank_q": "ef_lowrank_q",
              "decompress_residual": "decompress_residual",
              "gram_schmidt": "gram_schmidt_panel"}
@@ -4790,7 +5040,9 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
                  "launches_tp": tp_launches[wrapper],
                  "launches_tp_families": tpf_launches["flat"][wrapper],
                  "launches_tp_pipe": tpf_launches["pipe"][wrapper],
-                 "launches_audit": report["audit"]["s1"]["launches"][wrapper]}
+                 "launches_audit": report["audit"]["s1"]["launches"][wrapper],
+                 "launches_pod": pod_launches["flat"][wrapper],
+                 "launches_pod_pipe": pod_launches["pipe"][wrapper]}
         entry["device_ms"] = total("device_ms")
         # (l)'s groups (the MoE's expert stacks, qwen3-32b's mlp) and
         # (m2k)'s (zamba2-7b's Mamba2 projections)
@@ -4924,25 +5176,32 @@ def main() -> int:
     j1_leaves = j1_state.pop("state")
     overlap_launches = phase_overlap(report, dev, list(j1_leaves))
     moe_launches = phase_families(report, dev, args.profile)
-    families2_launches = phase_families2(report, dev, args.profile)
-    elastic_launches = phase_elastic(report, dev)
-    # (p4)'s, (q3)'s, (r2)'s and (s2)'s launchers run beside (o5)'s
-    q_cmds = _q_cli_cmds()
-    serve_launches, (tp_cli, *later_cli) = phase_serve(
-        report, dev, also=[_tp_cli_cmd()] + q_cmds + _dryrun_cli_cmds()
-        + [_audit_cli_cmd()])
-    q_cli, r_cli = later_cli[:len(q_cmds)], later_cli[len(q_cmds):-1]
-    audit_cli = later_cli[-1]
-    tp_launches = phase_tp(report, dev, tp_cli)
-    tpf_launches = phase_tp_families(report, dev, j1_leaves, q_cli)
-    del j1_leaves
-    phase_dryrun(report, dev, r_cli)
-    phase_audit_cli(report, audit_cli)
+    # (t3)'s examples run beside (m) and the phases after it, in processes
+    # of their own; (t) reads them
+    t_cli = _start_all(_t_examples_cmds())
+    try:
+        families2_launches = phase_families2(report, dev, args.profile)
+        elastic_launches = phase_elastic(report, dev)
+        # (p4)'s, (q3)'s, (r2)'s and (s2)'s launchers run beside (o5)'s
+        q_cmds = _q_cli_cmds()
+        serve_launches, (tp_cli, *later_cli) = phase_serve(
+            report, dev, also=[_tp_cli_cmd()] + q_cmds + _dryrun_cli_cmds()
+            + [_audit_cli_cmd()])
+        q_cli, r_cli = later_cli[:len(q_cmds)], later_cli[len(q_cmds):-1]
+        audit_cli = later_cli[-1]
+        tp_launches = phase_tp(report, dev, tp_cli)
+        tpf_launches = phase_tp_families(report, dev, j1_leaves, q_cli)
+        del j1_leaves
+        phase_dryrun(report, dev, r_cli)
+        phase_audit_cli(report, audit_cli)
+        pod_launches = phase_pod(report, dev, _finish_all(t_cli))
+    finally:
+        _kill_all(t_cli)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report, launches, pack_launches, pipe_launches,
                         overlap_launches, moe_launches, families2_launches,
                         elastic_launches, serve_launches, tp_launches,
-                        tpf_launches)
+                        tpf_launches, pod_launches)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**report, **line}, indent=1))

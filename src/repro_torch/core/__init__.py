@@ -16,7 +16,13 @@ from .compressor import (
 from .controller import EDGCConfig, EDGCController
 from .cqm import CQM, rank_from_entropy_delta, theoretical_error
 from .dac import DAC, DACConfig, stage_aligned_ranks, window_rank_adjust
-from .entropy import GDSConfig, gaussian_entropy, grads_entropy, histogram_entropy
+from .entropy import (
+    GDSConfig,
+    gaussian_entropy,
+    grads_entropy,
+    grads_entropy_per_leaf,
+    histogram_entropy,
+)
 from .mp_law import GTable, g_table, mp_cdf, mp_support, sample_eigenvalues
 from .powersgd import LowRankState, compress_leaf, gram_schmidt, init_leaf_state
 from .sync_executor import SyncExecutor
@@ -31,7 +37,8 @@ __all__ = [
     "EDGCConfig", "EDGCController",
     "CQM", "rank_from_entropy_delta", "theoretical_error",
     "DAC", "DACConfig", "stage_aligned_ranks", "window_rank_adjust",
-    "GDSConfig", "gaussian_entropy", "grads_entropy", "histogram_entropy",
+    "GDSConfig", "gaussian_entropy", "grads_entropy",
+    "grads_entropy_per_leaf", "histogram_entropy",
     "GTable", "g_table", "mp_cdf", "mp_support", "sample_eigenvalues",
     "LowRankState", "compress_leaf", "gram_schmidt", "init_leaf_state",
 ]

@@ -10,6 +10,11 @@ alpha (fraction of iterations measured; the gate lives in the controller).
     torch, as the reference's trainer computes it; the histogram kernel
     is reached through ``kernels.ops.sampled_entropy_hist``.
 
+``grads_entropy`` pools one sample over a whole tree (the step's reading);
+``grads_entropy_per_leaf`` weights per-leaf estimates by their sample
+sizes (the per-stage API, ``grads_entropy_per_group``), and ``grad_std``
+is the global std of a tree (Observation 2).
+
 The measurement stays on the device: ``grads_entropy`` returns a 0-d tensor
 and the trainer reads it at its next flush.
 
@@ -35,7 +40,8 @@ from repro_torch.dist import tp
 
 __all__ = ["GDSConfig", "strided_sample", "gaussian_entropy",
            "histogram_entropy", "sample_moments", "entropy_from_moments",
-           "grads_entropy", "split_sample"]
+           "grads_entropy", "grads_entropy_per_leaf",
+           "grads_entropy_per_group", "grad_std", "split_sample"]
 
 # log(2*pi*e), rounded through float32 as the reference computes it
 _LOG_2PI_E = float(np.log(np.float32(2.0 * np.pi)) + np.float32(1.0))  # lint: allow(host-call-in-hot-path) import-time constant
@@ -230,3 +236,42 @@ def grads_entropy(grads, cfg: GDSConfig = GDSConfig()) -> torch.Tensor:
         return histogram_entropy(torch.cat(_sampled_leaves(grads, cfg)),
                                  cfg.num_bins)
     return entropy_from_moments(*sample_moments(grads, cfg))
+
+
+def _leaf_entropy(leaf: torch.Tensor, cfg: GDSConfig):
+    """One leaf's entropy estimate and its sample size (a 0-d tensor)."""
+    s = strided_sample(leaf, cfg.beta)
+    h = (histogram_entropy(s, cfg.num_bins) if cfg.estimator == "histogram"
+         else gaussian_entropy(s))
+    return h, torch.full((), float(s.shape[0]), device=s.device)  # lint: allow(host-call-in-hot-path) a static shape
+
+
+@torch.no_grad()
+def grads_entropy_per_leaf(grads, cfg: GDSConfig = GDSConfig()
+                           ) -> torch.Tensor:
+    """Size-weighted mean of per-leaf entropies (the per-stage estimator):
+    each leaf's estimate weighted by its sample size, so that a stage's
+    layers stay comparable when their gradient scales differ."""
+    leaves = [l for l in tree.leaves(grads) if l.numel() > 16]
+    hs, ws = zip(*(_leaf_entropy(l, cfg) for l in leaves))
+    h, w = torch.stack(hs), torch.stack(ws)
+    return torch.sum(h * w) / torch.sum(w)
+
+
+def grads_entropy_per_group(grads_by_group, cfg: GDSConfig = GDSConfig()
+                            ) -> list[torch.Tensor]:
+    """Entropy per (pipeline-stage) group: a list of trees to a list of
+    0-d tensors."""
+    return [grads_entropy_per_leaf(g, cfg) for g in grads_by_group]
+
+
+@torch.no_grad()
+def grad_std(grads) -> torch.Tensor:
+    """Global std of a gradient tree (Observation 2's reading), one sweep
+    a leaf: var = E[x^2] - E[x]^2 in fp32."""
+    leaves = tree.leaves(grads)
+    total = sum(l.numel() for l in leaves)
+    s1 = sum(torch.sum(l.float()) for l in leaves)
+    s2 = sum(torch.sum(torch.square(l.float())) for l in leaves)
+    mean = s1 / total
+    return torch.sqrt(torch.clamp(s2 / total - mean * mean, min=0.0))

@@ -1,5 +1,6 @@
-"""Deterministic synthetic LM stream and modality stubs (port of
-``SyntheticLM``, ``_stub_embedding`` and ``add_modality_stubs`` in
+"""Deterministic synthetic LM stream, a byte-level file corpus and
+modality stubs (port of ``SyntheticLM``, ``ByteCorpus``,
+``_stub_embedding`` and ``add_modality_stubs`` in
 ``repro/data/pipeline.py``).
 
 Pure numpy, copied as it is, so both packages draw bit-identical batches
@@ -17,7 +18,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "add_modality_stubs"]
+__all__ = ["ByteCorpus", "SyntheticLM", "add_modality_stubs"]
 
 
 @dataclasses.dataclass
@@ -66,6 +67,39 @@ class SyntheticLM:
                 "tokens": seqs[:, :-1].astype(np.int32),
                 "labels": seqs[:, 1:].astype(np.int32),
             }
+
+
+@dataclasses.dataclass
+class ByteCorpus:
+    """Byte-level LM batches over a local file the caller names: 256
+    byte tokens, each batch ``batch_size`` windows of ``seq_len + 1``
+    bytes at starts drawn from ``np.random.default_rng(seed)``, as the
+    reference draws them (nothing is downloaded or bundled)."""
+
+    path: str
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        with open(self.path, "rb") as f:
+            self._data = np.frombuffer(f.read(), np.uint8).astype(np.int32)
+        if len(self._data) < self.seq_len + 2:
+            raise ValueError(f"{self.path} too small for "
+                             f"seq_len={self.seq_len}")
+        self._rng = np.random.default_rng(self.seed)
+
+    @property
+    def vocab_size(self) -> int:
+        return 256
+
+    def batches(self) -> Iterator[dict]:
+        n = len(self._data) - self.seq_len - 1
+        while True:
+            starts = self._rng.integers(0, n, self.batch_size)
+            toks = np.stack([self._data[s:s + self.seq_len + 1]
+                             for s in starts])
+            yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def _stub_embedding(shape: tuple[int, ...], tag: str, seed: int) -> np.ndarray:

@@ -1,8 +1,9 @@
 """Data-parallel gradient-sync collectives on ``torch.distributed``.
 
-Port of ``make_dp_pmean`` from ``repro/dist/collectives.py``. Each process
-is one data-parallel worker; the mean over workers is an all-reduce (SUM)
-divided by the world size. Without an initialised process group (or at
+Port of ``make_dp_pmean`` and ``make_dp_psum`` from
+``repro/dist/collectives.py``. Each process is one data-parallel worker;
+the sum over workers is an all-reduce (SUM), the mean that sum divided by
+the world size. Without an initialised process group (or at
 world size 1) it is the identity, the reference's single-worker case.
 
 Every function takes an optional process ``group``: the data group of a
@@ -31,8 +32,9 @@ import torch.distributed as dist
 
 from repro_torch import tree
 
-__all__ = ["dp_world_size", "dp_rank", "make_dp_pmean", "dp_all_gather",
-           "dp_barrier", "make_model_psum", "model_all_gather", "PodCarrier"]
+__all__ = ["dp_world_size", "dp_rank", "make_dp_pmean", "make_dp_psum",
+           "dp_all_gather", "dp_barrier", "make_model_psum",
+           "model_all_gather", "PodCarrier"]
 
 
 def dp_world_size(group=None) -> int:
@@ -41,6 +43,14 @@ def dp_world_size(group=None) -> int:
 
 def dp_rank(group=None) -> int:
     return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def _summed_copy(t: torch.Tensor, group) -> torch.Tensor:
+    """A contiguous copy of ``t`` summed over ``group`` (the all-reduce
+    sums storage in memory order; the input is never written)."""
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
 
 
 def make_dp_pmean(group=None) -> Callable[[Any], Any]:
@@ -52,13 +62,16 @@ def make_dp_pmean(group=None) -> Callable[[Any], Any]:
     world = dp_world_size(group)
     if world == 1:
         return lambda x: x
+    return lambda x: tree.tree_map(
+        lambda t: _summed_copy(t, group).div_(world), x)
 
-    def mean(t: torch.Tensor) -> torch.Tensor:
-        out = t.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out.div_(world)
 
-    return lambda x: tree.tree_map(mean, x)
+def make_dp_psum(group=None) -> Callable[[Any], Any]:
+    """Sum over the data-parallel workers of a tensor or a tree of them
+    (the identity at world size 1). The input is never written."""
+    if dp_world_size(group) == 1:
+        return lambda x: x
+    return lambda x: tree.tree_map(lambda t: _summed_copy(t, group), x)
 
 
 def dp_all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -74,13 +87,7 @@ def dp_all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
 def make_model_psum(group) -> Callable[[torch.Tensor], torch.Tensor]:
     """Sum over the model group (a contiguous copy is reduced; the input
     is never written)."""
-
-    def psum(t: torch.Tensor) -> torch.Tensor:
-        out = t.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
-
-    return psum
+    return lambda t: _summed_copy(t, group)
 
 
 def model_all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:

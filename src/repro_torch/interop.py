@@ -13,7 +13,9 @@ wire, raw ``ef:<path>`` residuals, which come across as fp32 tensors.
 ``from_reference(..., mesh=)`` places the state on a ``(data, model)``
 mesh as the port's trainer holds it (``train.step.distribute_state``): on
 the ``model`` sub-mesh, or with ``fsdp=True`` (the ``auto`` step) on the
-whole mesh; each process takes its own DP worker's compressor replica.
+whole mesh; each process takes its own DP worker's compressor replica,
+worker p * data + w on a mesh with a ``pod`` axis (pod-major, as the
+reference's ``(W, ...)`` and ``(S, W, ...)`` layouts count it).
 
 The pipelined reference trainer's state (``stage_params`` with leaves
 (S, Lmax, ...), ``shared_params``, ``opt_m``/``opt_v`` as ``{"stage",
@@ -41,6 +43,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core.powersgd import LowRankState
+from repro_torch.launch.mesh import dp_index
 
 __all__ = ["from_reference", "outer_from_reference", "cache_from_reference",
            "to_tensor"]
@@ -58,7 +61,7 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 def from_reference(state_np: dict[str, Any], device="cpu", mesh=None,
                    fsdp: bool = False) -> dict[str, Any]:
     conv = lambda t: tree.tree_map(lambda a: to_tensor(a, device), t)
-    w = 0 if mesh is None else mesh.get_local_rank("data")
+    w = dp_index(mesh)
     out: dict[str, Any] = {}
     for key in ("params", "opt_m", "opt_v", "stage_params", "shared_params"):
         if key in state_np:

@@ -60,6 +60,7 @@ import torch
 from repro_torch import analysis
 from repro_torch.analysis.lint import LINT_ROOTS
 from repro_torch.core.config import SyncConfig
+from repro_torch.launch.mesh import dp_group, dp_index, dp_size
 from repro_torch.models.model import ModelConfig, build_model
 
 __all__ = ["FAMILY_CFGS", "KNOWN_HOST_SYNCS", "LINT_ROOTS", "Report",
@@ -121,7 +122,7 @@ def _family_batch(cfg: ModelConfig, rows: int, device, seed: int = 0
 
 def _dp_pmean(mesh):
     from repro_torch.dist.collectives import make_dp_pmean
-    return make_dp_pmean(mesh.get_group("data"))
+    return make_dp_pmean(dp_group(mesh))
 
 
 def build_flat(cfg: ModelConfig, mesh, device, *, measure_entropy=True,
@@ -148,8 +149,8 @@ def build_flat(cfg: ModelConfig, mesh, device, *, measure_entropy=True,
     scfg = TrainStepConfig(mode="dp_tp", policy_plan=plan,
                            measure_entropy=measure_entropy, sync=sync)
     step = make_train_step(model, scfg, psum_mean=_dp_pmean(mesh))
-    world = mesh.size()
-    batch = _family_batch(cfg, B // world, device, seed=mesh.get_rank())
+    batch = _family_batch(cfg, B // dp_size(mesh), device,
+                          seed=dp_index(mesh))
     return step, state, batch, layout
 
 
@@ -159,7 +160,7 @@ def build_pipelined(cfg: ModelConfig, mesh, device, *, overlap: bool,
     """The pipelined 1F1B step (``_trace_pipelined``'s: M = 2S
     microbatches, edgc at rank 8) of this rank's stage of a ``(pipe,
     data)`` mesh, over ``DistPipe`` on the pipe group and the DP mean on
-    the data group, as the trainer runs it: (step, state, batch,
+    the stage's pod x data group, as the trainer runs it: (step, state, batch,
     {"oplan", "splans"})."""
     from repro_torch.core.compressor import classify_leaves, make_plan
     from repro_torch.optim import adam
@@ -199,9 +200,8 @@ def build_pipelined(cfg: ModelConfig, mesh, device, *, overlap: bool,
                                 chunk_bytes=chunk_bytes),
         sync=sync)
     step = make_train_step(model, scfg, psum_mean=_dp_pmean(mesh), pipe=pipe)
-    data = mesh.size(mesh.mesh_dim_names.index("data"))
-    batch = _family_batch(cfg, B // data, device,
-                          seed=mesh.get_coordinate()[1])
+    batch = _family_batch(cfg, B // dp_size(mesh), device,
+                          seed=dp_index(mesh))
     oplan = plan_overlap("1f1b", S, M, splans) if overlap else None
     return step, state, batch, {"oplan": oplan, "splans": splans}
 

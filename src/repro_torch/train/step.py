@@ -34,8 +34,9 @@ process mesh (``launch.mesh.make_host_mesh``):
     is DTensor's. No sync runs, so the plan must be ``none`` (the
     reference: "compression policy must be 'none' in this mode").
 
-On a mesh with a ``pod`` axis (the dry run's multi-pod production mesh)
-the DP mean runs over pod and data together (``launch.mesh.dp_group``).
+On a mesh with a ``pod`` axis (``make_host_mesh(pod=P, ...)``, or the dry
+run's multi-pod production mesh) the DP mean runs over pod and data
+together, pod-major (``launch.mesh.dp_group``).
 ``make_prefill_step`` and ``make_serve_step`` are the reference's serving
 steps: the full-sequence forward and one decode token.
 """

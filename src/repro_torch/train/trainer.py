@@ -29,6 +29,13 @@ checkpoint gathers the reference's whole layout. Without ``pipe``,
 ``num_stages`` > 1 stays virtual: the DAC emits per-stage ranks and the
 flat step runs.
 
+A ``pod`` axis outermost (``make_host_mesh(pod=P, ...)``) makes each pod a
+data-parallel island: the DP group is pod x data, flattened pod-major
+(``launch.mesh.dp_group``), so the world, this worker's batch slice, the
+compressor replicas a checkpoint gathers and the one a restore takes
+follow worker p * data + w, as the reference counts its DP world over
+("pod", "data"); with a pipe axis each stage's group is its own.
+
 A ``(data, model)`` mesh (``launch.mesh.make_host_mesh(data=D, model=M)``)
 runs the ``dp_tp`` step with tensor parallelism: the state's tensors are
 DTensors on the mesh's ``model`` axis placed by the reference's rules
@@ -70,7 +77,7 @@ from repro_torch.core.powersgd import fold_in, resize_rank
 from repro_torch.dist import tp
 from repro_torch.dist.collectives import (dp_all_gather, dp_barrier, dp_rank,
                                           dp_world_size, make_dp_pmean)
-from repro_torch.launch.mesh import pipe_size
+from repro_torch.launch.mesh import dp_group, pipe_size
 from repro_torch.models.model import Model, param_count
 from repro_torch.obs.metrics import JsonlSink, MetricsRegistry, fetch
 from repro_torch.optim import adam
@@ -181,8 +188,9 @@ class Trainer:
                                       edgc_cfg.num_stages,
                                       min_dim=tcfg.min_compress_dim)
         # a mesh with a pipe axis hosts one stage per process: DP runs over
-        # the data group, the pipe collectives over the pipe group
-        self._dp_group = None if mesh is None else mesh.get_group("data")
+        # the stage's pod x data group (pod-major), the pipe collectives
+        # over the pipe group
+        self._dp_group = dp_group(mesh)
         # a mesh with a model axis: the dp_tp step with tensor parallelism
         self._mesh = None
         if mesh is not None and "model" in mesh.mesh_dim_names:

@@ -36,7 +36,8 @@ def test_port_has_files():
                    "analysis/__init__.py", "analysis/dispatch_log.py",
                    "analysis/parity.py", "analysis/budget.py",
                    "analysis/hostcalls.py", "analysis/lint.py",
-                   "launch/audit.py"):
+                   "launch/audit.py", "launch/quickstart.py",
+                   "launch/train_gpt2_edgc.py"):
         assert ROOT / "src" / "repro_torch" / module in PORT_FILES
     assert (ROOT / "chip_smoke.py").exists()
 

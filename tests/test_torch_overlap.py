@@ -685,27 +685,37 @@ def _mesh_run():
 
 
 def test_make_host_mesh_refuses_the_axes_of_item_12():
-    """The pod axis (item 10b) is not ported: it raises before any process
-    group is touched, beside a model axis too; no mesh has pipe size 1. A
-    pipe axis beside a model axis builds the (pipe, data, model) mesh:
-    rank = (s * data + w) * model + t, checked on a fake process group of
-    8 ranks from rank 5's side."""
+    """Since item 12e the pod axis builds, beside a model axis too, with
+    the reference's rank order, rank = ((p * pipe + s) * data + w) * model
+    + t, and the DP group over pod x data, pod-major; no mesh has pipe
+    size 1. A pipe axis beside a model axis builds the (pipe, data, model)
+    mesh: rank = (s * data + w) * model + t. Checked on a fake process
+    group of 8 ranks from rank 5's side."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    from repro_torch.launch.mesh import make_host_mesh, pipe_size
-    for kw in (dict(pod=2), dict(pod=2, model=2)):
-        with pytest.raises(ValueError, match="item 10b"):
-            make_host_mesh(device_type="cpu", **kw)
+    from repro_torch.launch.mesh import (dp_group, dp_index, make_host_mesh,
+                                         pipe_size)
     assert pipe_size(None) == 1
     dist.init_process_group("fake", store=FakeStore(), rank=5, world_size=8)
     try:
+        ranks = lambda g: dist.get_process_group_ranks(g)
+        mesh = make_host_mesh(pod=2, data=4, device_type="cpu")
+        assert mesh.mesh_dim_names == ("pod", "data")
+        assert ranks(dp_group(mesh)) == list(range(8)) and dp_index(mesh) == 5
+        mesh = make_host_mesh(pod=2, pipe=2, data=1, model=2,
+                              device_type="cpu")
+        assert mesh.mesh_dim_names == ("pod", "pipe", "data", "model")
+        assert [mesh.get_local_rank(n) for n in mesh.mesh_dim_names] == \
+            [1, 0, 0, 1]
+        assert ranks(dp_group(mesh)) == [1, 5] and dp_index(mesh) == 1
+        assert ranks(mesh.get_group("pipe")) == [5, 7]
         mesh = make_host_mesh(pipe=2, model=4, device_type="cpu")
         assert mesh.mesh_dim_names == ("pipe", "data", "model")
         assert mesh.mesh.tolist() == [[[0, 1, 2, 3]], [[4, 5, 6, 7]]]
         assert [mesh.get_local_rank(n) for n in mesh.mesh_dim_names] == [1, 0, 1]
-        ranks = lambda n: dist.get_process_group_ranks(mesh.get_group(n))
-        assert ranks("model") == [4, 5, 6, 7]
-        assert ranks("pipe") == [1, 5] and ranks("data") == [5]
+        group = lambda n: ranks(mesh.get_group(n))
+        assert group("model") == [4, 5, 6, 7]
+        assert group("pipe") == [1, 5] and group("data") == [5]
         assert pipe_size(mesh) == 2
     finally:
         dist.destroy_process_group()
