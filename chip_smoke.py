@@ -1036,80 +1036,64 @@ def _payloads(trainer) -> list[int]:
 
 def profile_step(trainer, batches, step_ms: float, top: int = 25,
                  streams: bool = False) -> dict:
-    """One more main-path step under torch.profiler: device time by kernel,
-    and the device's idle share of an unprofiled step of ``step_ms`` (the
-    profiler's own host cost stretches the profiled step); with
-    ``streams``, the kernel time by CUDA stream (``stream_overlap``)."""
+    """One more main-path step under torch.profiler, with the program's
+    spans recorded: device time by kernel; the device's busy time (the
+    union of kernel intervals over every stream, ``bench.trace``) and its
+    idle share of an unprofiled step of ``step_ms`` (the profiler's own
+    host cost stretches the profiled step); busy and idle time by the span
+    that launched or waited (``bench.spans``); with ``streams``, kernel
+    time by CUDA stream and the part of the side streams' time that ran
+    beside a compute-stream kernel (``bench.trace.side_overlap``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from bench import spans as bench_spans
+    from bench import trace as bench_trace
+    from repro_torch.obs.trace import record_spans
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.run(batches, num_steps=1)
+        with record_spans() as spans:
+            trainer.run(batches, num_steps=1)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            obj = json.load(f)
+    events = obj["traceEvents"]
+    cap = bench_trace.from_events(events, None, 1)
+    if not cap.kernels:
+        raise AssertionError("the profiler's trace holds no kernel")
+    busy_ms = bench_trace.busy_us(cap) / 1e3
+    att = bench_spans.attribute(events, spans, int(obj.get("baseTimeNanoseconds", 0)), 1)
     log(f"    profiled step: {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms; "
         f"idle share of a {step_ms:.1f} ms unprofiled step "
         f"{1 - busy_ms / step_ms:.3f}")
     for key, ms, count in rows[:top]:
         log(f"      {ms:9.3f} ms {count:6d}x  {key[:90]}")
+    by_span = att.by_span()
+    log("    by span (busy ms, idle ms): " + ", ".join(
+        f"{n} {1e3 * b:.2f}/{1e3 * i:.2f}" for n, b, i in by_span))
     out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "step_ms": step_ms,
-           "by_kernel": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows]}
+           "by_kernel": [{"name": k, "ms": ms, "count": c} for k, ms, c in rows],
+           "by_span": by_span}
     if streams:
-        out["streams"] = stream_overlap(prof)
-        st = out["streams"]
-        log(f"    by stream: kernel ms {st['by_stream_ms']}; device busy "
-            f"(union of kernel intervals) {st['busy_union_ms']:.1f} ms; "
+        by = bench_trace.stream_time(cap.kernels)
+        side, over = bench_trace.side_overlap(cap.kernels) or (0.0, 0.0)
+        st = out["streams"] = {
+            "by_stream_ms": {k: v / 1e3 for k, v in by.items()},
+            "compute_stream": max(by, key=by.get),
+            "side_ms": side / 1e3, "side_overlapped_ms": over / 1e3}
+        log(f"    by stream: kernel ms {st['by_stream_ms']}; "
             f"kernels off the compute stream {st['side_ms']:.3f} ms, "
             f"{st['side_overlapped_ms']:.3f} ms of it while a compute-stream "
             f"kernel ran")
     return out
-
-
-def _union(spans: list[tuple[float, float]]) -> list[tuple[float, float]]:
-    out: list[list[float]] = []
-    for a, b in sorted(spans):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
-    return [(a, b) for a, b in out]
-
-
-def stream_overlap(prof) -> dict:
-    """Kernel time by CUDA stream, from the profiler's trace: the compute
-    stream is the one with the most kernel time; the kernels of the other
-    streams (the overlapped sync's side stream) and how much of their time
-    fell inside the compute stream's kernel intervals; the device-busy
-    time as the union of every kernel's interval (ms)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans: dict[str, list[tuple[float, float]]] = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
-            stream = str(e.get("args", {}).get("stream", e.get("tid")))
-            spans.setdefault(stream, []).append((e["ts"], e["ts"] + e["dur"]))
-    if not spans:
-        raise AssertionError("the profiler's trace holds no kernel")
-    total = {k: sum(b - a for a, b in v) / 1e3 for k, v in spans.items()}
-    compute = max(total, key=total.get)
-    busy = _union(spans[compute])
-    side = [iv for k, v in spans.items() if k != compute for iv in v]
-    overlapped = sum(max(0.0, min(b, d) - max(a, c))
-                     for a, b in side for c, d in busy)
-    every = _union([iv for v in spans.values() for iv in v])
-    return {"by_stream_ms": total, "compute_stream": compute,
-            "side_ms": sum(b - a for a, b in side) / 1e3,
-            "side_overlapped_ms": overlapped / 1e3,
-            "busy_union_ms": sum(b - a for a, b in every) / 1e3}
 
 
 def phase_control(report: dict, dev) -> None:
@@ -2204,10 +2188,8 @@ def phase_overlap(report: dict, dev, j1_state: list) -> dict:
     kp, jp = k1["profile"], j1["profile"]
     log(f"    step {k_ms:.1f} ms (run 2 "
         f"{statistics.median(runs[1]['step_ms'][1:]):.1f}) against (j1)'s "
-        f"{j_ms:.1f} ms ({k_ms / j_ms:.3f}x); device busy (kernel sum) "
-        f"{kp['busy_ms']:.1f} ms against {jp['busy_ms']:.1f}, (union) "
-        f"{kp['streams']['busy_union_ms']:.1f} against "
-        f"{jp['streams']['busy_union_ms']:.1f}; side-stream kernels "
+        f"{j_ms:.1f} ms ({k_ms / j_ms:.3f}x); device busy "
+        f"{kp['busy_ms']:.1f} ms against {jp['busy_ms']:.1f}; side-stream kernels "
         f"{kp['streams']['side_ms']:.3f} ms, "
         f"{kp['streams']['side_overlapped_ms']:.3f} ms of it overlapping "
         f"compute; peak {k1['peak_bytes'] / 2**30:.2f} GiB against "

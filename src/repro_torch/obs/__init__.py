@@ -5,7 +5,9 @@
   in-memory for tests, CSV export). Device values reach the host in one
   batched copy at flush boundaries only.
 - ``repro_torch.obs.trace`` — the pipeline tick tracer (tick tables ->
-  Chrome trace-event JSON) and the ``--profile`` ``torch.profiler`` hook.
+  Chrome trace-event JSON), the program's spans (``span``, recorded only
+  inside ``record_spans()``, placed on a profiler trace's clock by
+  ``span_events``) and the ``--profile`` ``torch.profiler`` hook.
 - ``repro_torch.launch.report`` — CLI rendering a run's JSONL telemetry as
   a text summary.
 """
@@ -18,9 +20,13 @@ from repro_torch.obs.metrics import (  # noqa: F401
     write_csv,
 )
 from repro_torch.obs.trace import (  # noqa: F401
+    Span,
     expected_span_count,
     load_trace,
     profiler_session,
+    record_spans,
+    span,
+    span_events,
     tick_trace_events,
     validate_trace,
     write_chrome_trace,
@@ -39,4 +45,8 @@ __all__ = [
     "load_trace",
     "validate_trace",
     "expected_span_count",
+    "Span",
+    "span",
+    "record_spans",
+    "span_events",
 ]

@@ -1,5 +1,5 @@
-"""Pipeline tick tracer (tick tables -> Chrome trace-event JSON) and the
-``--profile`` hook.
+"""Pipeline tick tracer (tick tables -> Chrome trace-event JSON), the
+program's spans, and the ``--profile`` hook.
 
 Port of ``repro/obs/trace.py``. ``tick_trace_events`` renders the
 dependency-timed schedule spans of ``pipeline.schedule.tick_spans`` as
@@ -14,13 +14,26 @@ Time axis: ``tick_spans`` works in schedule seconds (units of
 a measured step time gives a trace whose makespan matches the real step
 (``scale = measured_step_s / simulate_schedule(...)['makespan']``).
 
-``profiler_session`` wraps a run in a ``torch.profiler`` session.
+Program spans: ``span(name, **args)`` marks a layer of the training step
+(``trainer.step``, ``step.forward``, ``step.sync`` ...) on the host clock
+(``time.time_ns``), with the span that encloses it and the trainer's global
+step. Nothing records outside a ``record_spans()`` block: there a span is
+one check of a module-level flag, and it keeps, launches and synchronises
+nothing. ``span_events`` places recorded spans on a ``torch.profiler``
+trace's clock (``ts`` in microseconds from its ``baseTimeNanoseconds``), so
+each kernel's launch can be given to the span that issued it.
+
+``profiler_session`` wraps a run in a ``torch.profiler`` session and merges
+the spans recorded in it into the trace it writes.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
+import threading
+import time
 from typing import Any
 
 from repro_torch.pipeline.schedule import (
@@ -37,6 +50,10 @@ __all__ = [
     "validate_trace",
     "expected_span_count",
     "profiler_session",
+    "Span",
+    "span",
+    "record_spans",
+    "span_events",
 ]
 
 # Span categories. The count oracle in tests matches cats in
@@ -172,10 +189,13 @@ def _sync_events(plan: Any, spans: list[dict], makespan: float,
 
 
 def write_chrome_trace(path: str, events: list[dict],
-                       metadata: dict | None = None) -> str:
-    """Write a Chrome trace-event JSON object file (Perfetto-loadable)."""
+                       metadata: dict | None = None,
+                       extra: dict | None = None) -> str:
+    """Write a Chrome trace-event JSON object file (Perfetto-loadable);
+    ``extra`` adds top-level keys (a profiler trace's
+    ``baseTimeNanoseconds``, ``deviceProperties``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    obj = {"traceEvents": events, "displayTimeUnit": "ms",
+    obj = {**(extra or {}), "traceEvents": events, "displayTimeUnit": "ms",
            "otherData": metadata or {}}
     with open(path, "w") as f:
         json.dump(obj, f)
@@ -232,13 +252,129 @@ def expected_span_count(schedule: str, S: int, M: int,
                for t in range(len(table[s])))
 
 
+# ------------------------------------------------------------ program spans
+@dataclasses.dataclass
+class Span:
+    """One recorded span: its start and end on ``time.time_ns``, the index
+    in the recorded list of the span that encloses it on the same thread
+    (None at the top), the trainer's global step it belongs to (shared by
+    every span of that step), and small host-side args (numbers,
+    strings)."""
+
+    name: str
+    start_ns: int
+    end_ns: int = 0
+    parent: int | None = None
+    step: int | None = None
+    args: dict = dataclasses.field(default_factory=dict)
+
+
+class _Recorder:
+    def __init__(self) -> None:
+        self.spans: list[Span] = []
+        # thread ident -> the indices of its open spans, innermost last
+        self.open: dict[int, list[int]] = {}
+
+
+_ON = False                 # read by every span(); set by record_spans()
+_REC: _Recorder | None = None
+_OFF = contextlib.nullcontext()     # what span() returns while nothing records
+_ARG_TYPES = (bool, int, float, str, type(None))
+
+
+class _Open:
+    __slots__ = ("rec", "name", "args", "sp", "stack")
+
+    def __init__(self, rec: _Recorder, name: str, args: dict) -> None:
+        self.rec, self.name, self.args = rec, name, args
+
+    def __enter__(self) -> Span:
+        rec, args = self.rec, self.args
+        for k, v in args.items():
+            if not isinstance(v, _ARG_TYPES):
+                raise TypeError(f"span {self.name!r}: arg {k!r} is a "
+                                f"{type(v).__name__}; a span keeps numbers "
+                                "and strings only")
+        self.stack = stack = rec.open.setdefault(threading.get_ident(), [])
+        parent = stack[-1] if stack else None
+        step = args.pop("step", None)
+        if step is None and parent is not None:
+            step = rec.spans[parent].step
+        sp = Span(self.name, 0, parent=parent, step=step, args=args)
+        stack.append(len(rec.spans))
+        rec.spans.append(sp)
+        self.sp = sp
+        sp.start_ns = time.time_ns()
+        return sp
+
+    def __exit__(self, *exc) -> bool:
+        self.sp.end_ns = time.time_ns()
+        self.stack.pop()
+        return False
+
+
+def span(name: str, **args):
+    """A context manager that records ``name`` from its entry to its exit
+    while a ``record_spans()`` block is open, and does nothing otherwise.
+    ``step=`` sets the global step (the enclosing span's by default); other
+    args must be numbers or strings."""
+    if not _ON:
+        return _OFF
+    return _Open(_REC, name, args)
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Record the spans opened inside the block; yields the list they are
+    appended to (in order of entry). Only the caller writes them out."""
+    global _ON, _REC
+    if _ON:
+        raise RuntimeError("record_spans() is already recording")
+    _REC, _ON = _Recorder(), True
+    try:
+        yield _REC.spans
+    finally:
+        _ON, _REC = False, None
+
+
+def span_events(spans: list[Span], base_ns: int = 0, pid: int | None = None,
+                tid: int = 0) -> list[dict]:
+    """Chrome ``X`` events of ``spans`` on a trace's clock: ``ts`` in
+    microseconds from ``base_ns`` (a ``torch.profiler`` trace's
+    ``baseTimeNanoseconds``), on one track of their own (``pid``, default
+    this process, and ``tid``), named by an ``M`` event."""
+    pid = os.getpid() if pid is None else pid
+    events = [_meta(pid, tid, "thread_name", "program spans")]
+    for sp in spans:
+        args = {"step": sp.step, **sp.args}
+        if sp.parent is not None:
+            args["parent"] = spans[sp.parent].name
+        events.append({"ph": "X", "pid": pid, "tid": tid, "name": sp.name,
+                       "cat": "program", "ts": (sp.start_ns - base_ns) / 1e3,
+                       "dur": (sp.end_ns - sp.start_ns) / 1e3, "args": args})
+    return events
+
+
+def _merge_spans(path: str, spans: list[Span]) -> None:
+    """Add ``spans`` to the ``torch.profiler`` trace at ``path`` on its
+    clock."""
+    obj = load_trace(path)
+    events = span_events(spans, int(obj.get("baseTimeNanoseconds", 0)))
+    validate_trace({"traceEvents": events})
+    extra = {k: v for k, v in obj.items()
+             if k not in ("traceEvents", "displayTimeUnit", "otherData")}
+    write_chrome_trace(path, obj["traceEvents"] + events,
+                       obj.get("otherData"), extra=extra)
+
+
 @contextlib.contextmanager
 def profiler_session(enabled: bool, logdir: str):
     """Profile the enclosed run when ``enabled`` (a no-op otherwise).
 
     Records every activity this build of torch supports (the CPU, and
-    CUDA where present) and writes a Chrome trace (Perfetto-loadable) to
-    ``<logdir>/trace.json`` when the block ends.
+    CUDA where present) and the program's spans, and writes a Chrome trace
+    (Perfetto-loadable) to ``<logdir>/trace.json`` when the block ends,
+    the spans on a track of their own on the trace's clock.
     """
     if not enabled:
         yield None
@@ -246,5 +382,9 @@ def profiler_session(enabled: bool, logdir: str):
     from torch.profiler import profile, supported_activities
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=list(supported_activities())) as prof:
-        yield logdir
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        with record_spans() as spans:
+            yield logdir
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    if spans:
+        _merge_spans(path, spans)

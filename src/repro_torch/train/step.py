@@ -59,6 +59,7 @@ from repro_torch.dist.sharding import contiguous_stride
 from repro_torch.dist.collectives import make_dp_pmean
 from repro_torch.launch.mesh import dp_group
 from repro_torch.models.model import Model
+from repro_torch.obs.trace import span
 from repro_torch.optim import adam
 from repro_torch.pipeline.config import PIPELINE_FIELDS
 
@@ -182,12 +183,15 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
         params = tree.tree_map(lambda p: p.detach().requires_grad_(True),
                                state["params"])
         with torch.enable_grad(), tp.model_context(on_mesh):
-            if cfg.remat:
-                loss, mets = checkpoint(loss_fn, params, batch,
-                                        use_reentrant=False)
-            else:
-                loss, mets = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, tree.leaves(params))
+            with span("step.forward"):
+                if cfg.remat:
+                    loss, mets = checkpoint(loss_fn, params, batch,
+                                            use_reentrant=False)
+                else:
+                    loss, mets = loss_fn(params, batch)
+            # the checkpointed forward runs again inside the backward
+            with span("step.backward"):
+                grads = torch.autograd.grad(loss, tree.leaves(params))
         grads = [tp.normalize_grad(g, p)
                  for g, p in zip(grads, tree.leaves(params))]
         if inject is not None:
@@ -202,34 +206,42 @@ def make_train_step(model: Model, cfg: TrainStepConfig, psum_mean=None,
         if auto:
             synced, comp = grads, comp_in
         else:
-            synced, comp = sync_exec.sync(grads, comp_in, pmean)
+            with span("step.sync"):
+                synced, comp = sync_exec.sync(grads, comp_in, pmean)
         del grads
-        entropy = (grads_entropy(synced, cfg.gds) if cfg.measure_entropy
-                   else torch.zeros((), device=loss.device))
+        if cfg.measure_entropy:
+            with span("step.entropy"):
+                entropy = grads_entropy(synced, cfg.gds)
+        else:
+            entropy = torch.zeros((), device=loss.device)
         opt_state = adam.AdamState(state["opt_step"], state["opt_m"],
                                    state["opt_v"])
         skipped = None
-        if cfg.guard_nonfinite:
-            # A non-finite loss or synced-gradient norm (NaN injection, a
-            # corrupted compressor payload, divergence) must reach neither
-            # the optimizer nor the compressor's warm-start/EF state: the
-            # whole update is computed, then the old state kept leaf-wise.
-            gnorm = adam.global_norm(synced)
-            ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-            new_params, new_opt, opt_mets = adam.update(
-                state["params"], synced, opt_state, cfg.adam, gnorm=gnorm)
-            keep = lambda new, old: tree.tree_map(
-                lambda a, b: tp.rewrap(a, torch.where(
-                    ok, tp.local(a), tp.local(b), out=tp.local(a))), new, old)
-            new_params = keep(new_params, state["params"])
-            opt_state = adam.AdamState(
-                step=keep(new_opt.step, opt_state.step),
-                m=keep(new_opt.m, opt_state.m), v=keep(new_opt.v, opt_state.v))
-            comp = keep(comp, comp_in)
-            skipped = 1.0 - ok.to(torch.float32)
-        else:
-            new_params, opt_state, opt_mets = adam.update(
-                state["params"], synced, opt_state, cfg.adam, inplace=donate)
+        with span("step.optimizer"):
+            if cfg.guard_nonfinite:
+                # A non-finite loss or synced-gradient norm (NaN injection, a
+                # corrupted compressor payload, divergence) must reach neither
+                # the optimizer nor the compressor's warm-start/EF state: the
+                # whole update is computed, then the old state kept leaf-wise.
+                gnorm = adam.global_norm(synced)
+                ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+                new_params, new_opt, opt_mets = adam.update(
+                    state["params"], synced, opt_state, cfg.adam, gnorm=gnorm)
+                keep = lambda new, old: tree.tree_map(
+                    lambda a, b: tp.rewrap(a, torch.where(
+                        ok, tp.local(a), tp.local(b), out=tp.local(a))),
+                    new, old)
+                new_params = keep(new_params, state["params"])
+                opt_state = adam.AdamState(
+                    step=keep(new_opt.step, opt_state.step),
+                    m=keep(new_opt.m, opt_state.m),
+                    v=keep(new_opt.v, opt_state.v))
+                comp = keep(comp, comp_in)
+                skipped = 1.0 - ok.to(torch.float32)
+            else:
+                new_params, opt_state, opt_mets = adam.update(
+                    state["params"], synced, opt_state, cfg.adam,
+                    inplace=donate)
         ef_norm = torch.sqrt(pmean(
             powersgd.ef_norm_sq(comp, device=loss.device).to(loss.device)))
         new_state = {"params": new_params, "opt_m": opt_state.m,

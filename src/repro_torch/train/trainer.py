@@ -80,6 +80,7 @@ from repro_torch.dist.collectives import (dp_all_gather, dp_barrier, dp_rank,
 from repro_torch.launch.mesh import dp_group, pipe_size
 from repro_torch.models.model import Model, param_count
 from repro_torch.obs.metrics import JsonlSink, MetricsRegistry, fetch
+from repro_torch.obs.trace import span
 from repro_torch.optim import adam
 from repro_torch.pipeline import sync as psync
 from repro_torch.pipeline.config import PIPELINE_FIELDS
@@ -496,130 +497,146 @@ class Trainer:
         pending: list[tuple] = []
         step_idx = start
         while step_idx < end:
-            batch = self._device_batch(next(batches))
-            fired_now = [(i, ev) for i, ev in enumerate(self.faults.events)
-                         if not ev.on_round and ev.at == step_idx
-                         and i not in self._fired_faults]
-            self._fired_faults.update(i for i, _ in fired_now)
-            for _, ev in fired_now:
-                self.metrics.event("fault_injected", step=step_idx,
-                                   kind=ev.kind, at=int(ev.at))
-                if ev.kind == "corrupt_payload":
-                    self._poison_comp_state()
-                elif ev.kind == "torn_ckpt":
-                    self._tear_next_ckpt = True
-            if inject_nan_faults:
-                # one batch structure for every step once any nan_grad is
-                # scheduled: the flag is zero except at the fault's step
-                flag = float(any(ev.kind == "nan_grad" for _, ev in fired_now))
-                bsz = next(iter(batch.values())).shape[0]
-                batch["_inject"] = torch.full((bsz,), flag, device=self.device)
             measure = tcfg.measure_entropy and ctrl.wants_entropy(step_idx)
-            self.state, mets = self._get_step(measure)(self.state, batch)
-            self.bytes_synced += comp_bytes
-            self.bytes_wire_raw += raw_bytes
-            self.bytes_full += full_bytes
+            with span("trainer.step", step=step_idx, gated=bool(measure)):
+                with span("trainer.batch"):
+                    batch = self._device_batch(next(batches))
+                fired_now = [(i, ev) for i, ev in enumerate(self.faults.events)
+                             if not ev.on_round and ev.at == step_idx
+                             and i not in self._fired_faults]
+                self._fired_faults.update(i for i, _ in fired_now)
+                for _, ev in fired_now:
+                    self.metrics.event("fault_injected", step=step_idx,
+                                       kind=ev.kind, at=int(ev.at))
+                    if ev.kind == "corrupt_payload":
+                        self._poison_comp_state()
+                    elif ev.kind == "torn_ckpt":
+                        self._tear_next_ckpt = True
+                if inject_nan_faults:
+                    # one batch structure for every step once any nan_grad is
+                    # scheduled: the flag is zero except at the fault's step
+                    flag = float(any(ev.kind == "nan_grad"
+                                     for _, ev in fired_now))
+                    bsz = next(iter(batch.values())).shape[0]
+                    batch["_inject"] = torch.full((bsz,), flag,
+                                                  device=self.device)
+                self.state, mets = self._get_step(measure)(self.state, batch)
+                self.bytes_synced += comp_bytes
+                self.bytes_wire_raw += raw_bytes
+                self.bytes_full += full_bytes
 
-            step_ok = True
-            if rs is not None:
-                loss, skipped = self._read_step(mets)
-                if skipped:
-                    # The guard refused the update; the compressor's warm
-                    # start and EF may still hold the garbage that caused
-                    # it (a corrupted payload), so reset them.
-                    rs.skipped_steps += 1
-                    rs.anomalies += 1
-                    self.metrics.event("guard_skip", step=step_idx, loss=loss)
-                    self._reset_comp_state()
-                    rs.ef_resets += 1
-                    self.metrics.counter("ef_resets", step=step_idx)
-                    self.metrics.event("ef_reset", step=step_idx)
-                    step_ok = False
-                elif not math.isfinite(loss):
-                    rs.anomalies += 1
-                    step_ok = False
-                    rolled = self._maybe_rollback()
-                    if rolled is not None:
-                        self.metrics.event("rollback", step=step_idx,
-                                           restored_step=int(rolled))
-                        self._maybe_fallback(ctrl)
-                        comp_bytes, raw_bytes, full_bytes = self._price_plan()
-                        stage_b = self.stage_bytes()
-                        step_idx = rolled
-                        continue
-                else:
-                    armed = (self._ema_seen >= rcfg.spike_warmup
-                             and step_idx >= rs.backoff_until)
-                    if (armed and rs.loss_ema is not None and rcfg.rollback
-                            and loss > rcfg.spike_factor
-                            * max(rs.loss_ema, 1e-8)):
+                step_ok = True
+                if rs is not None:
+                    loss, skipped = self._read_step(mets)
+                    if skipped:
+                        # The guard refused the update; the compressor's warm
+                        # start and EF may still hold the garbage that caused
+                        # it (a corrupted payload), so reset them.
+                        rs.skipped_steps += 1
                         rs.anomalies += 1
+                        self.metrics.event("guard_skip", step=step_idx,
+                                           loss=loss)
+                        self._reset_comp_state()
+                        rs.ef_resets += 1
+                        self.metrics.counter("ef_resets", step=step_idx)
+                        self.metrics.event("ef_reset", step=step_idx)
+                        step_ok = False
+                    elif not math.isfinite(loss):
+                        rs.anomalies += 1
+                        step_ok = False
                         rolled = self._maybe_rollback()
                         if rolled is not None:
                             self.metrics.event("rollback", step=step_idx,
-                                               restored_step=int(rolled),
-                                               spike_loss=loss)
+                                               restored_step=int(rolled))
                             self._maybe_fallback(ctrl)
                             comp_bytes, raw_bytes, full_bytes = \
                                 self._price_plan()
                             stage_b = self.stage_bytes()
                             step_idx = rolled
                             continue
-                    rs.loss_ema = (loss if rs.loss_ema is None else
-                                   rcfg.ema_decay * rs.loss_ema
-                                   + (1 - rcfg.ema_decay) * loss)
-                    self._ema_seen += 1
-                if self._maybe_fallback(ctrl):
-                    comp_bytes, raw_bytes, full_bytes = self._price_plan()
-                    stage_b = self.stage_bytes()
-                if step_ok and not self._last_step_ok:
-                    self.metrics.event("recovered", step=step_idx)
-                self._last_step_ok = step_ok
+                    else:
+                        armed = (self._ema_seen >= rcfg.spike_warmup
+                                 and step_idx >= rs.backoff_until)
+                        if (armed and rs.loss_ema is not None and rcfg.rollback
+                                and loss > rcfg.spike_factor
+                                * max(rs.loss_ema, 1e-8)):
+                            rs.anomalies += 1
+                            rolled = self._maybe_rollback()
+                            if rolled is not None:
+                                self.metrics.event("rollback", step=step_idx,
+                                                   restored_step=int(rolled),
+                                                   spike_loss=loss)
+                                self._maybe_fallback(ctrl)
+                                comp_bytes, raw_bytes, full_bytes = \
+                                    self._price_plan()
+                                stage_b = self.stage_bytes()
+                                step_idx = rolled
+                                continue
+                        rs.loss_ema = (loss if rs.loss_ema is None else
+                                       rcfg.ema_decay * rs.loss_ema
+                                       + (1 - rcfg.ema_decay) * loss)
+                        self._ema_seen += 1
+                    if self._maybe_fallback(ctrl):
+                        comp_bytes, raw_bytes, full_bytes = \
+                            self._price_plan()
+                        stage_b = self.stage_bytes()
+                    if step_ok and not self._last_step_ok:
+                        self.metrics.event("recovered", step=step_idx)
+                    self._last_step_ok = step_ok
 
-            # a step the guard refused feeds no entropy to the DAC
-            pending.append((step_idx, measure and step_ok, mets,
-                            self.bytes_synced, self.bytes_wire_raw,
-                            self.bytes_full, stage_b,
-                            ctrl.dac.current_ranks() if not ctrl.in_warmup else [],
-                            rs.as_dict() if rs is not None else None,
-                            time.time() - t0))
-            at_window = (step_idx + 1) % window == 0
-            logged = (step_idx % tcfg.log_every == 0
-                      or step_idx == tcfg.total_steps - 1)
-            at_ckpt = bool(tcfg.ckpt_every
-                           and (step_idx + 1) % tcfg.ckpt_every == 0)
-            if at_window or logged or at_ckpt:
-                # every gated reading of the window reaches the DAC first
-                self._flush_pending(pending)
-            if at_window:
-                changed = ctrl.on_window_end(step_idx)
-                if changed:
-                    self._apply_plan_change()
-                    self.metrics.event("plan_change", step=step_idx,
-                                       ranks=ctrl.dac.current_ranks())
-                # entropy-mode coding re-picks its width on the same cadence
-                if self._refresh_codec():
-                    changed = True
-                    self.metrics.event("wire_codec", step=step_idx,
-                                       bits=int(self._codec.bits),
-                                       entropy=self._last_entropy)
-                if changed:
-                    comp_bytes, raw_bytes, full_bytes = self._price_plan()
-                    stage_b = self.stage_bytes()
-            if at_ckpt:
-                path = f"{tcfg.ckpt_path}_{step_idx + 1}"
-                self.save_checkpoint(path, step=step_idx + 1)
-                self.metrics.event("checkpoint", step=step_idx, path=path)
-                if self._tear_next_ckpt:
-                    # torn_ckpt fault: a crash mid-write, simulated after
-                    # the (atomic) save by truncating the archive in place
-                    if self._writer:
-                        truncate_file(path + ".npz")
-                    dp_barrier()
-                    self._tear_next_ckpt = False
-                self._ring_push(path, step_idx + 1)
-            step_idx += 1
-        self._flush_pending(pending)
+                # a step the guard refused feeds no entropy to the DAC
+                pending.append((step_idx, measure and step_ok, mets,
+                                self.bytes_synced, self.bytes_wire_raw,
+                                self.bytes_full, stage_b,
+                                (ctrl.dac.current_ranks()
+                                 if not ctrl.in_warmup else []),
+                                rs.as_dict() if rs is not None else None,
+                                time.time() - t0))
+                at_window = (step_idx + 1) % window == 0
+                logged = (step_idx % tcfg.log_every == 0
+                          or step_idx == tcfg.total_steps - 1)
+                at_ckpt = bool(tcfg.ckpt_every
+                               and (step_idx + 1) % tcfg.ckpt_every == 0)
+                if at_window or logged or at_ckpt:
+                    # every gated reading of the window reaches the DAC first
+                    with span("trainer.flush"):
+                        self._flush_pending(pending)
+                if at_window:
+                    with span("trainer.replan"):
+                        changed = ctrl.on_window_end(step_idx)
+                        if changed:
+                            self._apply_plan_change()
+                            self.metrics.event("plan_change", step=step_idx,
+                                               ranks=ctrl.dac.current_ranks())
+                        # entropy-mode coding re-picks its width on the
+                        # same cadence
+                        if self._refresh_codec():
+                            changed = True
+                            self.metrics.event("wire_codec", step=step_idx,
+                                               bits=int(self._codec.bits),
+                                               entropy=self._last_entropy)
+                        if changed:
+                            comp_bytes, raw_bytes, full_bytes = \
+                                self._price_plan()
+                            stage_b = self.stage_bytes()
+                if at_ckpt:
+                    with span("trainer.checkpoint"):
+                        path = f"{tcfg.ckpt_path}_{step_idx + 1}"
+                        self.save_checkpoint(path, step=step_idx + 1)
+                        self.metrics.event("checkpoint", step=step_idx,
+                                           path=path)
+                        if self._tear_next_ckpt:
+                            # torn_ckpt fault: a crash mid-write, simulated
+                            # after the (atomic) save by truncating the
+                            # archive in place
+                            if self._writer:
+                                truncate_file(path + ".npz")
+                            dp_barrier()
+                            self._tear_next_ckpt = False
+                        self._ring_push(path, step_idx + 1)
+                step_idx += 1
+        with span("trainer.flush"):
+            self._flush_pending(pending)
         self._global_step = end
         return self.history
 
