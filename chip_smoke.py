@@ -30,7 +30,10 @@ Phases, in order; any failure raises, so the exit code is not 0:
                payload, a ragged n, under 512 words)
   (c) main     ``Trainer.run`` for 4 steps on gpt2-2.5b at its published
                widths (depth cut to 8 layers, 2 per stage), policy fixed,
-               rank 64, kernels on, bucketed, batch 8 x seq 1024, bf16
+               rank 64, kernels on, bucketed, batch 8 x seq 1024, bf16;
+               every self-attention call on the flash route, a step
+               launching 2 L flash forwards (remat) and L each of dQ and
+               dK/dV
   (d) control  policy edgc, 12 steps, window 4, depth 4: the DAC window
                re-plan and the stacked-state resize, kernels on
   (f) wire     (c) again with ``wire="quant8"``: every sync payload coded
@@ -45,14 +48,17 @@ Phases, in order; any failure raises, so the exit code is not 0:
                (``flash_attention``, then ``flash_attention_train`` forward
                and backward under autograd) at the attention widths of
                gpt2-2.5b (20 heads of 96) and qwen2-0.5b (14 query heads,
-               2 kv heads, of 64), bf16, causal, batch 8 x seq 1024; o, lse,
+               2 kv heads, of 64), bf16, causal, batch 8 x seq 1024, and
+               of qwen2.5-3b (16 query heads, 2 kv heads, of 128) at the
+               qwen2.5-3b.flat.s4096.none cell's batch 2 x 4096; o, lse,
                dq, dk and dv against the plain versions; the same in fp32
                non-causal with Tq != Tk and at a ragged T = 1000 (bf16 runs
                the tensor-core kernels, fp32 the FMA ones: each counted by
                kernel); in bf16 at one key (Tk = 1) and one causal row (Tq
                = 1), where dq and dk vanish and are held against zero;
                then each kernel, its plain version and
-               ``scaled_dot_product_attention`` timed at both widths, the
+               ``scaled_dot_product_attention`` timed at gpt2-2.5b's and
+               qwen2-0.5b's widths, the
                bf16 kernels' TFLOP/s and share of their bounds (forward,
                dQ, dK/dV and the backward pair, beside SDPA's backward),
                and SDPA's forward under each backend that takes the inputs
@@ -191,7 +197,9 @@ Phases, in order; any failure raises, so the exit code is not 0:
                step twice from the same state and records whether the new
                states are bit-equal
   (o) serve    serving through ``serve.Engine`` (no port kernel runs: each
-               wrapper's count is the same after the phase as before it;
+               wrapper's count is the same after the phase as before it,
+               but the flash forwards of the teacher-forced checks' flash
+               route, one an ``attn_apply`` call;
                one host thread draws each configuration's weights on the
                CPU while the card decodes the ones before):
                (o1) gpt2-2.5b with all 52 layers, bf16, ``generate``
@@ -265,11 +273,13 @@ Phases, in order; any failure raises, so the exit code is not 0:
                and ``--arch gpt2 --variant reduced --pipe 2 --model-mesh
                1`` in one process each, beside (o5)'s launchers
   (r) dry run  ``launch/dryrun.py`` (no kernel: each wrapper's count is
-               the same after the phase as before it): (r1) (c)'s
+               the same after the dry run as before it): (r1) (c)'s
                configuration (gpt2-2.5b, depth 8, batch 8 x 1024, fixed
                r64, bucketed, bf16, world 1, kernels off) through the dry
                run's train lowering on fake CUDA tensors, and one real
-               step of it on the card under ``FlopCounterMode``: the FLOPs
+               step of it on the card under ``FlopCounterMode``, both on
+               the flash attention route (the flash op's fake outputs and
+               FLOP formula on the dry run's side): the FLOPs
                within 0.1%, the dry run's argument + temp bytes within
                ``R_MEMORY_TOL`` of the step's allocator peak, and the
                counted FLOPs over (c)'s median step as a share of 989
@@ -320,11 +330,13 @@ and spills of their ``ef_factor_kernel`` instances; Gram-Schmidt its
 cluster size and ms per column per group and its instances' ptxas
 numbers), their
 launches counted on the run that drives them: (c) for the PowerSGD
-kernels, (f) quant8 for the pack kernels. The flash entries give one call
-at gpt2-2.5b widths (one layer's attention) and ``hist_counts`` one pooled
-sample; their launches are counted in (g) and (h), the drives of their
-entry points (the training step does not call them: the model keeps its
-plain-torch ``blockwise_attention``, as the reference's does). The
+kernels and the flash kernels (its 4 steps), (f) quant8 for the pack
+kernels. The flash entries give one call at gpt2-2.5b widths (one layer's
+attention), add ``launches_api``, their launches in (g), the drive of
+their entry point, and ``launches_by_phase``, their launches in each
+other phase, counted around it (``_flash_counted``; each phase's routes
+are in the report's ``flash_by_phase`` and its log line);
+``hist_counts`` gives one pooled sample, its launches counted in (h). The
 PowerSGD and pack entries add ``launches_pipelined``, their launches on
 the pipelined paths of (j1) and (j4) quant8; the PowerSGD entries add
 ``launches_overlapped``, their launches on (k1)'s first run,
@@ -909,6 +921,33 @@ def _timed_steps(trainer, batches, steps: int) -> list[float]:
     return out
 
 
+def _flash_tally() -> dict:
+    """The flash kernels' launches by kernel (bf16 ``*_sm90``, fp32
+    ``*_fma``) and ``attn_apply``'s calls by route (``attn_*``), as counted
+    so far. Only (g) zeroes these counters."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models.layers import attn_apply
+    return {**fa.flash_fwd.launches_by_kernel, **fb.flash_dq.launches_by_kernel,
+            **fb.flash_dkv.launches_by_kernel,
+            **{f"attn_{r}": n for r, n in attn_apply.calls_by_route.items()}}
+
+
+def _tally_since(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _flash_tally().items()}
+
+
+def _flash_counted(report: dict, phase: str, fn, *args):
+    """``fn(*args)``, with the flash launches and attention routes it made
+    kept as ``report["flash_by_phase"][phase]`` and logged."""
+    before = _flash_tally()
+    out = fn(*args)
+    got = report.setdefault("flash_by_phase", {})[phase] = _tally_since(before)
+    log(f"({phase}) flash route: " + (", ".join(
+        f"{k} {n}" for k, n in got.items() if n) or "no attention call"))
+    return out
+
+
 def phase_check(report: dict, dev) -> None:
     """Small fp32 model: the kernel path on the card against the CPU, with
     the raw wire and with quant8 (the pack kernels against their plain
@@ -951,22 +990,36 @@ def phase_main(report: dict, dev, profile: bool) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for k in lr.KERNELS:
         k.launches = 0
+    flash0 = _flash_tally()
     step_ms = _timed_steps(tr, batches, 4)
     launches = {k.__name__: k.launches for k in lr.KERNELS}
+    flash = _tally_since(flash0)
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [h["loss"] for h in tr.history]
     report["main"] = {"loss": losses, "step_ms": step_ms, "peak_bytes": peak,
                       "bytes_synced": [h["bytes_synced"] for h in tr.history],
-                      "launches": launches, "groups": groups,
+                      "launches": launches, "flash": flash, "groups": groups,
                       "n_params": tr.n_params, "payloads": _payloads(tr)}
     for h, ms in zip(tr.history, step_ms):
         log(f"    step {h['step']} loss {h['loss']:.4f} {ms:.1f} ms "
             f"bytes synced {h['bytes_synced']}")
     log(f"    peak memory {peak / 2**30:.2f} GiB; launches {launches}")
+    # every self-attention call takes the flash route: a block's forward
+    # runs again in the backward under remat
+    L, steps = cfg.num_layers, len(step_ms)
+    fwd = (2 if cfg.remat else 1) * L * steps
+    want = {"flash_fwd_sm90": fwd, "flash_fwd_fma": 0,
+            "flash_dq_sm90": L * steps, "flash_dq_fma": 0,
+            "flash_dkv_sm90": L * steps, "flash_dkv_fma": 0,
+            "attn_flash": fwd, "attn_blockwise": 0}
+    log(f"    flash route over the {steps} steps: {flash} (a step: "
+        f"{fwd // steps} forward, {L} dQ, {L} dK/dV)")
     if not all(math.isfinite(x) for x in losses) or len(losses) != 4:
         raise AssertionError(f"main-path losses {losses}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    if flash != want:
+        raise AssertionError(f"main-path attention {flash}, want {want}")
     report["main"]["two_call"] = _two_call_check(tr, next(batches))
     # (s1) audits one more step of this trainer, while its state is here
     report["audit"] = {"s1": phase_audit_step(tr, batches, dev)}
@@ -1465,17 +1518,26 @@ def _attn_shapes() -> list[tuple]:
             for c in (GPT2_2_5B, QWEN2_0_5B)]
 
 
+def _attn_cell_shape() -> tuple:
+    """(name, shape) of qwen2.5-3b's attention at the
+    qwen2.5-3b.flat.s4096.none cell's batch 2 x seq 4096: checked in (g),
+    not timed (the cell's traced runs time its kernels on the step)."""
+    from repro_torch.configs import get_config
+    c = get_config("qwen2.5-3b", "full")
+    return c.name, (2, 4096, 4096, c.num_heads, c.num_kv_heads, c.hd)
+
+
 def phase_attention(report: dict, dev) -> dict:
     """The flash kernels through the kernel API at the attention widths of
-    gpt2-2.5b and qwen2-0.5b (bf16, causal), and two fp32 cases; then
-    each kernel timed at both widths. Returns the launches of the drives
-    (each case's counted from 0 around its drive, without the calls made
-    to compare or time)."""
+    gpt2-2.5b and qwen2-0.5b and at qwen2.5-3b's cell shape (bf16, causal),
+    and two fp32 cases; then each kernel timed at the first two. Returns
+    the launches of the drives (each case's counted from 0 around its
+    drive, without the calls made to compare or time)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     kernels = fa.KERNELS + fb.KERNELS
     full = _attn_shapes()
-    shapes = [(*c, True, torch.bfloat16) for c in full]
+    shapes = [(*c, True, torch.bfloat16) for c in full + [_attn_cell_shape()]]
     shapes += [(f"fp32-{i}", c[:6], c[6], torch.float32)
                for i, c in enumerate(ATTN_FP32)]
     checks = [check_attention(name, shape, causal, dtype, dev)
@@ -2473,6 +2535,9 @@ def _family_full(label: str, cfg, batch: int, seq: int, steps: int, dev,
     compressed = sum(g.stack_size * g.m * g.n for g in tr._layout.groups)
     state = _state_gb(tr)
     state_bytes = torch.cuda.memory_allocated(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    # the context, libraries and loaded kernels: what the allocator can't free
+    outside = total - free - torch.cuda.memory_reserved(dev)
     log(f"({label}) {cfg.name} (d_model {cfg.d_model}, {cfg.num_layers} "
         f"layers, {cfg.num_stages} stages' layout, {cfg.dtype}, remat="
         f"{cfg.remat}), batch {batch} x {seq}: {tr.n_params} params, "
@@ -2480,7 +2545,9 @@ def _family_full(label: str, cfg, batch: int, seq: int, steps: int, dev,
         f"{init_s:.1f} s; shape groups (E,m,n,r) {groups}{note}")
     log(f"    state {sum(state.values()):.2f} GB: params {state['params']:.2f}, "
         f"moments {state['moments']:.2f}, EF {state['ef']:.2f}, Q "
-        f"{state['q']:.3f} (allocated {state_bytes / 2**30:.2f} GiB)")
+        f"{state['q']:.3f} (allocated {state_bytes / 2**30:.2f} GiB; "
+        f"{outside / 2**30:.2f} GiB of the card's {total / 2**30:.2f} held "
+        "outside the allocator)")
     if want_groups and (sorted(groups) != sorted(want_groups[0])
                         or matrices != want_groups[1]):
         raise AssertionError(f"({label}) groups {groups} ({matrices} "
@@ -3895,9 +3962,11 @@ def _serve_cli(also: list) -> tuple[list, list]:
 
 
 def phase_serve(report: dict, dev, also: list = ()) -> tuple[dict, list]:
-    """(o): serving on the card. No port kernel runs there (the reference's
-    serving calls no Pallas kernel): every wrapper's count is the same
-    after the phase as before it. One host thread draws every
+    """(o): serving on the card. No port kernel runs in serving (the
+    reference's serving calls no Pallas kernel): every wrapper's count is
+    the same after the phase as before it, but for the flash forward that
+    each flash-route ``attn_apply`` call of the phase's teacher-forced
+    forwards (bf16, no gradient) launches, one a call. One host thread draws every
     configuration's weights on the CPU, in order, while the card decodes
     the ones before (``_draw``). ``also``: launchers run beside (o5)'s;
     their results come back with the launches."""
@@ -3907,6 +3976,7 @@ def phase_serve(report: dict, dev, also: list = ()) -> tuple[dict, list]:
     _release()
     wrappers = _kernel_wrappers()
     before = {w.__name__: w.launches for w in wrappers}
+    flash0 = _flash_tally()
     t0 = time.perf_counter()
     out = {"seconds_by_part": {}}
     clock = t0
@@ -3939,12 +4009,16 @@ def phase_serve(report: dict, dev, also: list = ()) -> tuple[dict, list]:
     took("o5")
     launched = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
     out["kernel_launches"] = launched
-    if any(launched.values()):
-        raise AssertionError(f"(o) serving launched port kernels: {launched}")
+    forwards = _tally_since(flash0)["attn_flash"]
+    if any(launched.values()) and launched != {**dict.fromkeys(launched, 0),
+                                               "flash_fwd": forwards}:
+        raise AssertionError(f"(o) serving launched port kernels: {launched} "
+                             f"beside {forwards} flash-route forwards")
     out["seconds"] = time.perf_counter() - t0
     log(f"(o) serve: {out['seconds']:.1f} s (by part "
         f"{ {k: round(v, 1) for k, v in out['seconds_by_part'].items()} }); "
-        f"no port kernel launched")
+        f"no port kernel launched in serving ({forwards} flash forwards of "
+        "the teacher-forced checks)")
     report["serve"] = out
     return launched, extra
 
@@ -4607,7 +4681,11 @@ def _dryrun_real_step(cfg, dev) -> dict:
     """(r1)'s real step: ``dryrun.train_inputs``'s step and state made on
     the card (a (data 1, model 1) NCCL mesh, world size 1, kernels off),
     one step on a SyntheticLM batch under ``FlopCounterMode``; its peak is
-    the allocator's peak over what was allocated before the state."""
+    the allocator's peak over what was allocated before the state. The
+    step's self-attention takes the flash route, as the dry run's fake
+    CUDA tensors do; ``FlopCounterMode`` counts the flash op by the
+    formula the dry run's counter reads. ``flash`` is what the step
+    launched and routed (``_flash_tally``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.utils.flop_counter import FlopCounterMode
@@ -4630,13 +4708,15 @@ def _dryrun_real_step(cfg, dev) -> dict:
         batch = {k: torch.as_tensor(real[k]).long().to(dev) for k in batch}
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
+        flash0 = _flash_tally()
         with FlopCounterMode(display=False) as fc:
             state, mets = step(state, batch)
         loss = float(mets["loss"])
         torch.cuda.synchronize(dev)
         out = {"flops": float(fc.get_total_flops()),
                "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
-               "loss": loss, "ms": 1e3 * (time.perf_counter() - t0)}
+               "loss": loss, "ms": 1e3 * (time.perf_counter() - t0),
+               "flash": _tally_since(flash0)}
         del step, state, batch, mets
     finally:
         dist.destroy_process_group()
@@ -4650,7 +4730,8 @@ def phase_dryrun(report: dict, dev, cli: list) -> None:
     of it: FLOPs within ``R_FLOP_TOL``, memory within ``R_MEMORY_TOL``,
     and an MFU reading over (c)'s step time. (r2) the CLI's runs
     (``_dryrun_cli_cmds``), made beside (o5)'s launchers (``cli``): each
-    exits 0 with an OK line. No port kernel runs."""
+    exits 0 with an OK line. The dry run launches no port kernel; the real
+    step launches the flash kernels only."""
     from repro_torch.configs.gpt2 import GPT2_2_5B
     from repro_torch.launch import dryrun
     _release()
@@ -4662,6 +4743,9 @@ def phase_dryrun(report: dict, dev, cli: list) -> None:
                            mesh_shape={"data": 1, "model": 1}, cfg=cfg,
                            spec=R_SPEC, policy="fixed", rank=64)
     dry_s = time.perf_counter() - t0
+    launched = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+    if any(launched.values()):
+        raise AssertionError(f"(r1) the dry run launched port kernels: {launched}")
     real = _dryrun_real_step(cfg, dev)
     flops, mem = rec["flops_per_chip"], rec["memory"]
     dry_bytes = mem["argument_bytes"] + mem["temp_bytes"]
@@ -4676,7 +4760,9 @@ def phase_dryrun(report: dict, dev, cli: list) -> None:
         f"{cfg.num_layers}, 8 x 1024, fixed r64, bucketed, kernels off) on "
         f"fake CUDA tensors in {dry_s:.1f} s: {flops:.6e} FLOP; the real "
         f"step under FlopCounterMode {real['flops']:.6e} (gap {flop_gap:.2e}, "
-        f"tol {R_FLOP_TOL:g}), loss {real['loss']:.4f}, {real['ms']:.1f} ms")
+        f"tol {R_FLOP_TOL:g}), loss {real['loss']:.4f}, {real['ms']:.1f} ms; "
+        "self-attention on the flash route on both sides, the step's: "
+        + ", ".join(f"{k} {n}" for k, n in real["flash"].items() if n))
     log(f"(r1) memory: argument {mem['argument_bytes'] / 2**30:.3f} + temp "
         f"{mem['temp_bytes'] / 2**30:.3f} = {dry_bytes / 2**30:.3f} GiB "
         f"against the real step's peak {real['peak_bytes'] / 2**30:.3f} GiB: "
@@ -4691,6 +4777,8 @@ def phase_dryrun(report: dict, dev, cli: list) -> None:
     if not abs(mem_gap) <= R_MEMORY_TOL or not math.isfinite(real["loss"]):
         raise AssertionError(f"(r1) dry-run memory {dry_bytes} against the "
                              f"peak {real['peak_bytes']}, loss {real['loss']}")
+    if real["flash"]["attn_blockwise"] or not real["flash"]["attn_flash"]:
+        raise AssertionError(f"(r1) the real step's routes {real['flash']}")
     out["r2"] = []
     for cmd, (seconds, lines) in zip(_dryrun_cli_cmds(), cli):
         ok = [l for l in lines if l.startswith("OK ")]
@@ -4703,12 +4791,9 @@ def phase_dryrun(report: dict, dev, cli: list) -> None:
                 "FLOP/chip", "B/chip", "MiB/chip", "GiB/chip")) or not any(
                 l.startswith("done: 1 ok, 0 skipped, 0 failed") for l in lines):
             raise AssertionError(f"(r2) {cmd} printed {lines[-20:]}")
-    launched = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
-    if any(launched.values()):
-        raise AssertionError(f"(r) the dry run launched port kernels: {launched}")
     out["seconds"] = time.perf_counter() - t0
     log(f"(r) dry run: {out['seconds']:.1f} s ((r2) ran beside (o5)); no "
-        "port kernel launched")
+        "port kernel launched by the dry run")
     report["dryrun"] = out
 
 
@@ -5090,7 +5175,12 @@ def kernels_line(report: dict, launches: dict, pack_launches: dict,
         entry = {"name": name, "route": "cuda", "source": BF16_SOURCE[name],
                  "fp32_source": FLASH_SOURCE,
                  "replaces": NEW_REPLACES[name],
-                 "launches": attn["launches"][name],
+                 "launches": sum(report["main"]["flash"][name + k]
+                                 for k in ("_sm90", "_fma")),
+                 "launches_api": attn["launches"][name],
+                 "launches_by_phase": {
+                     phase: sum(c[name + k] for k in ("_sm90", "_fma"))
+                     for phase, c in report["flash_by_phase"].items()},
                  "launches_serve": serve_launches[name],
                  "launches_tp": tp_launches[name],
                  "max_abs_err": max(c["max_abs_err"][key]
@@ -5144,39 +5234,51 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build(report)
     phase_kernels(report, dev)
-    launches, grad_sample = phase_main(report, dev, args.profile)
-    phase_control(report, dev)
-    pack_launches = phase_wire(report, dev, args.profile)
-    phase_check(report, dev)
+    # each phase but (g) (whose own drive counts them) keeps the flash
+    # launches and attention routes it made (``_flash_counted``)
+    launches, grad_sample = _flash_counted(report, "c", phase_main, report,
+                                           dev, args.profile)
+    _flash_counted(report, "d", phase_control, report, dev)
+    pack_launches = _flash_counted(report, "f", phase_wire, report, dev,
+                                   args.profile)
+    _flash_counted(report, "e", phase_check, report, dev)
     phase_attention(report, dev)
-    phase_histogram(report, dev, grad_sample)
+    _flash_counted(report, "h", phase_histogram, report, dev, grad_sample)
     del grad_sample
-    phase_faults(report, dev)
+    _flash_counted(report, "i", phase_faults, report, dev)
     j1_state: dict = {}
-    pipe_launches = phase_pipeline(report, dev, j1_state)
+    pipe_launches = _flash_counted(report, "j", phase_pipeline, report, dev,
+                                   j1_state)
     # (k) frees its copy of (j1)'s final state; (q2) holds to it too
     j1_leaves = j1_state.pop("state")
-    overlap_launches = phase_overlap(report, dev, list(j1_leaves))
-    moe_launches = phase_families(report, dev, args.profile)
+    overlap_launches = _flash_counted(report, "k", phase_overlap, report, dev,
+                                      list(j1_leaves))
+    moe_launches = _flash_counted(report, "l", phase_families, report, dev,
+                                  args.profile)
     # (t3)'s examples run beside (m) and the phases after it, in processes
     # of their own; (t) reads them
     t_cli = _start_all(_t_examples_cmds())
     try:
-        families2_launches = phase_families2(report, dev, args.profile)
-        elastic_launches = phase_elastic(report, dev)
+        families2_launches = _flash_counted(report, "m", phase_families2,
+                                            report, dev, args.profile)
+        elastic_launches = _flash_counted(report, "n", phase_elastic, report,
+                                          dev)
         # (p4)'s, (q3)'s, (r2)'s and (s2)'s launchers run beside (o5)'s
         q_cmds = _q_cli_cmds()
-        serve_launches, (tp_cli, *later_cli) = phase_serve(
-            report, dev, also=[_tp_cli_cmd()] + q_cmds + _dryrun_cli_cmds()
-            + [_audit_cli_cmd()])
+        serve_launches, (tp_cli, *later_cli) = _flash_counted(
+            report, "o", phase_serve, report, dev,
+            [_tp_cli_cmd()] + q_cmds + _dryrun_cli_cmds() + [_audit_cli_cmd()])
         q_cli, r_cli = later_cli[:len(q_cmds)], later_cli[len(q_cmds):-1]
         audit_cli = later_cli[-1]
-        tp_launches = phase_tp(report, dev, tp_cli)
-        tpf_launches = phase_tp_families(report, dev, j1_leaves, q_cli)
+        tp_launches = _flash_counted(report, "p", phase_tp, report, dev,
+                                     tp_cli)
+        tpf_launches = _flash_counted(report, "q", phase_tp_families, report,
+                                      dev, j1_leaves, q_cli)
         del j1_leaves
-        phase_dryrun(report, dev, r_cli)
+        _flash_counted(report, "r", phase_dryrun, report, dev, r_cli)
         phase_audit_cli(report, audit_cli)
-        pod_launches = phase_pod(report, dev, _finish_all(t_cli))
+        pod_launches = _flash_counted(report, "t", phase_pod, report, dev,
+                                      _finish_all(t_cli))
     finally:
         _kill_all(t_cli)
     report["seconds"] = time.perf_counter() - t0

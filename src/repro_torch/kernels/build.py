@@ -6,9 +6,10 @@ the root of the checkout, then loaded with ``ctypes``. Library names carry
 a hash of the source, of the ``csrc/*.cuh`` headers it includes and of the
 flags, so an edited source or header is rebuilt and a stale library is
 never loaded; the compiler's log (``-Xptxas -v``) is kept beside each
-library (``build_log``). All sources compile in parallel, one
-``nvcc`` process each. A missing ``nvcc`` or a failed compile raises: there
-is no fallback that would hide the kernels.
+library (``build_log``). ``load`` builds only the source it is asked for
+(and those it is told come next); ``build`` compiles the sources it is
+given in parallel, one ``nvcc`` process each. A missing ``nvcc`` or a failed compile raises: there is no
+fallback that would hide the kernels.
 
     python -m repro_torch.kernels.build     # compile everything, print logs
 """
@@ -23,7 +24,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_log", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "build_all", "build_log", "load"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -67,15 +68,16 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, str]:
-    """Compile every source whose library is missing; all nvcc run at once.
+def build(*names: str) -> dict[str, str]:
+    """Compile each named source whose library is missing; their nvcc run
+    at once.
 
     Returns ``{source name: compiler log}`` for the sources built now
     (``-Xptxas -v`` puts each kernel's registers and shared memory there).
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name in SOURCES:
+    for name in names:
         out = _target(name)
         if out.exists():
             continue
@@ -98,18 +100,25 @@ def build_all() -> dict[str, str]:
     return logs
 
 
+def build_all() -> dict[str, str]:
+    """``build`` of every source."""
+    return build(*SOURCES)
+
+
 def build_log(name: str) -> str:
     """The compiler log of the current library of ``csrc/<name>.cu``
     (``ptxas -v``: each kernel's registers, spills and shared memory),
     building it first if need be."""
-    build_all()
+    build(name)
     return _target(name).with_suffix(".log").read_text()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load(name: str, together: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use: that
+    source alone, and the sources named in ``together`` beside it (those a
+    caller will load next, so that their nvcc run at the same time)."""
     if name not in _loaded:
-        build_all()
+        build(name, *together)
         _loaded[name] = ctypes.CDLL(str(_target(name)))
     return _loaded[name]
 

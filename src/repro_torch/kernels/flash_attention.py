@@ -74,7 +74,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _sm90_lib() -> ctypes.CDLL:
-    lib = build.load("flash_fwd_sm90")
+    # a forward's first call compiles the backward's kernels beside its own
+    lib = build.load("flash_fwd_sm90", together=("flash_bwd_sm90",))
     if not getattr(lib, "_typed", False):
         # q, k, v, o, lse; B, Tq, Tk, H, Hkv, D, causal; 9 strides; the plan
         # (Sm90Plan.c_args); the stream

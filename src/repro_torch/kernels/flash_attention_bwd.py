@@ -31,10 +31,15 @@ Each input dtype has exactly one kernel per gradient, chosen by dtype:
 Neither path uses atomics, so two calls on the same inputs agree bit for
 bit.
 
-``flash_attention_train`` is the ``torch.autograd.Function`` the
-reference's ``custom_vjp`` was: its forward saves (q, k, v, o, lse) with o
-in q's dtype, and its backward computes D = rowsum(dO * o) in fp32 torch
-from that saved o, as the reference does outside its kernels (``:197``).
+``flash_attention_train`` is what the reference's ``custom_vjp`` was: the
+op ``repro_torch::flash_attention`` (``torch.library``), whose forward
+saves (q, k, v, o, lse) with o in q's dtype, and whose backward, the op
+``repro_torch::flash_attention_backward``, computes D = rowsum(dO * o) in
+fp32 torch from that saved o, as the reference does outside its kernels
+(``:197``). Both ops give fake tensors their outputs' shapes without a
+kernel, and ``torch.utils.flop_counter`` their products (torch's attention
+convention: every (query, key) pair, two products forward, four backward),
+so the dry run and ``FlopCounterMode`` count the route the card runs.
 Neither kernel synchronises: both run on the current stream.
 
 A wrapper given CPU tensors runs its plain version (``ref.py``); given
@@ -49,6 +54,7 @@ import dataclasses
 from typing import ClassVar
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build, ref
 from .flash_attention import (SMEM_LIMIT, _DTYPE_CODE, _Chunked, _lib,
@@ -261,25 +267,73 @@ def _bwd(q, k, v, o, lse, do, *, causal: bool = True):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = _fwd_with_stats(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        return o
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _fwd_with_stats(q, k, v, causal=causal)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, o, lse, do, causal=ctx.causal)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+@_flash_op.register_fake
+def _(q, k, v, causal):
+    B, Tq, H, _ = q.shape
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((B, H, Tq), dtype=F32, device=q.device))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    dq, dk, dv = _bwd(q, k, v, o, lse, do, causal=causal)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal):
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (q, k, v))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal = causal
+    ctx.set_materialize_grads(False)     # lse's gradient is never used
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    return (*torch.ops.repro_torch.flash_attention_backward(
+        q, k, v, o, lse, do, ctx.causal), None)
+
+
+_flash_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _attn_flops(q_shape, k_shape, products: int) -> int:
+    """``products`` (query, key) products of Dh each over every pair of
+    every query head, unmasked, as torch's attention formulas count."""
+    B, Tq, H, Dh = q_shape
+    return 2 * products * B * H * Tq * k_shape[1] * Dh
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _fwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    return _attn_flops(q_shape, k_shape, 2)           # Q K^T, P V
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _bwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    return _attn_flops(q_shape, k_shape, 4)           # dO V^T, P^T dO, dS K, dS^T Q
 
 
 def flash_attention_train(q, k, v, causal: bool = True):
     """Differentiable GQA attention, (B, Tq, H, Dh) in q's dtype, whose
     forward and backward run the flash kernels on CUDA tensors."""
-    return _FlashAttention.apply(q, k, v, causal)
+    return _flash_op(q, k, v, causal)[0]
 
 
 #: The kernels of this module: launch counters live on these wrappers.

@@ -15,9 +15,21 @@ vocab-sharded logits before it reduces them.
 
 One difference in bf16: the reference keeps the fp32 accumulator of a
 bf16 product (``preferred_element_type``); here the projection products
-run in the working dtype and are rounded to it before the fp32 cast. The
-attention scores and the softmax-weighted values are computed in fp32
-outright. In fp32 (what the parity tests run) the two agree.
+run in the working dtype and are rounded to it before the fp32 cast. In
+fp32 (what the parity tests run) the two agree.
+
+Self-attention (``attn_apply``) takes one of two routes, chosen by its
+input (``attn_route``). CUDA tensors in bf16 at a head width the port's
+flash kernels are built for, with no sliding window, run the Hopper flash
+kernels (``kernels.flash_attention_bwd.flash_attention_train``): bf16
+products with fp32 sums, P rounded to bf16 before P V as the reference
+rounds it, and in the backward dS rounded to bf16 before the dQ and dK
+products; the forward saves q, k, v, o and the log-sum-exp rows, never a
+score tensor; fake CUDA tensors (the dry run's) take this route too.
+Everything else (fp32, the CPU, other head widths, a sliding window)
+runs ``blockwise_attention``, whose scores and softmax-weighted values
+are computed in fp32 outright, one query block at a time; so do
+cross-attention and the decode step.
 """
 from __future__ import annotations
 
@@ -32,6 +44,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.dist import tp
 from repro_torch.dist.sharding import contiguous_stride
+from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.kernels.flash_attention_bwd import flash_attention_train
 
 F32 = torch.float32
 
@@ -277,11 +291,25 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(outs, dim=1)
 
 
+def attn_route(q, k, v, window: int = 0) -> str:
+    """``"flash"`` where the flash kernels compute this attention: q, k and
+    v CUDA tensors in bf16, a head width in ``flash_attention.HEAD_DIMS``,
+    and no sliding window; else ``"blockwise"``. Fake CUDA tensors (the
+    dry run's) take the same route: the flash op gives them its outputs'
+    shapes and FLOP count without a kernel."""
+    if (window == 0 and q.is_cuda and q.dtype == torch.bfloat16
+            and k.dtype == v.dtype == q.dtype and q.shape[-1] in HEAD_DIMS):
+        return "flash"
+    return "blockwise"
+
+
 def attn_apply(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
                causal: bool = True, positions=None, rope_theta: float = 1e4,
                use_rope: bool = True, window: int = 0, norm_eps: float = 1e-5,
                block_q: int = 512):
-    """Full-sequence (training) GQA attention."""
+    """Full-sequence (training) GQA attention, on the route
+    :func:`attn_route` picks for the (local) q, k and v; each call is
+    counted in ``attn_apply.calls_by_route``."""
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device).expand(B, T)
@@ -291,12 +319,22 @@ def attn_apply(p, x, *, num_heads: int, num_kv_heads: int, head_dim: int,
     if isinstance(q, DTensor):
         # attention is per batch row and head: it runs on the local shards
         q, k, v, wrap = tp.local_heads(q, k, v, num_kv_heads)
-    o = blockwise_attention(q, k, v, causal=causal, window=window,
-                            block_q=block_q)
+    route = attn_route(q, k, v, window)
+    attn_apply.calls_by_route[route] += 1
+    if route == "flash":
+        o = flash_attention_train(q, k, v, causal)
+    else:
+        o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                block_q=block_q)
     o = o.reshape(o.shape[0], T, -1)
     if wrap is not None:
         o = wrap(o, (B, T, num_heads * head_dim))
     return _mm("bte,ed->btd", o, p["wo"]).to(x.dtype)
+
+
+#: ``attn_apply`` calls by route (under remat a block's call runs again in
+#: the backward, and counts again).
+attn_apply.calls_by_route = {"flash": 0, "blockwise": 0}
 
 
 def _bmm_f32(a, b):

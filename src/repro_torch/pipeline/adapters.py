@@ -74,15 +74,17 @@ def boundary_leaves(b) -> list:
     return [b]
 
 
-def boundary_unflatten(like, xs: list):
-    """The boundary shaped like ``like`` whose leaves are ``xs``."""
-    it = iter(xs)
+def _build_boundary(node, it):
+    if isinstance(node, dict):
+        return {k: _build_boundary(node[k], it) for k in sorted(node)}
+    return next(it)
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
-    return build(like)
+
+def boundary_unflatten(like, xs: list):
+    """The boundary shaped like ``like`` whose leaves are ``xs`` (built by
+    a module function: a closure that calls itself is a reference cycle,
+    which would hold ``xs`` until the garbage collector runs)."""
+    return _build_boundary(like, iter(xs))
 
 
 def global_leaf_path(stage: int, local_path: str) -> str:

@@ -44,20 +44,24 @@ def leaves(tree: Any) -> list[Any]:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
+def _build(node: Any, it: Iterator[Any]) -> Any:
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if _is_namedtuple(node):
+        return type(node)(*(_build(v, it) for v in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
+
+
 def unflatten(like: Any, new_leaves) -> Any:
-    """A tree shaped like ``like`` whose leaves are ``new_leaves`` in order."""
-    it = iter(new_leaves)
+    """A tree shaped like ``like`` whose leaves are ``new_leaves`` in order.
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if _is_namedtuple(node):
-            return type(node)(*(build(v) for v in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    return build(like)
+    The recursion is a module function, not a closure: a closure that
+    calls itself is a reference cycle, which would hold ``new_leaves``
+    (whole trees of gradients or parameters) until the garbage collector
+    runs."""
+    return _build(like, iter(new_leaves))
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -202,7 +202,7 @@ class _FakeCard:
     def __init__(self, rc=0):
         self.calls, self.rc, self.libs = [], rc, {}
 
-    def load(self, name):
+    def load(self, name, together=()):
         return self.libs.setdefault(name, _FakeLib(self))
 
 
@@ -507,3 +507,47 @@ def test_build_target_follows_included_headers(tmp_path, monkeypatch):
     real = [p.name for p in build._included(
         build.Path(fb.__file__).with_name("csrc") / "flash_bwd_sm90.cu", [])]
     assert real == ["flash_bwd_sm90.cu", "sm90_common.cuh"]
+
+
+@pytest.mark.parametrize("name,together,compiled", [
+    ("pack", (), ["pack"]),
+    ("flash_fwd_sm90", ("flash_bwd_sm90",), ["flash_fwd_sm90", "flash_bwd_sm90"]),
+])
+def test_load_compiles_only_what_it_is_asked_for(tmp_path, monkeypatch, name,
+                                                 together, compiled):
+    """``build.load`` runs nvcc on the requested source and those named to
+    come next, at once, and on no other; a second load compiles nothing."""
+    import subprocess
+    from repro_torch.kernels import build
+    runs = []
+
+    class Nvcc:
+        def __init__(self, cmd, **kw):
+            runs.append(build.Path(cmd[-1]).stem)
+            build.Path(cmd[cmd.index("-o") + 1]).write_text("")
+            self.returncode = 0
+
+        def communicate(self):
+            return "log", None
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", Nvcc)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(build, "_loaded", {})
+    assert build.load(name, together=together) == str(build._target(name))
+    assert runs == compiled
+    build.load(name, together=together)
+    assert runs == compiled
+
+
+def test_flash_forward_library_brings_the_backward(monkeypatch):
+    """The bf16 forward's first load compiles the backward's source beside
+    its own: a training step needs both, and their nvcc run at once."""
+    card, asked = _FakeCard(), []
+
+    def load(name, together=()):
+        asked.append((name, together))
+        return card.load(name)
+    monkeypatch.setattr(fa.build, "load", load)
+    fa._sm90_lib()
+    assert asked == [("flash_fwd_sm90", ("flash_bwd_sm90",))]

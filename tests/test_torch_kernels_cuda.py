@@ -505,6 +505,117 @@ def test_cuda_flash_attention_train_matches_plain_gradients(cuda_device):
         _rel_close(got.grad, want.grad, 1e-5, "grad")
 
 
+# Self-attention of the benchmark's two cells: (B, T, H, Hkv, Dh, d_model,
+# QKV bias, RoPE): gpt2-2.5b at 8 x 1024, qwen2.5-3b at 2 x 4096 (GQA 16/2).
+CELL_ATTN = {"gpt2-2.5b": (8, 1024, 20, 20, 96, 1920, False, False),
+             "qwen2.5-3b": (2, 4096, 16, 2, 128, 2048, True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(CELL_ATTN))
+def test_cuda_attn_apply_flash_route_matches_blockwise(cuda_device, monkeypatch,
+                                                       cell):
+    """attn_apply's flash route (bf16, causal) against its blockwise route
+    on the same card at a cell's attention shape: the output and the
+    gradients of q, k, v and of the four projection weights, at the bf16
+    bar. The flash run launches one kernel of each kind and counts one
+    ``flash`` call."""
+    from repro_torch.models import layers as L
+    b, t, h, hkv, dh, d, bias, rope = CELL_ATTN[cell]
+    gen = torch.Generator().manual_seed(60)
+    p = {k: w[0].to(cuda_device) for k, w in L.attn_init(
+        gen, 1, d, h, hkv, dh, torch.bfloat16, qkv_bias=bias).items()}
+    x = torch.from_numpy(_np((b, t, d), 61)).to(cuda_device, torch.bfloat16)
+    dout = torch.from_numpy(_np((b, t, d), 62)).to(cuda_device, torch.bfloat16)
+    seen = {}
+
+    def keep(fn):
+        def run(q, k, v, *args, **kw):
+            for name, z in zip("qkv", (q, k, v)):
+                z.retain_grad()
+                seen[name] = z
+            return fn(q, k, v, *args, **kw)
+        return run
+
+    monkeypatch.setattr(L, "flash_attention_train", keep(L.flash_attention_train))
+    monkeypatch.setattr(L, "blockwise_attention", keep(L.blockwise_attention))
+    decide, got = L.attn_route, {}
+    for route in ("blockwise", "flash"):
+        monkeypatch.setattr(L, "attn_route", decide if route == "flash"
+                            else lambda *a: "blockwise")
+        leaves = {k: w.clone().requires_grad_(True) for k, w in p.items()}
+        calls = dict(L.attn_apply.calls_by_route)
+        before = {**fa.flash_fwd.launches_by_kernel,
+                  **fb.flash_dq.launches_by_kernel,
+                  **fb.flash_dkv.launches_by_kernel}
+        out = L.attn_apply(leaves, x, num_heads=h, num_kv_heads=hkv, head_dim=dh,
+                           causal=True, use_rope=rope, rope_theta=1e6)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        after = {**fa.flash_fwd.launches_by_kernel,
+                 **fb.flash_dq.launches_by_kernel,
+                 **fb.flash_dkv.launches_by_kernel}
+        flash = route == "flash"
+        assert {r: n - calls[r] for r, n in L.attn_apply.calls_by_route.items()} \
+            == {"flash": int(flash), "blockwise": int(not flash)}
+        assert {n: c - before[n] for n, c in after.items()} == {
+            "flash_fwd_sm90": int(flash), "flash_fwd_fma": 0,
+            "flash_dq_sm90": int(flash), "flash_dq_fma": 0,
+            "flash_dkv_sm90": int(flash), "flash_dkv_fma": 0}
+        got[route] = {"out": out.detach(),
+                      **{f"d{n}": seen[n].grad for n in "qkv"},
+                      **{f"d{n}": leaves[n].grad for n in ("wq", "wk", "wv", "wo")}}
+    for name, want in got["blockwise"].items():
+        assert got["flash"][name].dtype == want.dtype == torch.bfloat16
+        _rel_close(got["flash"][name], want, FLASH_TOL["bfloat16"], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,batch,seq", [("gpt2", 8, 1024),
+                                            ("qwen2.5-3b", 2, 4096)])
+def test_cuda_train_step_takes_flash_route(cuda_device, arch, batch, seq):
+    """One flat training step of a cell's configuration at depth 4 (bf16,
+    each block recomputed in the backward): every attn_apply call takes the
+    flash route, the forward kernel runs twice a layer (the forward and its
+    recompute) and each backward kernel once a layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressor import NO_COMPRESSION
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adam
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+    layers = 4
+    cfg = dataclasses.replace(get_config(arch, "full"), num_layers=layers)
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    model = build_model(cfg)
+    params = model.init(0, cuda_device)
+    acfg = adam.AdamConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    ost = adam.init(params, acfg)
+    state = {"params": params, "opt_m": ost.m, "opt_v": ost.v,
+             "opt_step": ost.step, "comp": {}}
+    step = make_train_step(model, TrainStepConfig(
+        policy_plan=NO_COMPRESSION, remat=False, adam=acfg),
+        psum_mean=lambda x: x)
+    batch = {k: torch.as_tensor(v).long().to(cuda_device) for k, v in
+             next(SyntheticLM(cfg.vocab_size, seq, batch, seed=0).batches()).items()}
+    calls = dict(L.attn_apply.calls_by_route)
+    before = {**fa.flash_fwd.launches_by_kernel, **fb.flash_dq.launches_by_kernel,
+              **fb.flash_dkv.launches_by_kernel}
+    state, mets = step(state, batch)
+    torch.cuda.synchronize()
+    after = {**fa.flash_fwd.launches_by_kernel, **fb.flash_dq.launches_by_kernel,
+             **fb.flash_dkv.launches_by_kernel}
+    assert {r: n - calls[r] for r, n in L.attn_apply.calls_by_route.items()} \
+        == {"flash": 2 * layers, "blockwise": 0}
+    assert {n: c - before[n] for n, c in after.items()} == {
+        "flash_fwd_sm90": 2 * layers, "flash_fwd_fma": 0,
+        "flash_dq_sm90": layers, "flash_dq_fma": 0,
+        "flash_dkv_sm90": layers, "flash_dkv_fma": 0}
+    assert torch.isfinite(mets["loss"]).item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,offset", [(1_000_003, 1), (4099, 0), (7, 3)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])

@@ -153,3 +153,21 @@ def test_registries_hold_the_ported_families():
         assert build_model(ModelConfig(family=family)).config.family == family
     assert adapter_families() == ref_adapters() == [
         "dense", "moe", "vlm", "whisper", "xlstm", "zamba"]
+
+
+def test_tree_map_holds_no_reference_cycle():
+    """A tree that ``tree.unflatten`` (and so ``tree_map``) builds is freed
+    as soon as it is dropped: no reference cycle keeps its leaves (whole
+    trees of gradients, on the card) until the garbage collector runs."""
+    import gc
+    import weakref
+    src = {"a": [torch.zeros(3), torch.ones(2)], "b": (torch.zeros(1),)}
+    gc.collect()
+    gc.disable()
+    try:
+        out = tree.tree_map(lambda t: t + 1, src)
+        refs = [weakref.ref(t) for t in tree.leaves(out)]
+        del out
+        assert [r() is None for r in refs] == [True] * 3
+    finally:
+        gc.enable()
